@@ -1,0 +1,261 @@
+"""Conv group: a chain of 3x3 convs over one shared channel stripe.
+
+Replaces ``ocflow_tpu/ops/pallas/conv_chain_kernel.py:conv_group``. Each
+group owns one stripe ``[B, sum(cout), Ho, Wo]`` in which every conv of the
+chain writes its output at a fixed channel offset. A conv reads its
+``reads`` (block ids: ``0..n_inputs-1`` are the group's inputs, ``n_inputs
++ j`` is conv j's output) as channel ranges of the inputs or the stripe,
+so a DenseNet concat is never built. Each conv applies bias and optional
+LeakyReLU(0.1) and stores in the group's dtype (fp32 or bf16); later convs
+read the stored values, as the TPU kernel reads its VMEM stripe.
+
+On CUDA tensors ``conv_group`` launches ``csrc/conv_group.cu`` once per
+conv (``conv_group.launches`` counts the launches); on CPU tensors it runs
+the plain version ``conv_group_plain``. There is no fallback from one to the
+other. The TPU kernel's lane packing, W-pair stride-2 packing, im2col and
+16-channel padding are TPU layout devices and have no counterpart here: a
+stride-2 conv reads its (unpacked) input directly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ocflow_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAXSEG = 8
+_COUT_ALIGN = 128  # packed cout padding: a multiple of every kernel tile
+
+
+@dataclass(frozen=True)
+class ConvSpec:
+    """One 3x3 conv of a group.
+
+    reads: block ids it consumes, in the order of its weight's input
+        channels. cout: output channels. dilation: tap spacing (padding
+        equals the dilation). act: LeakyReLU(0.1). emit: return this
+        conv's output. stride: 1, or 2 for a conv that reads one group
+        input at twice the group's resolution.
+    """
+
+    reads: tuple[int, ...]
+    cout: int
+    dilation: int = 1
+    act: bool = True
+    emit: bool = False
+    stride: int = 1
+
+
+@dataclass
+class ConvGroup:
+    """A chain with its weights packed once (see :func:`prepare_group`)."""
+
+    specs: tuple[ConvSpec, ...]
+    n_inputs: int
+    weights: list[torch.Tensor]  # per conv: OIHW over its reads (plain version)
+    biases: list[torch.Tensor]   # per conv: fp32 [cout] (both versions)
+    packed: list[torch.Tensor]   # per conv: [9*Cin, cout_pad], k = tap*Cin + c
+    offsets: list[int]           # stripe channel offset of each conv's block
+    width: int                   # stripe channels
+    dtype: torch.dtype
+
+
+def prepare_group(weights: Sequence[torch.Tensor],
+                  biases: Sequence[torch.Tensor],
+                  specs: Sequence[ConvSpec], n_inputs: int,
+                  dtype: torch.dtype, device) -> ConvGroup:
+    """Pack a chain's weights for the kernel.
+
+    weights[j]: ``[cout_j, Cin_j, 3, 3]`` (OIHW) whose input channels are
+    the concatenation of ``specs[j].reads`` in read order; biases[j]:
+    ``[cout_j]``.
+    """
+    specs = tuple(specs)
+    if dtype not in _DTYPES:
+        raise ValueError(f"conv_group: unsupported dtype {dtype}")
+    ws, bs, packed, offsets = [], [], [], []
+    off = 0
+    for j, (w, b, s) in enumerate(zip(weights, biases, specs, strict=True)):
+        if w.shape[0] != s.cout or tuple(w.shape[2:]) != (3, 3):
+            raise ValueError(f"conv {j}: weight {tuple(w.shape)} vs cout {s.cout}")
+        if any(r >= n_inputs + j for r in s.reads):
+            raise ValueError(f"conv {j} reads a block produced later: {s.reads}")
+        if s.stride not in (1, 2) or (s.stride == 2 and (
+                len(s.reads) != 1 or s.reads[0] >= n_inputs)):
+            raise ValueError(f"conv {j}: stride 2 reads exactly one group input")
+        w = w.detach().to(device=device, dtype=torch.float32)
+        b = b.detach().to(device=device, dtype=torch.float32)
+        cin = w.shape[1]
+        cout_pad = -(-s.cout // _COUT_ALIGN) * _COUT_ALIGN
+        wk = w.permute(2, 3, 1, 0).reshape(9 * cin, s.cout)
+        packed.append(F.pad(wk, (0, cout_pad - s.cout)).to(dtype).contiguous())
+        ws.append(w.to(dtype))
+        bs.append(b.contiguous())
+        offsets.append(off)
+        off += s.cout
+    return ConvGroup(specs, n_inputs, ws, bs, packed, offsets, off, dtype)
+
+
+def _out_hw(inputs, group: ConvGroup) -> tuple[int, int]:
+    """The stripe's spatial size, checked against every conv's reads."""
+    hw = [tuple(x.shape[2:]) for x in inputs]
+    out = None
+    for j, s in enumerate(group.specs):
+        src = {hw[r] for r in s.reads}
+        if len(src) != 1:
+            raise ValueError(f"conv {j} reads blocks of sizes {src}")
+        (h, w), = src
+        if s.stride == 2:
+            h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        if out is not None and (h, w) != out:
+            raise ValueError(f"conv {j} outputs {(h, w)}, the group {out}")
+        out = (h, w)
+        hw.append(out)
+    return out
+
+
+def _block(inputs, stripe, group: ConvGroup, bid: int) -> torch.Tensor:
+    if bid < group.n_inputs:
+        return inputs[bid]
+    j = bid - group.n_inputs
+    o = group.offsets[j]
+    return stripe[:, o:o + group.specs[j].cout]
+
+
+def _emitted(stripe, group: ConvGroup) -> list[torch.Tensor]:
+    return [stripe[:, o:o + s.cout]
+            for s, o in zip(group.specs, group.offsets) if s.emit]
+
+
+def _check_inputs(inputs, group: ConvGroup) -> None:
+    if len(inputs) != group.n_inputs:
+        raise ValueError(f"conv_group: {len(inputs)} inputs, group takes {group.n_inputs}")
+    dev = inputs[0].device
+    b = inputs[0].shape[0]
+    for x in inputs:
+        if x.device != dev or x.dtype != group.dtype or x.dim() != 4 or x.shape[0] != b:
+            raise ValueError(
+                f"conv_group: input {tuple(x.shape)} {x.dtype} on {x.device}; "
+                f"the group wants {group.dtype}")
+    for j, (s, w) in enumerate(zip(group.specs, group.weights)):
+        cin = sum(inputs[r].shape[1] if r < group.n_inputs
+                  else group.specs[r - group.n_inputs].cout for r in s.reads)
+        if cin != w.shape[1]:
+            raise ValueError(f"conv {j}: reads {cin} channels, weight wants {w.shape[1]}")
+
+
+def conv_group_plain(inputs: Sequence[torch.Tensor],
+                     group: ConvGroup) -> list[torch.Tensor]:
+    """Plain PyTorch version: each conv over the materialized concat of its
+    reads, computed in fp32 and stored in the group dtype."""
+    _check_inputs(inputs, group)
+    h, w = _out_hw(inputs, group)
+    x0 = inputs[0]
+    stripe = torch.empty((x0.shape[0], group.width, h, w), dtype=group.dtype,
+                         device=x0.device)
+    for j, s in enumerate(group.specs):
+        x = torch.cat([_block(inputs, stripe, group, r) for r in s.reads], 1)
+        y = F.conv2d(x.float(), group.weights[j].float(),
+                     group.biases[j], stride=s.stride,
+                     padding=s.dilation, dilation=s.dilation)
+        if s.act:
+            y = F.leaky_relu(y, 0.1)
+        o = group.offsets[j]
+        stripe[:, o:o + s.cout] = y.to(group.dtype)
+    return _emitted(stripe, group)
+
+
+def _lib():
+    lib = _build.load("conv_group")
+    fn = lib.ocf_conv3x3
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
+            ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _segments(inputs, stripe, group: ConvGroup, reads):
+    """Channel segments (tensor view, channels) of a conv's reads, with
+    consecutive stripe blocks merged into one segment."""
+    segs = []
+    prev = None
+    for r in reads:
+        t = _block(inputs, stripe, group, r)
+        if prev is not None and r >= group.n_inputs and prev == r - 1 \
+                and prev >= group.n_inputs:
+            j0 = segs[-1][2]
+            o = group.offsets[j0]
+            merged = stripe[:, o:group.offsets[r - group.n_inputs] + t.shape[1]]
+            segs[-1] = (merged, merged.shape[1], j0)
+        else:
+            segs.append((t, t.shape[1], r - group.n_inputs))
+        prev = r
+    return [(t, c) for t, c, _ in segs]
+
+
+def _tile_cfg(cout: int) -> int:
+    """Output channels per kernel tile: 16 << cfg."""
+    return 0 if cout <= 16 else 1 if cout <= 32 else 2 if cout <= 64 else 3
+
+
+def conv_group(inputs: Sequence[torch.Tensor],
+               group: ConvGroup) -> list[torch.Tensor]:
+    """Run a conv chain; returns the emitted blocks as ``[B, cout, Ho, Wo]``
+    views of the group's stripe. Kernel on CUDA, plain version on the CPU."""
+    inputs = list(inputs)
+    if inputs[0].device.type == "cpu":
+        return conv_group_plain(inputs, group)
+    if inputs[0].device.type != "cuda":
+        raise ValueError(f"conv_group: unsupported device {inputs[0].device}")
+    _check_inputs(inputs, group)
+    for x in inputs:
+        _, c, h, w = x.shape
+        if x.stride()[1:] != (h * w, w, 1):
+            raise ValueError("conv_group: inputs must be channel-contiguous NCHW views")
+    if group.packed[0].device != inputs[0].device:
+        raise ValueError("conv_group: weights and inputs on different devices")
+    ho, wo = _out_hw(inputs, group)
+    b = inputs[0].shape[0]
+    stripe = torch.empty((b, group.width, ho, wo), dtype=group.dtype,
+                         device=inputs[0].device)
+    fn = _lib()
+    dt = _DTYPES[group.dtype]
+    stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
+    for j, s in enumerate(group.specs):
+        segs = _segments(inputs, stripe, group, s.reads)
+        if len(segs) > _MAXSEG:
+            raise ValueError(f"conv {j}: {len(segs)} segments > {_MAXSEG}")
+        hin, win = segs[0][0].shape[2:]
+        n = len(segs)
+        ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t, _ in segs])
+        bstr = (ctypes.c_longlong * n)(*[t.stride(0) for t, _ in segs])
+        chans = (ctypes.c_int * n)(*[c for _, c in segs])
+        o = group.offsets[j]
+        out = stripe[:, o:o + s.cout]
+        code = fn(dt, _tile_cfg(s.cout), n, ptrs, bstr, chans, b, hin, win,
+                  group.packed[j].data_ptr(), group.biases[j].data_ptr(),
+                  out.data_ptr(), out.stride(0), s.cout,
+                  group.packed[j].shape[1], ho, wo, s.stride, s.dilation,
+                  int(s.act), stream)
+        _build.check(code, f"conv_group conv {j}")
+        conv_group.launches += 1
+    return _emitted(stripe, group)
+
+
+conv_group.launches = 0
