@@ -5,9 +5,11 @@ same functions with plain PyTorch and with kernels written by hand for
 Hopper (``csrc/``). It never imports ``jax`` or ``ocflow_tpu``.
 
 Covered so far: the FlowNetCV serving forward (``models.pwc_fast.fast_apply``)
-with its ops (cost volume, feature normalization, warp, resize), the eager
-``FlowNetCV`` / ``PWCNet`` modules and the weight bridge from the JAX
-package's parameter tree (``models.convert``).
+in bf16, fp32 and W8A8 (``calibrate_q8``) with its ops (cost volume,
+feature normalization, warp, resize), the eager ``FlowNetCV`` / ``PWCNet``
+modules, the weight and W8A8-scale bridges from the JAX package
+(``models.convert``), and measurement tools (``tools``: the int8 / bf16
+GEMM probe, W8A8 accuracy).
 
 Layout: the public model entry points take and return NHWC like the JAX
 package; everything inside (ops, kernels, modules) is NCHW.

@@ -30,7 +30,7 @@ from ocflow_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAXSEG = 8
-_COUT_ALIGN = 128  # packed cout padding: a multiple of every kernel tile
+COUT_ALIGN = 128  # packed cout padding: a multiple of every kernel tile
 
 
 @dataclass(frozen=True)
@@ -41,7 +41,8 @@ class ConvSpec:
         channels. cout: output channels. dilation: tap spacing (padding
         equals the dilation). act: LeakyReLU(0.1). emit: return this
         conv's output. stride: 1, or 2 for a conv that reads one group
-        input at twice the group's resolution.
+        input at twice the group's resolution. q8: store this conv's
+        output as int8 codes (W8A8 groups only, ``kernels.conv_chain_q8``).
     """
 
     reads: tuple[int, ...]
@@ -50,6 +51,7 @@ class ConvSpec:
     act: bool = True
     emit: bool = False
     stride: int = 1
+    q8: bool = False
 
 
 @dataclass
@@ -84,17 +86,12 @@ def prepare_group(weights: Sequence[torch.Tensor],
     for j, (w, b, s) in enumerate(zip(weights, biases, specs, strict=True)):
         if w.shape[0] != s.cout or tuple(w.shape[2:]) != (3, 3):
             raise ValueError(f"conv {j}: weight {tuple(w.shape)} vs cout {s.cout}")
-        if any(r >= n_inputs + j for r in s.reads):
-            raise ValueError(f"conv {j} reads a block produced later: {s.reads}")
-        if s.stride not in (1, 2) or (s.stride == 2 and (
-                len(s.reads) != 1 or s.reads[0] >= n_inputs)):
-            raise ValueError(f"conv {j}: stride 2 reads exactly one group input")
+        check_spec(s, j, n_inputs)
+        if s.q8:
+            raise ValueError(f"conv {j}: q8 specs belong to a W8A8 group")
         w = w.detach().to(device=device, dtype=torch.float32)
         b = b.detach().to(device=device, dtype=torch.float32)
-        cin = w.shape[1]
-        cout_pad = -(-s.cout // _COUT_ALIGN) * _COUT_ALIGN
-        wk = w.permute(2, 3, 1, 0).reshape(9 * cin, s.cout)
-        packed.append(F.pad(wk, (0, cout_pad - s.cout)).to(dtype).contiguous())
+        packed.append(pack_weights(w, dtype))
         ws.append(w.to(dtype))
         bs.append(b.contiguous())
         offsets.append(off)
@@ -102,11 +99,30 @@ def prepare_group(weights: Sequence[torch.Tensor],
     return ConvGroup(specs, n_inputs, ws, bs, packed, offsets, off, dtype)
 
 
-def _out_hw(inputs, group: ConvGroup) -> tuple[int, int]:
-    """The stripe's spatial size, checked against every conv's reads."""
-    hw = [tuple(x.shape[2:]) for x in inputs]
+def check_spec(s: ConvSpec, j: int, n_inputs: int) -> None:
+    """Reads of earlier blocks only; stride 2 reads exactly one input."""
+    if any(r >= n_inputs + j for r in s.reads):
+        raise ValueError(f"conv {j} reads a block produced later: {s.reads}")
+    if s.stride not in (1, 2) or (s.stride == 2 and (
+            len(s.reads) != 1 or s.reads[0] >= n_inputs)):
+        raise ValueError(f"conv {j}: stride 2 reads exactly one group input")
+
+
+def pack_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """OIHW ``[cout, Cin, 3, 3]`` -> the bf16/fp32 kernel's ``[9*Cin,
+    cout_pad]``, row ``k = tap*Cin + c``."""
+    cout, cin = w.shape[:2]
+    cout_pad = -(-cout // COUT_ALIGN) * COUT_ALIGN
+    wk = w.permute(2, 3, 1, 0).reshape(9 * cin, cout)
+    return F.pad(wk, (0, cout_pad - cout)).to(dtype).contiguous()
+
+
+def out_hw(hw: list, specs) -> tuple[int, int]:
+    """The stripe's spatial size from the inputs' ``hw``, checked against
+    every conv's reads."""
+    hw = list(hw)
     out = None
-    for j, s in enumerate(group.specs):
+    for j, s in enumerate(specs):
         src = {hw[r] for r in s.reads}
         if len(src) != 1:
             raise ValueError(f"conv {j} reads blocks of sizes {src}")
@@ -118,6 +134,10 @@ def _out_hw(inputs, group: ConvGroup) -> tuple[int, int]:
         out = (h, w)
         hw.append(out)
     return out
+
+
+def _out_hw(inputs, group: ConvGroup) -> tuple[int, int]:
+    return out_hw([tuple(x.shape[2:]) for x in inputs], group.specs)
 
 
 def _block(inputs, stripe, group: ConvGroup, bid: int) -> torch.Tensor:
@@ -190,28 +210,74 @@ def _lib():
     return fn
 
 
-def _segments(inputs, stripe, group: ConvGroup, reads):
-    """Channel segments (tensor view, channels) of a conv's reads, with
-    consecutive stripe blocks merged into one segment."""
-    segs = []
-    prev = None
-    for r in reads:
-        t = _block(inputs, stripe, group, r)
-        if prev is not None and r >= group.n_inputs and prev == r - 1 \
-                and prev >= group.n_inputs:
-            j0 = segs[-1][2]
-            o = group.offsets[j0]
-            merged = stripe[:, o:group.offsets[r - group.n_inputs] + t.shape[1]]
-            segs[-1] = (merged, merged.shape[1], j0)
-        else:
-            segs.append((t, t.shape[1], r - group.n_inputs))
-        prev = r
-    return [(t, c) for t, c, _ in segs]
+def merge_segments(views: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """A conv's reads as channel segments for the kernels: consecutive
+    views that are adjacent channel ranges of one tensor (stripe blocks)
+    merge into one segment."""
+    segs: list[torch.Tensor] = []
+    for t in views:
+        if segs:
+            p = segs[-1]
+            if (p.untyped_storage().data_ptr()
+                    == t.untyped_storage().data_ptr()
+                    and p.dtype == t.dtype and p.stride() == t.stride()
+                    and p.shape[2:] == t.shape[2:]
+                    and t.data_ptr() == p.data_ptr()
+                    + p.shape[1] * p.stride(1) * p.element_size()):
+                segs[-1] = p.as_strided(
+                    (p.shape[0], p.shape[1] + t.shape[1], *p.shape[2:]),
+                    p.stride())
+                continue
+        segs.append(t)
+    if len(segs) > _MAXSEG:
+        raise ValueError(f"{len(segs)} channel segments > {_MAXSEG}")
+    return segs
 
 
-def _tile_cfg(cout: int) -> int:
+def segment_args(segs: Sequence[torch.Tensor]):
+    """ctypes arrays of the segments' pointers, batch strides, channels."""
+    n = len(segs)
+    return ((ctypes.c_void_p * n)(*[t.data_ptr() for t in segs]),
+            (ctypes.c_longlong * n)(*[t.stride(0) for t in segs]),
+            (ctypes.c_int * n)(*[t.shape[1] for t in segs]))
+
+
+def tile_cfg(cout: int) -> int:
     """Output channels per kernel tile: 16 << cfg."""
     return 0 if cout <= 16 else 1 if cout <= 32 else 2 if cout <= 64 else 3
+
+
+def launch_conv(reads: Sequence[torch.Tensor], packed: torch.Tensor,
+                bias: torch.Tensor, out: torch.Tensor, spec: ConvSpec,
+                what: str) -> None:
+    """One launch of ``csrc/conv_group.cu``: ``out`` (a ``[B, cout, Ho,
+    Wo]`` channel range of a stripe, in the kernel dtype) = the conv of the
+    channel concat of ``reads`` with ``packed`` (see :func:`pack_weights`)
+    and the fp32 ``bias``. Counts the launch in ``conv_group.launches``."""
+    segs = merge_segments(reads)
+    ptrs, bstr, chans = segment_args(segs)
+    b, _, ho, wo = out.shape
+    hin, win = segs[0].shape[2:]
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    code = _lib()(_DTYPES[out.dtype], tile_cfg(spec.cout), len(segs), ptrs,
+                  bstr, chans, b, hin, win, packed.data_ptr(),
+                  bias.data_ptr(), out.data_ptr(), out.stride(0), spec.cout,
+                  packed.shape[1], ho, wo, spec.stride, spec.dilation,
+                  int(spec.act), stream)
+    _build.check(code, what)
+    conv_group.launches += 1
+
+
+def check_kernel_inputs(inputs: Sequence[torch.Tensor], weight: torch.Tensor,
+                        what: str) -> None:
+    """The kernels read channel-contiguous NCHW views on the weights'
+    device."""
+    for x in inputs:
+        _, c, h, w = x.shape
+        if x.stride()[1:] != (h * w, w, 1):
+            raise ValueError(f"{what}: inputs must be channel-contiguous NCHW views")
+    if weight.device != inputs[0].device:
+        raise ValueError(f"{what}: weights and inputs on different devices")
 
 
 def conv_group(inputs: Sequence[torch.Tensor],
@@ -224,37 +290,16 @@ def conv_group(inputs: Sequence[torch.Tensor],
     if inputs[0].device.type != "cuda":
         raise ValueError(f"conv_group: unsupported device {inputs[0].device}")
     _check_inputs(inputs, group)
-    for x in inputs:
-        _, c, h, w = x.shape
-        if x.stride()[1:] != (h * w, w, 1):
-            raise ValueError("conv_group: inputs must be channel-contiguous NCHW views")
-    if group.packed[0].device != inputs[0].device:
-        raise ValueError("conv_group: weights and inputs on different devices")
+    check_kernel_inputs(inputs, group.packed[0], "conv_group")
     ho, wo = _out_hw(inputs, group)
     b = inputs[0].shape[0]
     stripe = torch.empty((b, group.width, ho, wo), dtype=group.dtype,
                          device=inputs[0].device)
-    fn = _lib()
-    dt = _DTYPES[group.dtype]
-    stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
     for j, s in enumerate(group.specs):
-        segs = _segments(inputs, stripe, group, s.reads)
-        if len(segs) > _MAXSEG:
-            raise ValueError(f"conv {j}: {len(segs)} segments > {_MAXSEG}")
-        hin, win = segs[0][0].shape[2:]
-        n = len(segs)
-        ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t, _ in segs])
-        bstr = (ctypes.c_longlong * n)(*[t.stride(0) for t, _ in segs])
-        chans = (ctypes.c_int * n)(*[c for _, c in segs])
         o = group.offsets[j]
-        out = stripe[:, o:o + s.cout]
-        code = fn(dt, _tile_cfg(s.cout), n, ptrs, bstr, chans, b, hin, win,
-                  group.packed[j].data_ptr(), group.biases[j].data_ptr(),
-                  out.data_ptr(), out.stride(0), s.cout,
-                  group.packed[j].shape[1], ho, wo, s.stride, s.dilation,
-                  int(s.act), stream)
-        _build.check(code, f"conv_group conv {j}")
-        conv_group.launches += 1
+        launch_conv([_block(inputs, stripe, group, r) for r in s.reads],
+                    group.packed[j], group.biases[j],
+                    stripe[:, o:o + s.cout], s, f"conv_group conv {j}")
     return _emitted(stripe, group)
 
 

@@ -1,4 +1,4 @@
-"""Weights from the JAX package's flax parameter tree into the port.
+"""Weights and W8A8 scales from the JAX package into the port.
 
 ``flownetcv_from_flax`` is the inverse of
 ``ocflow_tpu.models.torch_convert.convert_flownetcv``: it takes the flax
@@ -61,3 +61,18 @@ def flownetcv_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
         _conv(sd, f"dc_conv{j + 1}.0", ctx[f"ConvBlock_{j}"]["Conv_0"])
     _conv(sd, f"dc_conv{len(CONTEXT) + 1}", ctx["PredictFlow_0"]["Conv_0"])
     return sd
+
+
+def q8_scales_from_numpy(tree: Mapping) -> dict:
+    """W8A8 scales of the JAX package's ``calibrate_q8`` (``{'dec0': {'in':
+    s, 'growth': [s] * 5}, ..., 'dec4': ..., optional 'enc', 'ctx'}`` with
+    numpy scalars or 0-d arrays) -> the port's form for
+    ``fast_apply(..., q8=...)``: the same tree with every scale a Python
+    float holding the fp32 value."""
+    def conv(v):
+        if isinstance(v, Mapping):
+            return {k: conv(e) for k, e in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [conv(e) for e in v]
+        return float(np.float32(np.asarray(v)))
+    return conv(tree)

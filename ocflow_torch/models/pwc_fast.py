@@ -1,5 +1,5 @@
 """Fused serving forward of FlowNetCV (port of ``ocflow_tpu/models/pwc_fast.py``
-``fast_apply``, bf16 and fp32; the W8A8 variant is not ported yet).
+``fast_apply`` in bf16, fp32 and W8A8, and of its ``calibrate_q8``).
 
 The same function as ``FlowNetCV.forward`` on the same weights, with the hot
 blocks on the hand-written Hopper kernels:
@@ -18,7 +18,19 @@ blocks on the hand-written Hopper kernels:
 
 Warps, feature normalization, the decoder-input assembly and the final
 resize are plain PyTorch. Weights are packed once per (model, dtype,
-device) by :func:`prepare` and cached on the model until they change.
+device, W8A8 scales) by :func:`prepare` and cached on the model until they
+change.
+
+W8A8 (``fast_apply(..., q8=scales)``, scales from :func:`calibrate_q8`):
+every decoder group L6..L2 runs on the int8 conv-group kernel
+(``kernels/conv_chain_q8.py``): the five growth convs store int8 codes; the
+flow head, context conv 1 and the up-feat phase conv read the int8 blocks
+and emit bf16; the up-flow phase conv reads the flow head from the bf16
+side stripe on the bf16 kernel. With ``'enc'`` in the scales each encoder
+level is one int8 group (stride-2 conv + pair, codes chained level to
+level, features dequantized once for the warps and cost volumes); with
+``'ctx'`` the dilated context chain, 64 -> 32 and the flow head are one
+int8 group in place of the dilated convs and the tail.
 """
 
 from __future__ import annotations
@@ -32,8 +44,12 @@ from torch import nn
 
 from ocflow_torch import resolve_device
 from ocflow_torch.kernels.conv_chain import ConvGroup, ConvSpec, conv_group, prepare_group
+from ocflow_torch.kernels.conv_chain_q8 import (ConvGroupQ8, amax_scale, conv_group_q8,
+                                                dequantize_q8, prepare_group_q8,
+                                                quantize_q8)
 from ocflow_torch.kernels.cost_volume import cost_volume
-from ocflow_torch.models.pwc_net import CONTEXT, DECODER_LEVELS, GROWTH, FlowNetCV
+from ocflow_torch.models.pwc_net import (CONTEXT, DECODER_LEVELS, GROWTH, LEVEL_FEATURES,
+                                         FlowNetCV)
 from ocflow_torch.ops.cost_volume import normalize_features
 from ocflow_torch.ops.resize import resize_bilinear
 from ocflow_torch.ops.warp import warp
@@ -81,21 +97,31 @@ def _unpack_phases(y8: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class FastWeights:
-    """The model's weights packed for the kernels (see :func:`prepare`)."""
+    """The model's weights packed for the kernels (see :func:`prepare`).
+    A group is a ``ConvGroup`` (bf16/fp32) or, under W8A8, a
+    ``ConvGroupQ8``."""
 
-    encoder: list[ConvGroup]
-    decoders: list[ConvGroup]   # levels 6..3
-    level2: ConvGroup
-    ctx_dilated: list[tuple[torch.Tensor, torch.Tensor, int]]
-    ctx_tail: ConvGroup
+    encoder: list
+    decoders: list              # levels 6..3
+    level2: ConvGroup | ConvGroupQ8
+    ctx_dilated: list[tuple[torch.Tensor, torch.Tensor, int]]  # empty under 'ctx'
+    ctx_tail: ConvGroup | ConvGroupQ8  # 64 -> 32 -> 2, or the whole W8A8 chain
 
-    def groups(self) -> list[ConvGroup]:
+    def groups(self) -> list:
         """Every conv group, in the order one forward runs them."""
         return [*self.encoder, *self.decoders, self.level2, self.ctx_tail]
 
+    def launch_counts(self) -> dict[str, int]:
+        """Conv-kernel launches of one forward: ``conv_group`` (bf16/fp32
+        kernel) and ``conv_group_q8`` (int8 kernel)."""
+        n8 = sum(g.n_int8 for g in self.groups() if isinstance(g, ConvGroupQ8))
+        return {"conv_group": sum(len(g.specs) for g in self.groups()) - n8,
+                "conv_group_q8": n8}
 
-def _decoder_specs(n_in: int, head_emit: bool) -> list[ConvSpec]:
-    specs = [ConvSpec(tuple(range(n_in + j)), g) for j, g in enumerate(GROWTH)]
+
+def _decoder_specs(n_in: int, head_emit: bool, q8: bool = False) -> list[ConvSpec]:
+    specs = [ConvSpec(tuple(range(n_in + j)), g, q8=q8)
+             for j, g in enumerate(GROWTH)]
     specs.append(ConvSpec(tuple(range(n_in + len(GROWTH))), 2, act=False,
                           emit=head_emit))
     return specs
@@ -108,22 +134,44 @@ def _decoder_weights(dec, c0: int):
     return ws, [c.bias.detach() for c in dec.convs()]
 
 
-def _build(model: FlowNetCV, dtype: torch.dtype, device) -> FastWeights:
+def _decoder_inputs(model: FlowNetCV, lvl: int) -> tuple[int, ...]:
+    """Channels of a decoder's inputs: the cost volume, then (below level
+    6) the level's features, the up-sampled flow and features."""
+    nk = (2 * model.displacement + 1) ** 2
+    return (nk,) if lvl == DECODER_LEVELS[0] else (nk, LEVEL_FEATURES[lvl - 1], 2, 2)
+
+
+def _group(ws, bs, specs, in_ch, dtype, device, q8=None, scales=None):
+    """A bf16/fp32 group, or with ``q8`` (``{'in': s, ...}``) a W8A8 group
+    whose spec scales are ``scales``."""
+    if q8 is None:
+        return prepare_group(ws, bs, specs, len(in_ch), dtype, device)
+    return prepare_group_q8(ws, bs, specs, in_ch, q8["in"], scales, device)
+
+
+def _build(model: FlowNetCV, dtype: torch.dtype, device, q8=None) -> FastWeights:
     kw = dict(dtype=dtype, device=device)
-    encoder = []
-    for convs in model.encoder.levels():
+    enc = q8.get("enc") if q8 else None
+    encoder, cin = [], 3
+    for lvl, convs in enumerate(model.encoder.levels()):
         c = convs[0].out_channels
-        specs = [ConvSpec((0,), c, stride=2), ConvSpec((1,), c),
-                 ConvSpec((2,), c, emit=True)]
-        encoder.append(prepare_group(
-            [m.weight for m in convs], [m.bias for m in convs], specs, 1, **kw))
+        qs = None if enc is None else {
+            "in": enc["in"] if lvl == 0 else enc["levels"][lvl - 1][2]}
+        specs = [ConvSpec((0,), c, stride=2, q8=qs is not None),
+                 ConvSpec((1,), c, q8=qs is not None),
+                 ConvSpec((2,), c, emit=True, q8=qs is not None)]
+        encoder.append(_group(
+            [m.weight for m in convs], [m.bias for m in convs], specs, (cin,),
+            **kw, q8=qs, scales=None if enc is None else enc["levels"][lvl]))
+        cin = c
 
     decoders = []
-    for dec, lvl in zip(model.decoders[:-1], DECODER_LEVELS[:-1]):
-        n_in = 1 if lvl == DECODER_LEVELS[0] else 4
+    for i, (dec, lvl) in enumerate(zip(model.decoders[:-1], DECODER_LEVELS[:-1])):
+        in_ch = _decoder_inputs(model, lvl)
+        n_in = len(in_ch)
         c0 = dec.convs()[0].in_channels
         ws, bs = _decoder_weights(dec, c0)
-        specs = _decoder_specs(n_in, head_emit=False)
+        specs = _decoder_specs(n_in, head_emit=False, q8=q8 is not None)
         deconv, upfeat = model.upsamplers(lvl)
         fw, fb = _phase_conv_weights(deconv)
         uw, ub = _phase_conv_weights(upfeat)
@@ -132,19 +180,33 @@ def _build(model: FlowNetCV, dtype: torch.dtype, device) -> FastWeights:
         specs += [ConvSpec((n_in + len(GROWTH),), 8, act=False, emit=True),
                   ConvSpec(tuple(range(n_in + len(GROWTH))), 8, act=False,
                            emit=True)]
-        decoders.append(prepare_group(ws, bs, specs, n_in, **kw))
+        qs = q8[f"dec{i}"] if q8 else None
+        decoders.append(_group(ws, bs, specs, in_ch, **kw, q8=qs,
+                               scales=qs and [*qs["growth"], None, None, None]))
 
     dec2 = model.decoders[-1]
     c0 = dec2.convs()[0].in_channels
     ws, bs = _decoder_weights(dec2, c0)
-    specs = _decoder_specs(4, head_emit=True)
+    specs = _decoder_specs(4, head_emit=True, q8=q8 is not None)
     ctx = model.context.convs()
     ws.append(_split_newest_first(ctx[0].weight.detach(), [c0, *GROWTH]))
     bs.append(ctx[0].bias.detach())
     specs.append(ConvSpec(tuple(range(4 + len(GROWTH))), CONTEXT[0][0],
                           emit=True))
-    level2 = prepare_group(ws, bs, specs, 4, **kw)
+    qs = q8[f"dec{len(DECODER_LEVELS) - 1}"] if q8 else None
+    level2 = _group(ws, bs, specs, _decoder_inputs(model, DECODER_LEVELS[-1]),
+                    **kw, q8=qs, scales=qs and [*qs["growth"], None, None])
 
+    if q8 and "ctx" in q8:
+        # dilated chain d=2..16, 64 -> 32 and the flow head as one group
+        specs = [ConvSpec((j,), g, dilation=d, q8=True)
+                 for j, (g, d) in enumerate(CONTEXT[1:])]
+        specs.append(ConvSpec((len(CONTEXT) - 1,), 2, act=False, emit=True))
+        tail = prepare_group_q8(
+            [m.weight for m in ctx[1:]], [m.bias for m in ctx[1:]], specs,
+            (CONTEXT[0][0],), q8["ctx"]["in"], [*q8["ctx"]["chain"], None],
+            device)
+        return FastWeights(encoder, decoders, level2, [], tail)
     dilated = [(m.weight.detach().to(**kw), m.bias.detach().to(**kw), d)
                for m, (_, d) in zip(ctx[1:-2], CONTEXT[1:-1])]
     tail = prepare_group(
@@ -160,20 +222,34 @@ def _weights_version(model: nn.Module) -> tuple:
     return tuple((p.data_ptr(), p._version) for p in model.parameters())
 
 
-def prepare(model: FlowNetCV, dtype: torch.dtype, device) -> FastWeights:
-    """Pack ``model``'s weights for the kernels in ``dtype`` on ``device``.
+def _scales_key(q8):
+    """The W8A8 scales as a hashable value (every scale as a float)."""
+    if isinstance(q8, Mapping):
+        return tuple((k, _scales_key(q8[k])) for k in sorted(q8))
+    if isinstance(q8, (list, tuple)):
+        return tuple(_scales_key(v) for v in q8)
+    return float(q8)
 
-    The packed copy is cached on the model and reused until a parameter
-    changes; then every cached packing is dropped and this one rebuilt."""
+
+def prepare(model: FlowNetCV, dtype: torch.dtype, device, q8=None) -> FastWeights:
+    """Pack ``model``'s weights for the kernels in ``dtype`` on ``device``;
+    with ``q8`` (scales from :func:`calibrate_q8`) fold and quantize the
+    W8A8 groups with those scales.
+
+    The packed copy is cached on the model, keyed by dtype, device and the
+    scale values, and reused until a parameter changes; then every cached
+    packing is dropped and this one rebuilt."""
     version = _weights_version(model)
     cached = model.__dict__.get("_fast_weights")
     if cached is None or cached[0] != version:
         cached = model.__dict__["_fast_weights"] = (version, {})
     cache = cached[1]
     key = (dtype, torch.device(device))
+    if q8 is not None:
+        key += (_scales_key(q8),)
     if key not in cache:
         with torch.no_grad():
-            cache[key] = _build(model, dtype, device)
+            cache[key] = _build(model, dtype, device, q8)
     return cache[key]
 
 
@@ -181,16 +257,28 @@ def _leaky(x):
     return F.leaky_relu(x, 0.1)
 
 
-def _decoder(group: ConvGroup, inputs):
-    up_flow8, up_feat8 = conv_group(inputs, group)
-    return _unpack_phases(up_flow8), _unpack_phases(up_feat8)
+def _run(group, inputs) -> list[torch.Tensor]:
+    """``conv_group``, or for a W8A8 group ``conv_group_q8`` on the inputs'
+    codes (each quantized with the group's input scale)."""
+    if isinstance(group, ConvGroupQ8):
+        return conv_group_q8(
+            [quantize_q8(t.contiguous(), group.in_scale) for t in inputs], group)
+    return conv_group(inputs, group)
+
+
+def _decoder(group, inputs):
+    up_flow8, up_feat8 = _run(group, inputs)
+    dt = inputs[0].dtype
+    return _unpack_phases(up_flow8).to(dt), _unpack_phases(up_feat8).to(dt)
 
 
 def _level2(fw: FastWeights, inputs):
-    flow, y = conv_group(inputs, fw.level2)
-    for w, b, d in fw.ctx_dilated:
-        y = _leaky(F.conv2d(y, w, b, padding=d, dilation=d))
-    (res,) = conv_group([y], fw.ctx_tail)
+    flow, y = _run(fw.level2, inputs)
+    if not isinstance(fw.ctx_tail, ConvGroupQ8):
+        y = y.to(inputs[0].dtype)
+        for w, b, d in fw.ctx_dilated:
+            y = _leaky(F.conv2d(y, w, b, padding=d, dilation=d))
+    (res,) = _run(fw.ctx_tail, [y])
     return flow + res
 
 
@@ -218,12 +306,27 @@ def _decode(model: FlowNetCV, fw: FastWeights, f1, f2):
     return flow2.float()
 
 
-def fast_apply(model_or_state, x: torch.Tensor, device=None):
+def _encode(fw: FastWeights, img: torch.Tensor) -> list[torch.Tensor]:
+    """The feature pyramid of ``img`` (NCHW). W8A8 groups chain int8 codes
+    level to level; each level's features are dequantized once."""
+    feats, h = [], img.contiguous()
+    q8 = isinstance(fw.encoder[0], ConvGroupQ8)
+    if q8:
+        h = quantize_q8(h, fw.encoder[0].in_scale)
+    for group in fw.encoder:
+        (h,) = conv_group_q8([h], group) if q8 else conv_group([h], group)
+        feats.append(dequantize_q8(h, group.scales[-1], img.dtype) if q8 else h)
+    return feats
+
+
+def fast_apply(model_or_state, x: torch.Tensor, q8=None, device=None):
     """Fused replacement for ``FlowNetCV.forward``.
 
     ``model_or_state``: a ``FlowNetCV`` / ``PWCNet``, or a FlowNetCV
     ``state_dict`` (then packed on every call). ``x``: ``[B, H, W, 6]``
     (H, W divisible by 64); its dtype (fp32 or bf16) is the compute dtype.
+    ``q8``: W8A8 scales from :func:`calibrate_q8` (the decoders run int8;
+    ``'enc'`` / ``'ctx'`` in the scales add the encoder / context chain).
     Runs on ``device`` (default ``cuda``; pass ``"cpu"`` for the plain
     versions of the kernels). Returns ``(flow_full [B, H, W, 2],
     flow_quarter [B, H/4, W/4, 2])`` in fp32.
@@ -236,16 +339,68 @@ def fast_apply(model_or_state, x: torch.Tensor, device=None):
         model = model_or_state
     x = x.to(dev)
     with torch.no_grad():
-        fw = prepare(model, x.dtype, dev)
+        fw = prepare(model, x.dtype, dev, q8)
         b = x.shape[0]
         img = torch.cat([x[..., :3], x[..., 3:]], 0).permute(0, 3, 1, 2)
-        feats, h = [], img.contiguous()
-        for group in fw.encoder:
-            (h,) = conv_group([h], group)
-            feats.append(h)
+        feats = _encode(fw, img)
         flow2 = _decode(model, fw, [f[:b] for f in feats],
                         [f[b:] for f in feats])
         hh, ww = flow2.shape[2] * 4, flow2.shape[3] * 4
         flow1 = resize_bilinear(flow2, hh, ww, align_corners=True) * 20.0
     return (flow1.permute(0, 2, 3, 1).contiguous(),
             (flow2 * 5.0).permute(0, 2, 3, 1).contiguous())
+
+
+def calibrate_q8(model: FlowNetCV, x: torch.Tensor, encoder: bool = False,
+                 ctx: bool = False, device=None) -> dict:
+    """Static W8A8 calibration (port of ``ocflow_tpu`` ``calibrate_q8``).
+
+    Replays the forward eagerly through ``model``'s own modules on ``x``
+    (a representative batch, ``[B, H, W, 6]``, in the model's dtype) and
+    records ``max(max|t|, 1e-30) / 127`` of each decoder's input and of
+    each growth conv's output: ``{'dec0' .. 'dec4': {'in': s, 'growth':
+    [s] * 5}}`` (dec4 is level 2). ``encoder`` adds ``'enc': {'in': s,
+    'levels': [[s] * 3] * 6}``, ``ctx`` adds ``'ctx': {'in': s, 'chain':
+    [s] * 5}`` (context conv 1's output, then each conv of the chain).
+    Scales are Python floats (fp32 values); run once per weight set.
+    """
+    inputs = {}
+
+    def keep(name):
+        return lambda module, args: inputs.__setitem__(name, args[0])
+
+    parts = {f"dec{i}": m for i, m in enumerate(model.decoders)}
+    parts.update(ctx=model.context, enc=model.encoder)
+    hooks = [m.register_forward_pre_hook(keep(k)) for k, m in parts.items()]
+    try:
+        with torch.no_grad():
+            model(x.to(resolve_device(device)))
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def chain(x, blocks, dense=False):
+        """Scales of each block's output, the blocks run in turn (DenseNet:
+        each output joins the input, newest first)."""
+        out = []
+        for blk in blocks:
+            y = blk(x)
+            out.append(amax_scale(y))
+            x = torch.cat([y, x], 1) if dense else y
+        return out
+
+    with torch.no_grad():
+        scales = {
+            k: {"in": amax_scale(inputs[k]), "growth": chain(
+                inputs[k], [getattr(dec, f"conv{dec.level}_{j}")
+                            for j in range(len(GROWTH))], dense=True)}
+            for k, dec in parts.items() if k.startswith("dec")}
+        if ctx:
+            blocks = [getattr(model, f"dc_conv{j + 1}") for j in range(len(CONTEXT))]
+            y = blocks[0](inputs["ctx"])
+            scales["ctx"] = {"in": amax_scale(y), "chain": chain(y, blocks[1:])}
+        if encoder:
+            per_conv = chain(inputs["enc"], list(model.encoder.children()))
+            scales["enc"] = {"in": amax_scale(inputs["enc"]), "levels": [
+                per_conv[i:i + 3] for i in range(0, len(per_conv), 3)]}
+    return scales

@@ -8,16 +8,20 @@ also runs where only PyTorch is installed:
 
 Tolerances, relative to max |plain|: fp32 1e-4 (summation order only);
 bf16 2^-6, two bf16 ulps of the largest value (a rounding step of the
-final or an intermediate store may differ).
+final or an intermediate store may differ). The int8 kernels are exact:
+W8A8 codes and the bf16 outputs of int8-read convs equal their plain
+version bit for bit, and so does the int8 GEMM probe.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ocflow_torch.kernels import conv_chain, cost_volume as cv_mod
+from ocflow_torch.kernels import conv_chain, conv_chain_q8, cost_volume as cv_mod
+from ocflow_torch.kernels import gemm as gemm_mod
 from ocflow_torch.kernels.conv_chain import ConvSpec, conv_group, prepare_group
-from ocflow_torch.models import FlowNetCV, fast_apply, prepare
+from ocflow_torch.kernels.conv_chain_q8 import prepare_group_q8, quantize_q8
+from ocflow_torch.models import FlowNetCV, calibrate_q8, fast_apply, prepare
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 
@@ -99,3 +103,88 @@ def test_fast_apply_on_gpu_goes_through_the_kernels(cuda_device):
         ref = model(x)
     for f, r in zip(fast, ref):
         assert (f - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+def _q8_cases(rng):
+    """(inputs, weights, biases, specs, in_scale, scales): int8 reads out of
+    order across inputs and stripe blocks, q8 and bf16 outputs, every tile
+    width, a conv reading the bf16 side stripe; then a stride-2 conv on an
+    odd-sized image chained into a dilated one."""
+    x = rng.normal(size=(2, 16, 9, 70))
+    z = rng.normal(size=(2, 5, 9, 70))
+    specs = [ConvSpec((1,), 24, q8=True), ConvSpec((2, 0), 8, emit=True),
+             ConvSpec((3,), 40, act=False, emit=True),
+             ConvSpec((2, 0, 1), 100, q8=True, emit=True)]
+    cin = [5, 24 + 16, 8, 24 + 16 + 5]
+    yield ([x, z], [rng.normal(size=(s.cout, c, 3, 3)) * 0.1
+                    for s, c in zip(specs, cin)],
+           [rng.normal(size=(s.cout,)) for s in specs], specs, 0.04,
+           [0.05, None, None, 0.1])
+    specs = [ConvSpec((0,), 16, stride=2, q8=True, emit=True),
+             ConvSpec((1,), 16, dilation=3, q8=True, emit=True),
+             ConvSpec((1, 2), 12, act=False, emit=True)]
+    yield ([rng.uniform(-1, 1, size=(2, 3, 15, 33))],
+           [rng.normal(size=(16, 3, 3, 3)) * 0.3,
+            rng.normal(size=(16, 16, 3, 3)) * 0.1,
+            rng.normal(size=(12, 32, 3, 3)) * 0.1],
+           [rng.normal(size=(s.cout,)) * 0.1 for s in specs], specs, 1 / 127,
+           [0.02, 0.02, None])
+
+
+def test_conv_group_q8_kernel_matches_plain(cuda_device):
+    """Codes and int8-read bf16 outputs equal; the bf16-read conv within
+    2^-6 of max|plain|."""
+    rng = np.random.default_rng(2)
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    for inputs, weights, biases, specs, s_in, scales in _q8_cases(rng):
+        grp = prepare_group_q8([t(w) for w in weights], [t(b) for b in biases],
+                               specs, [x.shape[1] for x in inputs], s_in,
+                               scales, cuda_device)
+        xs = [quantize_q8(t(x).to(cuda_device), s_in) for x in inputs]
+        got = conv_chain_q8.conv_group_q8(xs, grp)
+        ref = conv_chain_q8.conv_group_q8_plain(xs, grp)
+        torch.cuda.synchronize()
+        emitted = [j for j, s in enumerate(specs) if s.emit]
+        for j, g, r in zip(emitted, got, ref):
+            assert g.dtype == r.dtype
+            if grp.int8_read[j]:
+                assert torch.equal(g, r), (j, (g.float() - r.float()).abs().max())
+            else:
+                _close(g, r, torch.bfloat16)
+
+
+def test_gemm_probe_matches_plain(cuda_device):
+    gen = torch.Generator().manual_seed(3)
+    a = torch.randint(-127, 128, (512, 512), generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (512, 512), generator=gen, dtype=torch.int8)
+    a, b = a.to(cuda_device), b.to(cuda_device)
+    got = gemm_mod.gemm(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, gemm_mod.gemm_plain(a, b))
+    af, bf = (torch.randn(512, 512, generator=gen).bfloat16().to(cuda_device)
+              for _ in range(2))
+    got, ref = gemm_mod.gemm(af, bf), gemm_mod.gemm_plain(af, bf)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+def test_fast_apply_q8_on_gpu_goes_through_the_kernels(cuda_device):
+    """W8A8 fast_apply on the card: one int8 launch per int8-read conv, one
+    bf16 launch per other conv, finite flows near the exact forward."""
+    model = FlowNetCV(generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    x = torch.rand((2, 64, 128, 6), generator=torch.Generator().manual_seed(1))
+    x = (x * 2 - 1).to(cuda_device)
+    scales = calibrate_q8(model, x)
+    want = prepare(model, x.dtype, cuda_device, scales).launch_counts()
+    cv_mod.cost_volume.launches = conv_chain.conv_group.launches = 0
+    conv_chain_q8.conv_group_q8.launches = 0
+    fast = fast_apply(model, x, q8=scales)
+    torch.cuda.synchronize()
+    assert (cv_mod.cost_volume.launches, conv_chain.conv_group.launches,
+            conv_chain_q8.conv_group_q8.launches) == (
+                5, want["conv_group"], want["conv_group_q8"]) == (5, 24, 35)
+    with torch.no_grad():
+        ref = model(x)
+    for f, r in zip(fast, ref):
+        assert torch.isfinite(f).all()
+        assert (f - r).abs().max().item() <= 0.15 * r.abs().max().item()
