@@ -27,7 +27,21 @@ Phases (any failure raises and exits non-zero):
    TF32 off), bf16 against fp32, W8A8 against the eager fp32 forward;
 7. time every kernel at the path's shapes against its plain version, its
    bound and a library yardstick, and the bf16 and W8A8 forwards end to
-   end (pairs/s) in turns.
+   end (pairs/s) in turns;
+8. training (``longrun_synthetic.yaml`` hparams, seeded FlowNetCV and
+   smooth seeded frames, 448x1024, B=8): record every kernel call of one
+   fp32 and one bf16 step (pair + loss + backward) and replay each against
+   its plain version (cost-volume forward and backward, serving conv
+   groups, ``conv_group_diff`` forwards); hold the fused fp32 step against
+   the eager fp32 step (loss, metrics, per-tensor gradients, parameters
+   after Adam) beside what the gap is made of (each step's run-to-run
+   spread, the eager step with deterministic cuDNN, the eager step with
+   the fused run's occlusion mask held); bf16 vs fp32
+   gradients; launches of one bf16 step (10 cost volumes, 5 backward, 31
+   ``conv_group_diff`` conv launches, 72 conv launches in all) and of one
+   with a W8A8 backward decode (37 and 35 int8); five bf16 Adam steps;
+   the bf16 step end to end, and the new kernels' calls against plain,
+   bound and cuDNN.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -70,28 +84,76 @@ E2E_BF16_REL_L2 = 0.05
 # --device cpu`, 4x448x1024) measures 0.079 and 0.108; the bounds round
 # those up by a quarter to a third.
 E2E_Q8_TOL = {"w8a8": 0.1, "w8a8_enc_ctx": 0.15}
+# training, one Adam step at 448x1024 B=8 fp32 (TF32 off), the fused step
+# vs the eager step (fast_forward='off'), same weights and batch. Neither
+# step is deterministic (the range-map splat's index_add_, the warps'
+# scatter-add backward and cuDNN's backward add with atomics). Gradients
+# are sums of many cancelling terms, so summation order moves them far
+# more than it moves the activations. Measured on the H100 (the witnesses
+# this phase prints), max-abs over max|grad| in the worst tensor: the fused
+# step run to run 3.4e-3-8.1e-3, the eager step run to run 1.6e-2-1.65e-2,
+# the eager step against itself with cuDNN's deterministic algorithms
+# 4.7e-3-1.47e-2, fused vs eager 2.6e-2-3.5e-2 over five runs (2.5e-2-3.1e-2
+# with the fused run's occlusion mask held in the eager step), always on a
+# bias (deconv5, conv6); the whole gradient's relative L2 moves up to
+# 1.2e-3 (fused), 2.0e-3 (eager) and 1.6e-3-3.0e-3 between them. Metrics
+# agree to 2e-7-2.0e-6.
+# The bounds are ~1.7x the largest fused-vs-eager reading and ~3.5x the
+# eager step's own spread:
+TRAIN_METRIC_REL = 1e-4      # loss and every metric, relative
+TRAIN_GRAD_REL_L2 = 0.06     # per parameter tensor, relative L2
+TRAIN_GRAD_MAX_REL = 0.06    # per parameter tensor, max-abs over max|grad|
+TRAIN_GRAD_GLOBAL = 6e-3     # the whole gradient, relative L2
+# a sanity check only (the step ran with the same lr on the same weights):
+# Adam's first step moves each weight by about lr = 1e-4 whatever |grad|,
+# so two runs differ by at most 2 lr, a sign flip of a near-zero gradient
+TRAIN_PARAM_ATOL = 5e-4
+# bf16 step vs fp32 step, relative L2 of the whole gradient: bf16 rounding
+# through a random-weight network (0.122 measured on the H100; per tensor
+# median 0.21, up to 0.93 on tensors whose gradient is near zero)
+TRAIN_BF16_REL_L2 = 0.2
 
 
-def _record(pwc_fast, run):
-    """Call ``run()`` and return the (kind, args) of every kernel call that
-    ``pwc_fast`` makes meanwhile, in order."""
+# kernels with no single PyTorch call computing the same function
+NO_LIBRARY = {
+    "cost_volume": "no single PyTorch call computes a local correlation",
+    "cost_volume_bwd": "no single PyTorch call computes its adjoint",
+    "conv_group_q8": "PyTorch has no int8 convolution (bf16 cuDNN of the same "
+                     "convs is printed beside its time)",
+}
+
+
+def _detach(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach()
+    if isinstance(a, (list, tuple)):
+        return type(a)(_detach(x) for x in a)
+    return a
+
+
+def _record(targets, run):
+    """Call ``run()`` and return the (name, args) of every call of the
+    functions ``targets`` (``(module, name)`` pairs) meanwhile, in order,
+    args detached from any graph."""
     calls = []
-    names = ("cost_volume", "conv_group", "conv_group_q8")
-    saved = {n: getattr(pwc_fast, n) for n in names}
+    saved = {t: getattr(*t) for t in targets}
 
-    def recorder(name):
+    def recorder(t):
         def rec(*args):
-            calls.append((name, args))
-            return saved[name](*args)
+            calls.append((t[1], _detach(args)))
+            return saved[t](*args)
+        # shares the wrapped function's attributes: a wrapper that counts
+        # its launches through its own module-level name keeps counting
+        rec.__dict__ = saved[t].__dict__
         return rec
 
-    for n in names:
-        setattr(pwc_fast, n, recorder(n))
+    for t in targets:
+        setattr(*t, recorder(t))
     try:
         run()
     finally:
-        for n in names:
-            setattr(pwc_fast, n, saved[n])
+        for t in targets:
+            setattr(*t, saved[t])
     torch.cuda.synchronize()
     return calls
 
@@ -188,14 +250,26 @@ def _bf16_conv_like_q8(inputs, group, blocks):
 
 
 def _check_float(kind, args, dtype, max_err, label=""):
-    """Replay one cost-volume or bf16/fp32 conv-group call through the
-    kernel and the plain version; hold them within KERNEL_TOL."""
+    """Replay one cost-volume (forward or backward) or bf16/fp32 conv-group
+    call through the kernel and the plain version; hold them within
+    KERNEL_TOL. A ``conv_group_diff`` call replays its forward: the conv
+    group with every block emitted."""
     from ocflow_torch.kernels import conv_chain, cost_volume as cv_mod
 
     if kind == "cost_volume":
         got = [cv_mod.cost_volume(*args)]
         ref = [cv_mod.cost_volume_plain(*args)]
         shape = tuple(args[0].shape)
+    elif kind == "cost_volume_bwd":
+        got = cv_mod.cost_volume_backward(*args)
+        ref = cv_mod.cost_volume_backward_plain(*args)
+        shape = tuple(args[0].shape)
+    elif kind == "conv_group_diff":
+        inputs = args[0]
+        group = _diff_group(*args)
+        got = conv_chain.conv_group(inputs, group)
+        ref = conv_chain.conv_group_plain(inputs, group)
+        shape = tuple(inputs[0].shape)
     else:
         got = conv_chain.conv_group(*args)
         ref = conv_chain.conv_group_plain(*args)
@@ -203,9 +277,10 @@ def _check_float(kind, args, dtype, max_err, label=""):
     torch.cuda.synchronize()
     err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
     scale = max(r.float().abs().max().item() for r in ref)
-    tol = KERNEL_TOL[dtype] * max(scale, 1e-6)
+    # gradients of a mean over millions of pixels are ~1e-6: no floor there
+    tol = KERNEL_TOL[dtype] * max(scale, 1e-30 if kind == "cost_volume_bwd" else 1e-6)
     print(f"check {label}{kind} {str(dtype)[6:]} {shape}: max_abs_err "
-          f"{err:.3e} rel {err / max(scale, 1e-6):.3e} max|plain| "
+          f"{err:.3e} rel {err / max(scale, 1e-30):.3e} max|plain| "
           f"{scale:.3e} tol {tol:.3e} ({TOL_REASON[dtype]})")
     if not err <= tol:
         raise AssertionError(f"{kind} {shape} {dtype}: {err} > {tol}")
@@ -252,10 +327,66 @@ def _check_q8(args, max_err, label=""):
     return plain_ms
 
 
+def _diff_group(inputs, weights, biases, specs):
+    """The conv group a ``conv_group_diff`` call runs: every block emitted."""
+    from ocflow_torch.kernels import conv_chain
+
+    specs = [dataclasses.replace(s, emit=True) for s in specs]
+    return conv_chain.prepare_group(weights, biases, specs, len(inputs),
+                                    inputs[0].dtype, inputs[0].device)
+
+
+def _eager_chain(inputs, weights, biases, specs):
+    """The same chain as cuDNN convs over the materialized concat of each
+    conv's reads: the library yardstick of ``conv_group_diff``."""
+    import torch.nn.functional as F
+
+    blocks, outs = list(inputs), []
+    for s, w, b in zip(specs, weights, biases):
+        y = F.conv2d(torch.cat([blocks[r] for r in s.reads], 1), w, b,
+                     stride=s.stride, padding=s.dilation, dilation=s.dilation)
+        y = F.leaky_relu(y, 0.1) if s.act else y
+        blocks.append(y)
+        outs.append(y)
+    return outs
+
+
+def _held_occlusion(run, mask=None):
+    """``run()`` with the training step's range-map occlusion recorded
+    (``mask`` None) or replaced by ``mask``; returns ``run()``'s result and
+    the mask the step used."""
+    from ocflow_torch.train import steps
+
+    orig, box = steps.occlusion_from_back_flow, {}
+
+    def occlusion(back_flow):
+        box["mask"] = orig(back_flow) if mask is None else mask
+        return box["mask"]
+
+    steps.occlusion_from_back_flow = occlusion
+    try:
+        out = run()
+    finally:
+        steps.occlusion_from_back_flow = orig
+    return out, box["mask"]
+
+
+def _cv_bwd_cost(f1):
+    """Bytes (g, f1, f2 read once; df1, df2 written once) and operations
+    (a multiply and an add per shift, channel and pixel, for df1 and df2)
+    of a cost-volume backward."""
+    b, c, h, w = f1.shape
+    nbytes = (81 * b * h * w + 4 * b * c * h * w) * f1.element_size()
+    return nbytes, 4 * 81 * b * c * h * w
+
+
 def _counters():
     from ocflow_torch.kernels import conv_chain, conv_chain_q8, cost_volume, gemm
 
-    return {"cost_volume": cost_volume.cost_volume, "conv_group": conv_chain.conv_group,
+    return {"cost_volume": cost_volume.cost_volume,
+            "cost_volume_bwd": cost_volume.cost_volume_backward,
+            "conv_group": conv_chain.conv_group,
+            "conv_group_diff": conv_chain.conv_group_diff,
             "conv_group_q8": conv_chain_q8.conv_group_q8, "gemm_probe": gemm.gemm}
 
 
@@ -268,6 +399,232 @@ def _count_launches(run):
     out = run()
     torch.cuda.synchronize()
     return {k: fn.launches for k, fn in counters.items()}, out
+
+
+def _grad_errors(got, ref):
+    """Per parameter: relative L2 and max-abs over max|ref|; and the
+    relative L2 of the whole gradient."""
+    rel_l2 = {n: ((got[n] - r).norm() / r.norm().clamp_min(1e-30)).item()
+              for n, r in ref.items()}
+    max_rel = {n: ((got[n] - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+               for n, r in ref.items()}
+    num = sum(((got[n] - r) ** 2).sum().item() for n, r in ref.items())
+    den = sum((r ** 2).sum().item() for r in ref.values())
+    return rel_l2, max_rel, (num / den) ** 0.5
+
+
+def _worst(d):
+    k = max(d, key=d.get)
+    return f"{d[k]:.3e} ({k})"
+
+
+def _train_phase(card, max_err, per, add, failures):
+    """The training slice at 448x1024, B=8 (longrun_synthetic.yaml hparams,
+    a seeded FlowNetCV and smooth seeded frames, seed 0): kernel calls vs
+    plain, the fused fp32 step vs the eager fp32 step, bf16 vs fp32, launch
+    counts, five bf16 Adam steps, timings. Returns the launch counts of one
+    bf16 step and of one with a W8A8 backward decode."""
+    from ocflow_torch.bench import (BATCH, HEIGHT, SEED, WIDTH, calibration_batch,
+                                    cuda_ms, make_train_inputs, measure_train,
+                                    train_hparams)
+    from ocflow_torch.kernels import conv_chain, cost_volume as cv_mod
+    from ocflow_torch.models import pwc_fast
+    from ocflow_torch.models.pwc_net import DECODER_LEVELS, GROWTH
+    from ocflow_torch.tools import train_profile
+    from ocflow_torch.train import create_train_state, make_unsupervised_flow_step
+
+    dev = torch.device("cuda")
+    hp_b = train_hparams()
+    hp_f = {**hp_b, "compute_dtype": "float32"}
+    state0, _, batch = make_train_inputs(BATCH, HEIGHT, WIDTH, dev, SEED, hp_b)
+    model0, lr = state0.model, hp_b["learning_rate"]
+    targets = [(pwc_fast, "cost_volume"), (pwc_fast, "conv_group"),
+               (pwc_fast, "conv_group_diff"), (cv_mod, "cost_volume_backward")]
+    names = {"cost_volume_backward": "cost_volume_bwd"}
+
+    def one_step(hp, record=False, mask=None):
+        """One Adam step on a copy of the seed model: metrics, gradients,
+        parameters after the step, (``record``) the kernel calls, and the
+        step's range-map occlusion mask (``mask``: held at that mask)."""
+        m = copy.deepcopy(model0)
+        state = create_train_state(m, lr, device=dev)
+        step, _ = make_unsupervised_flow_step(hp)
+        box = {}
+
+        def run():
+            box["metrics"] = step(state, batch)[1]
+
+        calls, occ = _held_occlusion(
+            lambda: _record(targets, run) if record else run(), mask)
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().float().clone() for n, p in m.named_parameters()}
+        params = {n: p.detach().clone() for n, p in m.named_parameters()}
+        metrics = {k: float(v) for k, v in box["metrics"].items()}
+        return metrics, grads, params, calls, occ
+
+    # 1. every kernel call of one fp32 step (pair + loss + backward) and of
+    # one bf16 step, kernel vs plain
+    torch.cuda.reset_peak_memory_stats()
+    m32, g32, p32, calls32, occ32 = one_step(hp_f, record=True)
+    for kind, args in calls32:
+        _check_float(names.get(kind, kind), args, torch.float32, max_err, "train ")
+    mb, gb, _, calls_b, _ = one_step(hp_b, record=True)
+    for kind, args in calls_b:
+        _check_float(names.get(kind, kind), args, torch.bfloat16, max_err, "train ")
+    del calls32
+    print(f"train: peak device memory over the fp32 and bf16 steps "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # 2. fused fp32 step vs eager fp32 step (TF32 off), beside what the gap
+    # is made of: each step's run-to-run spread (atomic adds), the eager
+    # step against itself with cuDNN's deterministic algorithms (summation
+    # order alone), and fused vs eager with the fused run's occlusion mask
+    # held (the mask's share of the gap)
+    eager = {**hp_f, "fast_forward": "off"}
+    me, ge, pe, _, occ_e = one_step(eager)
+    docc = (occ_e - occ32).abs()
+    gaps = {"fused run to run": (g32, one_step(hp_f)[1]),
+            "eager run to run": (ge, one_step(eager)[1])}
+    torch.backends.cudnn.deterministic = True
+    try:
+        gaps["eager vs eager, deterministic cuDNN"] = (ge, one_step(eager)[1])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    gaps["fused vs eager, mask held"] = (g32, one_step(eager, mask=occ32)[1])
+    gaps["fused vs eager"] = (g32, ge)
+    errs = {what: _grad_errors(a, b) for what, (a, b) in gaps.items()}
+    del gaps
+    for what, (rel_l2, max_rel, glob) in errs.items():
+        print(f"train fp32 grads, {what}: rel_l2 {_worst(rel_l2)}, max-abs/max "
+              f"{_worst(max_rel)}, global rel_l2 {glob:.3e}")
+    rel_l2, max_rel, glob = errs["fused vs eager"]
+    print(f"train fp32 occlusion mask (soft, in [0, 1]), fused vs eager: max-abs "
+          f"{docc.max().item():.3e}, mean-abs {docc.mean().item():.3e}")
+    metric_rel = {k: abs(m32[k] - me[k]) / max(abs(me[k]), 1e-30) for k in me}
+    init = dict(model0.named_parameters())
+    dp = max((p32[n] - pe[n]).abs().max().item() for n in pe)
+    moved = min((p32[n] - init[n]).abs().max().item() for n in p32)
+    n_flip = sum(int(((p32[n] - pe[n]).abs() > lr).sum().item()) for n in pe)
+    print(f"train fp32 fused vs eager: metrics {m32} vs {me}; max rel "
+          f"{_worst(metric_rel)} (tol {TRAIN_METRIC_REL}); grad rel_l2 "
+          f"{_worst(rel_l2)} (tol {TRAIN_GRAD_REL_L2}), max-abs/max "
+          f"{_worst(max_rel)} (tol {TRAIN_GRAD_MAX_REL}), global rel_l2 "
+          f"{glob:.3e} (tol {TRAIN_GRAD_GLOBAL}); params after Adam max-abs {dp:.3e} "
+          f"(sanity tol {TRAIN_PARAM_ATOL}; {n_flip} weights' updates differ by more "
+          f"than lr; every tensor moved by >= {moved:.3e})")
+    if set(m32) != set(me) or max(metric_rel.values()) > TRAIN_METRIC_REL:
+        failures.append(f"train fused vs eager metrics {metric_rel}")
+    if (max(rel_l2.values()) > TRAIN_GRAD_REL_L2 or glob > TRAIN_GRAD_GLOBAL
+            or max(max_rel.values()) > TRAIN_GRAD_MAX_REL):
+        failures.append(f"train fused vs eager grads {_worst(rel_l2)} "
+                        f"{_worst(max_rel)} {glob}")
+    if dp > TRAIN_PARAM_ATOL or not moved > 0:
+        failures.append(f"train params after Adam {dp} (moved {moved})")
+    for k, v in {**m32, **mb}.items():
+        if v != v or abs(v) == float("inf"):
+            failures.append(f"train metric {k} not finite")
+    del ge, pe, p32, occ32, occ_e, docc
+
+    # 3. bf16 step vs fp32 step
+    rel_l2, max_rel, glob = _grad_errors(gb, g32)
+    print(f"train bf16 vs fp32: loss {mb['loss']:.6f} vs {m32['loss']:.6f}; grad "
+          f"global rel_l2 {glob:.4f} (tol {TRAIN_BF16_REL_L2}), per tensor rel_l2 "
+          f"{_worst(rel_l2)}, median {sorted(rel_l2.values())[len(rel_l2) // 2]:.4f}")
+    if not glob <= TRAIN_BF16_REL_L2:
+        failures.append(f"train bf16 vs fp32 grad rel_l2 {glob}")
+    del gb, g32
+
+    # 4. launches of one bf16 step, and of one with a W8A8 backward decode
+    scales = pwc_fast.calibrate_q8(copy.deepcopy(model0).bfloat16(),
+                                   calibration_batch(batch["images"].bfloat16()))
+    n_diff = (len(DECODER_LEVELS) - 1) * (len(GROWTH) + 1) + len(GROWTH) + 2
+    launches = {}
+    for path, q8 in (("train", None), ("train_q8", scales)):
+        state = create_train_state(copy.deepcopy(model0), lr, device=dev)
+        step, _ = make_unsupervised_flow_step({**hp_b, "q8_backward": q8})
+        step(state, batch)  # packs the weights
+        # the pair runs the serving decode only: no encoder groups
+        fw = pwc_fast.prepare(state.model, torch.bfloat16, dev, q8)
+        n_enc = sum(len(g.specs) for g in fw.encoder)
+        launches[path], _ = _count_launches(lambda: step(state, batch))
+        expect = {"cost_volume": 10, "cost_volume_bwd": 5,
+                  "conv_group": n_diff + fw.launch_counts()["conv_group"] - n_enc,
+                  "conv_group_diff": n_diff,
+                  "conv_group_q8": fw.launch_counts()["conv_group_q8"], "gemm_probe": 0}
+        print(f"main path {path} (one bf16 step) launches: {launches[path]} "
+              f"(expected {expect})")
+        if launches[path] != expect:
+            raise AssertionError(f"{path} launch counts {launches[path]}")
+        del state
+
+    # 5. five bf16 Adam steps
+    state = create_train_state(copy.deepcopy(model0), lr, device=dev)
+    step, _ = make_unsupervised_flow_step(hp_b)
+    start = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(5)]
+    moved = min((p.detach() - start[n]).abs().max().item()
+                for n, p in state.model.named_parameters())
+    print(f"train bf16 5 Adam steps: loss {losses}; every tensor moved by >= {moved:.3e}")
+    if not all(v == v and abs(v) != float("inf") for v in losses) or not moved > 0:
+        failures.append(f"train bf16 steps: loss {losses}, moved {moved}")
+    del state, start
+
+    # 6. timing: the bf16 step end to end, then its new kernels' calls
+    state, step, _ = make_train_inputs(BATCH, HEIGHT, WIDTH, dev, SEED, hp_b)
+    res = measure_train(state, step, batch)
+    print(f"e2e train step bf16 B={BATCH} {HEIGHT}x{WIDTH}: {res['ms_per_step']:.3f} "
+          f"ms/step, {res['pairs_per_sec']:.2f} pairs/s [{card}]")
+    del state, step
+
+    # where the bf16 step's time goes: CUDA events at the step's marks
+    runs = 5
+    parts = train_profile.step_parts(runs)[0]
+    total = sum(parts.values())
+    print(f"train step bf16 breakdown (device ms between the step's marks, mean of "
+          f"{runs}; {total:.3f} ms in all): " + ", ".join(
+              f"{k} {v:.3f} ({100 * v / total:.1f}%)" for k, v in parts.items())
+          + f" [{card}]")
+
+    for kind, args in calls_b:
+        if kind == "cost_volume_backward":
+            k_ms = cuda_ms(lambda: cv_mod.cost_volume_backward(*args), 20)
+            p_ms = cuda_ms(lambda: cv_mod.cost_volume_backward_plain(*args), 3)
+            nbytes, ops = _cv_bwd_cost(args[0])
+            bound, by = add("cost_volume_bwd", k_ms, p_ms, nbytes, ops,
+                            PEAK_FLOPS[torch.bfloat16], None)
+            print(f"time cost_volume_bwd bf16 {tuple(args[0].shape)}: kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms, library none, bound {bound:.4f} ms ({by}; "
+                  f"{nbytes} B, {ops} flop) [{card}]")
+        elif kind == "conv_group_diff":
+            inputs, weights, biases, specs = args
+            group = _diff_group(*args)
+            with torch.no_grad():
+                outs = conv_chain.conv_group(inputs, group)
+                k_ms = cuda_ms(lambda: conv_chain.conv_group_diff(*args), 5)
+                p_ms = cuda_ms(lambda: conv_chain.conv_group_plain(inputs, group), 3)
+                lib_ms = cuda_ms(lambda: _eager_chain(*args), 5)
+            gouts = [torch.randn_like(o) for o in outs]
+            leaves = [t.clone().requires_grad_() for t in (*inputs, *weights, *biases)]
+            n_in, n = len(inputs), len(specs)
+            split = (leaves[:n_in], leaves[n_in:n_in + n], leaves[n_in + n:])
+            acts = conv_chain.conv_group_diff(*split, specs)
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(acts, leaves, gouts,
+                                                         retain_graph=True), 3)
+            ref = _eager_chain(*split, specs)
+            lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(ref, leaves, gouts,
+                                                             retain_graph=True), 3)
+            del acts, ref, leaves, gouts
+            nbytes, flops = _cg_cost(inputs, group, outs)
+            bound, by = add("conv_group_diff", k_ms, p_ms, nbytes, flops,
+                            PEAK_FLOPS[torch.bfloat16], lib_ms)
+            per["conv_group_diff"]["bwd_ms"] += bwd_ms
+            per["conv_group_diff"]["library_bwd_ms"] += lib_bwd_ms
+            print(f"time conv_group_diff bf16 {tuple(inputs[0].shape)} ({n} convs): "
+                  f"forward kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                  f"(cuDNN over the concat) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+                  f"{nbytes} B, {flops} flop); backward (cuDNN conv VJPs) {bwd_ms:.4f} ms, "
+                  f"library autograd {lib_bwd_ms:.4f} ms [{card}]")
+    return launches
 
 
 def main() -> int:
@@ -298,12 +655,14 @@ def main() -> int:
     model.eval()
     model_b = copy.deepcopy(model).bfloat16()
     xb = x32.bfloat16()
-    max_err = {"cost_volume": 0.0, "conv_group": 0.0, "conv_group_q8": 0.0}
+    max_err = {"cost_volume": 0.0, "conv_group": 0.0, "conv_group_q8": 0.0,
+               "cost_volume_bwd": 0.0, "conv_group_diff": 0.0}
+    serving = [(pwc_fast, n) for n in ("cost_volume", "conv_group", "conv_group_q8")]
 
     # 3. every kernel call of the bf16/fp32 path, kernel vs plain
     recorded = {}
     for dtype, m, x in ((torch.float32, model, x32), (torch.bfloat16, model_b, xb)):
-        calls = _record(pwc_fast, lambda: pwc_fast.fast_apply(m, x))
+        calls = _record(serving, lambda: pwc_fast.fast_apply(m, x))
         recorded[dtype] = calls
         for kind, args in calls:
             _check_float(kind, args, dtype, max_err)
@@ -319,7 +678,7 @@ def main() -> int:
     q8_plain_ms = []
     for mode, sc in scales.items():
         label = f"{mode} "
-        calls = _record(pwc_fast, lambda: pwc_fast.fast_apply(model_b, xb, q8=sc))
+        calls = _record(serving, lambda: pwc_fast.fast_apply(model_b, xb, q8=sc))
         if mode == "w8a8":
             recorded[mode] = calls
         for kind, args in calls:
@@ -343,7 +702,8 @@ def main() -> int:
     launches["spike_int8"], gemm_res = _count_launches(
         spike_int8.probe)
     for path in ("bf16", "w8a8"):
-        expect = {"cost_volume": 5, **want[path], "gemm_probe": 0}
+        expect = {"cost_volume": 5, "cost_volume_bwd": 0, "conv_group_diff": 0,
+                  **want[path], "gemm_probe": 0}
         print(f"main path {path} launches: {launches[path]} (expected {expect})")
         if launches[path] != expect:
             raise AssertionError(f"{path} launch counts {launches[path]}")
@@ -397,7 +757,9 @@ def main() -> int:
     # 7. timing (bf16 serving shapes), beside the card on the line above
     per = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                "bound_ms": 0.0, "library_ms": 0.0}
-           for k in ("cost_volume", "conv_group", "conv_group_q8")}
+           for k in ("cost_volume", "cost_volume_bwd", "conv_group",
+                     "conv_group_diff", "conv_group_q8")}
+    per["conv_group_diff"].update(bwd_ms=0.0, library_bwd_ms=0.0)
 
     def add(kind, k_ms, p_ms, nbytes, ops, peak, lib_ms):
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -468,13 +830,25 @@ def main() -> int:
         print(f"e2e {path} fast_apply B={BATCH} {HEIGHT}x{WIDTH}: {ms:.3f} ms/batch, "
               f"{BATCH * 1e3 / ms:.2f} pairs/s (runs {each} ms) [{card}]")
 
+    # 8. training (the serving records freed first)
+    del recorded, outs, out_f, ref, model, model_b, x32, xb
+    torch.cuda.empty_cache()
+    failures = []
+    launches.update(_train_phase(card, max_err, per, add, failures))
+    if failures:
+        raise AssertionError("; ".join(failures))
+
     # per kernel: its source, the TPU kernel it replaces, and the path whose
     # calls its times sum (its "launches" are that path's count)
     meta = {
         "cost_volume": ("ocflow_torch/csrc/cost_volume.cu",
                         "ocflow_tpu/ops/pallas/cost_volume_kernel.py:91", "bf16"),
+        "cost_volume_bwd": ("ocflow_torch/csrc/cost_volume_bwd.cu",
+                            "ocflow_tpu/ops/pallas/cost_volume_kernel.py:187", "train"),
         "conv_group": ("ocflow_torch/csrc/conv_group.cu",
                        "ocflow_tpu/ops/pallas/conv_chain_kernel.py:463", "bf16"),
+        "conv_group_diff": ("ocflow_torch/csrc/conv_group.cu",
+                            "ocflow_tpu/ops/pallas/conv_chain_kernel.py:1198", "train"),
         "conv_group_q8": ("ocflow_torch/csrc/conv_group_q8.cu",
                           "ocflow_tpu/ops/pallas/conv_chain_kernel.py:943", "w8a8"),
         "gemm_probe": ("ocflow_torch/csrc/gemm_probe.cu", "tools/spike_int8.py:92",
@@ -494,7 +868,10 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
             "bound_by": p["bound_by"],
-            "library_ms": p["library_ms"] if name in ("conv_group", "gemm_probe") else None,
+            "library_ms": p["library_ms"] if name in (
+                "conv_group", "conv_group_diff", "gemm_probe") else None,
+            **({"library_reason": NO_LIBRARY[name]} if name in NO_LIBRARY else {}),
+            **{k: p[k] for k in ("bwd_ms", "library_bwd_ms") if k in p},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

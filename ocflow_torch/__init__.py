@@ -8,8 +8,14 @@ Covered so far: the FlowNetCV serving forward (``models.pwc_fast.fast_apply``)
 in bf16, fp32 and W8A8 (``calibrate_q8``) with its ops (cost volume,
 feature normalization, warp, resize), the eager ``FlowNetCV`` / ``PWCNet``
 modules, the weight and W8A8-scale bridges from the JAX package
-(``models.convert``), and measurement tools (``tools``: the int8 / bf16
-GEMM probe, W8A8 accuracy).
+(``models.convert``); the occlusion-aware unsupervised training step
+(``train``: ``make_unsupervised_flow_step``, ``TrainState`` with Adam, the
+config) over the gradient-carrying pair ``fast_apply_pair`` (the
+differentiable cost volume with its backward kernel, ``conv_group_diff``),
+the losses (``losses``: photometric, census, smoothness, BCE) and the
+range map and occlusion masks (``ops.range_map``); and measurement tools
+(``tools``: the int8 / bf16 GEMM probe, W8A8 accuracy, the training
+step's profile).
 
 Layout: the public model entry points take and return NHWC like the JAX
 package; everything inside (ops, kernels, modules) is NCHW.

@@ -20,6 +20,7 @@ stride-2 conv reads its (unpacked) input directly.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -89,8 +90,10 @@ def prepare_group(weights: Sequence[torch.Tensor],
         check_spec(s, j, n_inputs)
         if s.q8:
             raise ValueError(f"conv {j}: q8 specs belong to a W8A8 group")
-        w = w.detach().to(device=device, dtype=torch.float32)
-        b = b.detach().to(device=device, dtype=torch.float32)
+        # copies: the group is a snapshot, even of fp32 weights on the same
+        # device (an optimizer step must not reach its plain-version weights)
+        w = w.detach().to(device=device, dtype=torch.float32, copy=True)
+        b = b.detach().to(device=device, dtype=torch.float32, copy=True)
         packed.append(pack_weights(w, dtype))
         ws.append(w.to(dtype))
         bs.append(b.contiguous())
@@ -249,11 +252,12 @@ def tile_cfg(cout: int) -> int:
 
 def launch_conv(reads: Sequence[torch.Tensor], packed: torch.Tensor,
                 bias: torch.Tensor, out: torch.Tensor, spec: ConvSpec,
-                what: str) -> None:
+                what: str, counters: Sequence = ()) -> None:
     """One launch of ``csrc/conv_group.cu``: ``out`` (a ``[B, cout, Ho,
     Wo]`` channel range of a stripe, in the kernel dtype) = the conv of the
     channel concat of ``reads`` with ``packed`` (see :func:`pack_weights`)
-    and the fp32 ``bias``. Counts the launch in ``conv_group.launches``."""
+    and the fp32 ``bias``. Counts the launch in ``conv_group.launches`` and
+    in the ``launches`` of each of ``counters``."""
     segs = merge_segments(reads)
     ptrs, bstr, chans = segment_args(segs)
     b, _, ho, wo = out.shape
@@ -266,6 +270,8 @@ def launch_conv(reads: Sequence[torch.Tensor], packed: torch.Tensor,
                   int(spec.act), stream)
     _build.check(code, what)
     conv_group.launches += 1
+    for c in counters:
+        c.launches += 1
 
 
 def check_kernel_inputs(inputs: Sequence[torch.Tensor], weight: torch.Tensor,
@@ -280,10 +286,11 @@ def check_kernel_inputs(inputs: Sequence[torch.Tensor], weight: torch.Tensor,
         raise ValueError(f"{what}: weights and inputs on different devices")
 
 
-def conv_group(inputs: Sequence[torch.Tensor],
-               group: ConvGroup) -> list[torch.Tensor]:
+def conv_group(inputs: Sequence[torch.Tensor], group: ConvGroup,
+               counters: Sequence = ()) -> list[torch.Tensor]:
     """Run a conv chain; returns the emitted blocks as ``[B, cout, Ho, Wo]``
-    views of the group's stripe. Kernel on CUDA, plain version on the CPU."""
+    views of the group's stripe. Kernel on CUDA, plain version on the CPU.
+    Each launch also counts in the ``launches`` of each of ``counters``."""
     inputs = list(inputs)
     if inputs[0].device.type == "cpu":
         return conv_group_plain(inputs, group)
@@ -299,8 +306,105 @@ def conv_group(inputs: Sequence[torch.Tensor],
         o = group.offsets[j]
         launch_conv([_block(inputs, stripe, group, r) for r in s.reads],
                     group.packed[j], group.biases[j],
-                    stripe[:, o:o + s.cout], s, f"conv_group conv {j}")
+                    stripe[:, o:o + s.cout], s, f"conv_group conv {j}", counters)
     return _emitted(stripe, group)
 
 
 conv_group.launches = 0
+
+
+class _ConvGroupDiff(torch.autograd.Function):
+    """Forward: ``conv_group`` with every block emitted; backward: the port
+    of ``_diff_bwd``, one conv VJP per (spec, read block)."""
+
+    @staticmethod
+    def forward(ctx, specs, n_inputs, dtype, *tensors):
+        n = len(specs)
+        inputs = list(tensors[:n_inputs])
+        weights = tensors[n_inputs:n_inputs + n]
+        biases = tensors[n_inputs + n:]
+        group = prepare_group(weights, biases, specs, n_inputs, dtype,
+                              inputs[0].device)
+        acts = conv_group(inputs, group, counters=(conv_group_diff,))
+        ctx.specs, ctx.n_inputs = specs, n_inputs
+        ctx.bias_dtypes = [b.dtype for b in biases]
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs, *weights, *acts)
+        return tuple(acts)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        specs, n_in = ctx.specs, ctx.n_inputs
+        n = len(specs)
+        saved = ctx.saved_tensors
+        inputs, weights, acts = saved[:n_in], saved[n_in:n_in + n], saved[n_in + n:]
+        need_in = ctx.needs_input_grad[3:3 + n_in]
+
+        def block(bid):
+            return inputs[bid] if bid < n_in else acts[bid - n_in]
+
+        # cotangents accumulate in the compute dtype; bias grads reduce in
+        # fp32 (the JAX adjoint's choices)
+        gblk: dict[int, torch.Tensor] = {}
+        dws, dbs = [None] * n, [None] * n
+        for j in reversed(range(n)):
+            s = specs[j]
+            g, extra = gouts[j], gblk.pop(n_in + j, None)
+            if g is None:
+                g = extra
+            elif extra is not None:
+                g = g + extra.to(g.dtype)
+            if g is None:  # nothing downstream reads this conv
+                continue
+            if s.act:
+                g = g * torch.where(acts[j] >= 0, 1.0, 0.1).to(g.dtype)
+            dbs[j] = g.float().sum((0, 2, 3)).to(ctx.bias_dtypes[j])
+            dacc = g.to(block(s.reads[0]).dtype)
+            parts, off = [], 0
+            for bid in s.reads:
+                x_b = block(bid)
+                cb = x_b.shape[1]
+                want_dx = bid >= n_in or need_in[bid]
+                dx, dw, _ = torch.ops.aten.convolution_backward(
+                    dacc, x_b, weights[j][:, off:off + cb], None,
+                    [s.stride] * 2, [s.dilation] * 2, [s.dilation] * 2, False,
+                    [0, 0], 1, [want_dx, True, False])
+                parts.append(dw)
+                off += cb
+                if want_dx:
+                    prev = gblk.get(bid)
+                    gblk[bid] = dx if prev is None else prev + dx
+            dws[j] = torch.cat(parts, 1).to(weights[j].dtype)
+        dins = [gblk[r].to(inputs[r].dtype) if r in gblk else None
+                for r in range(n_in)]
+        return (None, None, None, *dins, *dws, *dbs)
+
+
+def conv_group_diff(inputs: Sequence[torch.Tensor],
+                    weights: Sequence[torch.Tensor],
+                    biases: Sequence[torch.Tensor],
+                    specs: Sequence[ConvSpec]) -> tuple[torch.Tensor, ...]:
+    """Differentiable conv chain (port of ``conv_chain_kernel.py``
+    ``conv_group_diff``): returns EVERY conv's output ``[B, cout, Ho, Wo]``
+    (views of one stripe), each spec's ``emit`` flag notwithstanding.
+
+    ``weights[j]``: OIHW over spec j's reads in read order, ``biases[j]``:
+    ``[cout_j]``, both graph tensors in the compute dtype (the inputs'
+    dtype, fp32 or bf16): the group packs them for the kernel on every call,
+    so gradients flow back through whatever produced them (a reorder, a
+    cast from fp32 master weights). Forward: the conv-group kernel on CUDA
+    (``conv_group_diff.launches`` counts its conv launches, which
+    ``conv_group.launches`` counts as well), ``conv_group_plain`` on the
+    CPU. Backward: per spec in reverse, the LeakyReLU mask from the stored
+    activation, a fp32 bias-gradient sum, one conv VJP
+    (``aten.convolution_backward``) per read block; the VJPs are plain
+    products outside any kernel, as the JAX adjoint leaves them to XLA.
+    """
+    specs = tuple(dataclasses.replace(s, emit=True) for s in specs)
+    inputs = list(inputs)
+    dtype = inputs[0].dtype
+    return _ConvGroupDiff.apply(specs, len(inputs), dtype, *inputs,
+                                *weights, *biases)
+
+
+conv_group_diff.launches = 0

@@ -159,8 +159,8 @@ def prepare_group_q8(weights: Sequence[torch.Tensor],
         kinds = {q8_block[r] for r in s.reads}
         if len(kinds) != 1:
             raise ValueError(f"conv {j} reads int8 and bf16 blocks at once")
-        w = w.detach().to("cpu", torch.float32)
-        b = b.detach().to("cpu", torch.float32)
+        w = w.detach().to("cpu", torch.float32, copy=True)
+        b = b.detach().to("cpu", torch.float32, copy=True)
         if kinds == {True}:
             wq, wscale = fold_quant_weights(
                 torch.split(w, widths, 1), [block_scale[r] for r in s.reads])

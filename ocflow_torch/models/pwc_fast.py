@@ -1,5 +1,6 @@
-"""Fused serving forward of FlowNetCV (port of ``ocflow_tpu/models/pwc_fast.py``
-``fast_apply`` in bf16, fp32 and W8A8, and of its ``calibrate_q8``).
+"""Fused forward of FlowNetCV (port of ``ocflow_tpu/models/pwc_fast.py``:
+``fast_apply`` in bf16, fp32 and W8A8, ``calibrate_q8``, and the training
+forms ``fast_apply(..., diff=True)`` and ``fast_apply_pair``).
 
 The same function as ``FlowNetCV.forward`` on the same weights, with the hot
 blocks on the hand-written Hopper kernels:
@@ -20,6 +21,16 @@ Warps, feature normalization, the decoder-input assembly and the final
 resize are plain PyTorch. Weights are packed once per (model, dtype,
 device, W8A8 scales) by :func:`prepare` and cached on the model until they
 change.
+
+Training (``diff=True``, and the forward half of :func:`fast_apply_pair`):
+the eager encoder under autograd; per decoder level one ``conv_group_diff``
+(the conv-group kernel forward with every block kept, cuDNN conv VJPs
+backward) with the five growth convs and the flow head, the up-flow and
+up-feat as ``F.conv_transpose2d`` (no phase-conv fusion, as in the JAX
+diff path); at level 2 one group with context conv 1, the rest of the
+context network eager; the differentiable cost volume (its backward a
+kernel too). Weights are reordered and cast to the compute dtype inside
+the graph, so gradients reach the fp32 master parameters.
 
 W8A8 (``fast_apply(..., q8=scales)``, scales from :func:`calibrate_q8`):
 every decoder group L6..L2 runs on the int8 conv-group kernel
@@ -43,7 +54,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ocflow_torch import resolve_device
-from ocflow_torch.kernels.conv_chain import ConvGroup, ConvSpec, conv_group, prepare_group
+from ocflow_torch.kernels.conv_chain import (ConvGroup, ConvSpec, conv_group,
+                                              conv_group_diff, prepare_group)
 from ocflow_torch.kernels.conv_chain_q8 import (ConvGroupQ8, amax_scale, conv_group_q8,
                                                 dequantize_q8, prepare_group_q8,
                                                 quantize_q8)
@@ -282,13 +294,17 @@ def _level2(fw: FastWeights, inputs):
     return flow + res
 
 
-def _decode(model: FlowNetCV, fw: FastWeights, f1, f2):
+def _decode(model: FlowNetCV, f1, f2, decoder, level2):
+    """Coarse-to-fine decode of the feature pyramids ``f1``, ``f2``:
+    ``decoder(i, inputs) -> (up_flow, up_feat)`` runs decoder ``i`` (0 =
+    level 6), ``level2(inputs)`` the level-2 block with the context
+    network. Returns the level-2 flow ``[B, 2, H/4, W/4]``."""
     d = model.displacement
     c16, c26 = f1[5], f2[5]
     if model.normalize:
         c16, c26 = normalize_features([c16, c26])
     corr = _leaky(cost_volume(c16.contiguous(), c26.contiguous(), d))
-    up_flow, up_feat = _decoder(fw.decoders[0], [corr])
+    up_flow, up_feat = decoder(0, [corr])
     flow2 = None
     for i, (lvl, scale) in enumerate(zip((4, 3, 2, 1), model.warp_scales)):
         warped = warp(f2[lvl], up_flow * scale,
@@ -300,10 +316,23 @@ def _decode(model: FlowNetCV, fw: FastWeights, f1, f2):
         corr = _leaky(cost_volume(c1n, wn.contiguous(), d))
         inputs = [corr, c1n, up_flow, up_feat]
         if lvl > 1:
-            up_flow, up_feat = _decoder(fw.decoders[i + 1], inputs)
+            up_flow, up_feat = decoder(i + 1, inputs)
         else:
-            flow2 = _level2(fw, inputs)
-    return flow2.float()
+            flow2 = level2(inputs)
+    return flow2
+
+
+def _decode_fused(model: FlowNetCV, fw: FastWeights, f1, f2):
+    """The serving decode on the packed groups ``fw``."""
+    return _decode(model, f1, f2, lambda i, x: _decoder(fw.decoders[i], x),
+                   lambda x: _level2(fw, x))
+
+
+def _decode_diff(model: FlowNetCV, f1, f2):
+    """The gradient-carrying decode: ``conv_group_diff`` groups, no
+    phase-conv fusion."""
+    return _decode(model, f1, f2, lambda i, x: _diff_decoder(model, i, x),
+                   lambda x: _diff_level2(model, x))
 
 
 def _encode(fw: FastWeights, img: torch.Tensor) -> list[torch.Tensor]:
@@ -319,7 +348,31 @@ def _encode(fw: FastWeights, img: torch.Tensor) -> list[torch.Tensor]:
     return feats
 
 
-def fast_apply(model_or_state, x: torch.Tensor, q8=None, device=None):
+def _flows(flow2: torch.Tensor):
+    """``(flow_full [B, H, W, 2], flow_quarter [B, H/4, W/4, 2])`` from the
+    level-2 flow ``[B, 2, H/4, W/4]``."""
+    flow2 = flow2.float()
+    hh, ww = flow2.shape[2] * 4, flow2.shape[3] * 4
+    flow1 = resize_bilinear(flow2, hh, ww, align_corners=True) * 20.0
+    return (flow1.permute(0, 2, 3, 1).contiguous(),
+            (flow2 * 5.0).permute(0, 2, 3, 1).contiguous())
+
+
+def _model(model_or_state, dev) -> FlowNetCV:
+    if isinstance(model_or_state, Mapping):
+        model = FlowNetCV(device=dev)
+        model.load_state_dict(model_or_state)
+        return model
+    return model_or_state
+
+
+def _images(x: torch.Tensor) -> torch.Tensor:
+    """``[B, H, W, 6]`` -> ``cat(im1, im2)`` on the batch axis, NCHW."""
+    return torch.cat([x[..., :3], x[..., 3:]], 0).permute(0, 3, 1, 2).contiguous()
+
+
+def fast_apply(model_or_state, x: torch.Tensor, q8=None, device=None,
+               diff: bool = False):
     """Fused replacement for ``FlowNetCV.forward``.
 
     ``model_or_state``: a ``FlowNetCV`` / ``PWCNet``, or a FlowNetCV
@@ -327,28 +380,129 @@ def fast_apply(model_or_state, x: torch.Tensor, q8=None, device=None):
     (H, W divisible by 64); its dtype (fp32 or bf16) is the compute dtype.
     ``q8``: W8A8 scales from :func:`calibrate_q8` (the decoders run int8;
     ``'enc'`` / ``'ctx'`` in the scales add the encoder / context chain).
+    ``diff``: the gradient-carrying form (eager encoder, ``conv_group_diff``
+    decoders, the differentiable cost volume; weights cast to ``x``'s dtype
+    inside the graph, so gradients reach the model's parameters); serving
+    only without it, and not with ``q8``.
     Runs on ``device`` (default ``cuda``; pass ``"cpu"`` for the plain
     versions of the kernels). Returns ``(flow_full [B, H, W, 2],
     flow_quarter [B, H/4, W/4, 2])`` in fp32.
     """
     dev = resolve_device(device)
-    if isinstance(model_or_state, Mapping):
-        model = FlowNetCV(device=dev)
-        model.load_state_dict(model_or_state)
-    else:
-        model = model_or_state
+    model = _model(model_or_state, dev)
     x = x.to(dev)
+    b = x.shape[0]
+    if diff:
+        if q8 is not None:
+            raise ValueError("fast_apply: W8A8 is a serving mode; diff takes no q8")
+        feats = _encode_diff(model, _images(x))
+        return _flows(_decode_diff(model, [f[:b] for f in feats],
+                                   [f[b:] for f in feats]))
     with torch.no_grad():
         fw = prepare(model, x.dtype, dev, q8)
-        b = x.shape[0]
-        img = torch.cat([x[..., :3], x[..., 3:]], 0).permute(0, 3, 1, 2)
-        feats = _encode(fw, img)
-        flow2 = _decode(model, fw, [f[:b] for f in feats],
-                        [f[b:] for f in feats])
-        hh, ww = flow2.shape[2] * 4, flow2.shape[3] * 4
-        flow1 = resize_bilinear(flow2, hh, ww, align_corners=True) * 20.0
-    return (flow1.permute(0, 2, 3, 1).contiguous(),
-            (flow2 * 5.0).permute(0, 2, 3, 1).contiguous())
+        feats = _encode(fw, _images(x))
+        return _flows(_decode_fused(model, fw, [f[:b] for f in feats],
+                                    [f[b:] for f in feats]))
+
+
+def fast_apply_pair(model: FlowNetCV, x: torch.Tensor, q8=None, device=None,
+                    mark=None):
+    """Forward AND backward flow from ONE encoder pass (port of
+    ``ocflow_tpu`` ``fast_apply_pair``), for the occlusion-aware step.
+
+    The encoder runs once over ``cat(im1, im2)``; the forward flow is the
+    gradient-carrying decode of :func:`fast_apply` with ``diff=True``; the
+    backward flow (frame 2 -> 1) is the serving decode, under ``no_grad``,
+    of the detached features with ``f1`` / ``f2`` swapped (``q8``: W8A8
+    scales for that decode only). Equal to a second forward on the swapped
+    input: the features are the same values and the top-level feature
+    normalization is symmetric in its two arguments. ``x``'s dtype is the
+    compute dtype. Returns ``((flow_full, flow_quarter), (back_full,
+    back_quarter))``, NHWC fp32; only the first pair carries gradients.
+    ``mark``: a timing hook, called with ``"encoder"``, ``"forward
+    decode"`` and ``"backward decode"`` as each part has been issued.
+    """
+    mark = mark or _no_mark
+    dev = resolve_device(device)
+    x = x.to(dev)
+    b = x.shape[0]
+    feats = _encode_diff(model, _images(x))
+    mark("encoder")
+    f1, f2 = [f[:b] for f in feats], [f[b:] for f in feats]
+    fwd = _flows(_decode_diff(model, f1, f2))
+    mark("forward decode")
+    with torch.no_grad():
+        fw = prepare(model, x.dtype, dev, q8)
+        bwd = _flows(_decode_fused(model, fw, [f.detach() for f in f2],
+                                   [f.detach() for f in f1]))
+    mark("backward decode")
+    return fwd, bwd
+
+
+def _no_mark(name: str) -> None:
+    pass
+
+
+def _conv(x, conv: nn.Conv2d, act: bool = True):
+    """``conv`` (3x3) with its weights cast to ``x``'s dtype in the graph."""
+    y = F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                 stride=conv.stride, padding=conv.padding,
+                 dilation=conv.dilation)
+    return _leaky(y) if act else y
+
+
+def _deconv(x, deconv: nn.ConvTranspose2d):
+    return F.conv_transpose2d(x, deconv.weight.to(x.dtype),
+                              deconv.bias.to(x.dtype), stride=2, padding=1)
+
+
+def _encode_diff(model: FlowNetCV, img: torch.Tensor) -> list[torch.Tensor]:
+    """The feature pyramid under autograd: eager convs (cuDNN), as the JAX
+    path runs its plain XLA encoder when gradients flow."""
+    feats, h = [], img
+    for convs in model.encoder.levels():
+        for m in convs:
+            h = _conv(h, m)
+        feats.append(h)
+    return feats
+
+
+def _diff_group(model: FlowNetCV, i: int, inputs, extra=()):
+    """Decoder ``i`` (0 = level 6) as one ``conv_group_diff`` over its
+    inputs: the five growth convs, the flow head, then ``extra`` convs
+    reading the whole block concat. Weights are reordered (newest first ->
+    block order) and cast in the graph. Returns every block."""
+    dec = model.decoders[i]
+    dt = inputs[0].dtype
+    block_ch = [dec.convs()[0].in_channels, *GROWTH]
+    convs = [*dec.convs(), *extra]
+    ws = [_split_newest_first(c.weight, block_ch[:j + 1]).to(dt)
+          for j, c in enumerate(convs)]
+    bs = [c.bias.to(dt) for c in convs]
+    specs = _decoder_specs(len(inputs), head_emit=True)
+    specs += [ConvSpec(tuple(range(len(inputs) + len(GROWTH))), c.out_channels)
+              for c in extra]
+    return conv_group_diff(inputs, ws, bs, specs)
+
+
+def _diff_decoder(model: FlowNetCV, i: int, inputs):
+    """Levels 6..3: the group, then up-flow and up-feat as transposed convs
+    on the flow and on the block concat (newest first)."""
+    acts = _diff_group(model, i, inputs)
+    deconv, upfeat = model.upsamplers(DECODER_LEVELS[i])
+    feat = torch.cat([*acts[len(GROWTH) - 1::-1], *inputs], 1)
+    return _deconv(acts[len(GROWTH)], deconv), _deconv(feat, upfeat)
+
+
+def _diff_level2(model: FlowNetCV, inputs):
+    """Level 2: one group with the dense block, the flow head and context
+    conv 1; the dilated context convs and the 64 -> 32 -> 2 tail eager."""
+    ctx = model.context.convs()
+    acts = _diff_group(model, len(DECODER_LEVELS) - 1, inputs, extra=ctx[:1])
+    flow, y = acts[len(GROWTH)], acts[len(GROWTH) + 1]
+    for m in ctx[1:-1]:
+        y = _conv(y, m)
+    return flow + _conv(y, ctx[-1], act=False)
 
 
 def calibrate_q8(model: FlowNetCV, x: torch.Tensor, encoder: bool = False,

@@ -22,15 +22,16 @@ def cost_volume(f1: torch.Tensor, f2: torch.Tensor,
                 max_displacement: int = 4) -> torch.Tensor:
     """Correlation cost volume of ``[B, C, H, W]`` features.
 
-    Accumulates in fp32 and returns ``[B, (2d+1)^2, H, W]`` in the input
-    dtype.
+    Accumulates in fp32 (fp64 for fp64 input) and returns ``[B, (2d+1)^2,
+    H, W]`` in the input dtype.
     """
     b, c, h, w = f1.shape
     d = max_displacement
     n = 2 * d + 1
-    a = f1.float()
-    f2p = F.pad(f2.float(), (d, d, d, d))
-    out = torch.empty((b, n * n, h, w), dtype=torch.float32, device=f1.device)
+    acc = torch.promote_types(f1.dtype, torch.float32)
+    a = f1.to(acc)
+    f2p = F.pad(f2.to(acc), (d, d, d, d))
+    out = torch.empty((b, n * n, h, w), dtype=acc, device=f1.device)
     for i in range(n):
         for j in range(n):
             out[:, i * n + j] = (a * f2p[:, :, i:i + h, j:j + w]).mean(1)

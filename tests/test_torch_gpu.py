@@ -10,18 +10,21 @@ Tolerances, relative to max |plain|: fp32 1e-4 (summation order only);
 bf16 2^-6, two bf16 ulps of the largest value (a rounding step of the
 final or an intermediate store may differ). The int8 kernels are exact:
 W8A8 codes and the bf16 outputs of int8-read convs equal their plain
-version bit for bit, and so does the int8 GEMM probe.
+version bit for bit, and so does the int8 GEMM probe. The training step's
+bounds are stated at its test.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ocflow_torch.bench import smooth_images
 from ocflow_torch.kernels import conv_chain, conv_chain_q8, cost_volume as cv_mod
 from ocflow_torch.kernels import gemm as gemm_mod
 from ocflow_torch.kernels.conv_chain import ConvSpec, conv_group, prepare_group
 from ocflow_torch.kernels.conv_chain_q8 import prepare_group_q8, quantize_q8
 from ocflow_torch.models import FlowNetCV, calibrate_q8, fast_apply, prepare
+from ocflow_torch.train import create_train_state, make_unsupervised_flow_step
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 
@@ -188,3 +191,91 @@ def test_fast_apply_q8_on_gpu_goes_through_the_kernels(cuda_device):
     for f, r in zip(fast, ref):
         assert torch.isfinite(f).all()
         assert (f - r).abs().max().item() <= 0.15 * r.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cost_volume_backward_kernel_matches_plain(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    f1, f2 = (torch.randn(2, 40, 13, 70, device=cuda_device, generator=gen)
+              .to(dtype) for _ in range(2))
+    g = torch.randn(2, 81, 13, 70, device=cuda_device, generator=gen).to(dtype)
+    got = cv_mod.cost_volume_backward(f1, f2, g, 4)
+    torch.cuda.synchronize()
+    for a, b in zip(got, cv_mod.cost_volume_backward_plain(f1, f2, g, 4)):
+        assert a.shape == f1.shape and a.dtype == dtype
+        _close(a, b, dtype)
+
+
+def test_conv_group_diff_grads_on_gpu(cuda_device):
+    """Gradients of conv_group_diff (kernel forward, cuDNN VJPs) == autograd
+    of the eager chain, fp32 with TF32 off, 1e-4 of max|grad|."""
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    specs = [ConvSpec((0,), 24), ConvSpec((0, 1), 16, dilation=2),
+             ConvSpec((2, 0), 2, act=False)]
+    raw = [rng.normal(size=(2, 16, 9, 70)), rng.normal(size=(24, 16, 3, 3)) * 0.1,
+           rng.normal(size=(16, 40, 3, 3)) * 0.1, rng.normal(size=(2, 32, 3, 3)) * 0.1,
+           rng.normal(size=(24,)), rng.normal(size=(16,)), rng.normal(size=(2,))]
+    seeds = [t(rng.normal(size=(2, c, 9, 70))) for c in (24, 16, 2)]
+
+    def grads(run):
+        leaves = [t(a).requires_grad_() for a in raw]
+        outs = run(leaves[0], leaves[1:4], leaves[4:])
+        torch.autograd.backward(outs, seeds)
+        return [x.grad for x in leaves]
+
+    def eager(x, ws, bs):
+        blocks = [x]
+        for s, w, b in zip(specs, ws, bs):
+            y = torch.nn.functional.conv2d(torch.cat([blocks[r] for r in s.reads], 1), w, b,
+                                           padding=s.dilation, dilation=s.dilation)
+            blocks.append(torch.nn.functional.leaky_relu(y, 0.1) if s.act else y)
+        return blocks[1:]
+
+    conv_chain.conv_group_diff.launches = 0
+    got = grads(lambda x, ws, bs: conv_chain.conv_group_diff([x], ws, bs, specs))
+    assert conv_chain.conv_group_diff.launches == len(specs)
+    for a, b in zip(got, grads(eager)):
+        _close(a, b, torch.float32)
+
+
+def test_train_step_on_gpu_goes_through_the_kernels(cuda_device):
+    """One bf16 step of the occlusion-aware fused path at 2x64x128 launches
+    10 cost volumes, 5 backward, 31 conv_group_diff and 72 conv launches in
+    all, and stays near the plain path, the eager fp32 step: loss within
+    1e-2 relative, whole-gradient relative L2 within 0.2 (bf16 rounding of
+    a random-weight net; the 448x1024 step measures 0.12). The fp32 fused
+    step is within 1e-4 (metrics) and 1e-2 (whole-gradient relative L2) of
+    the eager one."""
+    gen = torch.Generator().manual_seed(0)
+    base = FlowNetCV(generator=gen)
+    coarse = torch.rand((2, 6, 8, 16), generator=gen) * 2 - 1
+    batch = {"images": smooth_images(coarse).to(cuda_device)}
+    hp = {"model": "pwc", "occ_aware": True, "occ_method": "range_map",
+          "photo_weight": 4.0, "smooth1_weight": 0.5, "smooth2_weight": 0.0,
+          "fast_forward": "both", "compute_dtype": "bfloat16"}
+
+    def step(**kw):
+        model = FlowNetCV()
+        model.load_state_dict(base.state_dict())
+        state = create_train_state(model, 1e-4, device=cuda_device)
+        run, _ = make_unsupervised_flow_step({**hp, **kw})
+        metrics = run(state, batch)[1]
+        grad = torch.cat([p.grad.float().flatten() for p in model.parameters()])
+        return {k: float(v) for k, v in metrics.items()}, grad
+
+    counters = (cv_mod.cost_volume, cv_mod.cost_volume_backward, conv_chain.conv_group,
+                conv_chain.conv_group_diff)
+    for c in counters:
+        c.launches = 0
+    m16, g16 = step()
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [10, 5, 72, 31]
+    m32, g32 = step(compute_dtype="float32")
+    me, ge = step(compute_dtype="float32", fast_forward="off")
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    for k in me:
+        assert abs(m32[k] - me[k]) <= 1e-4 * abs(me[k]), k
+    assert rel(g32, ge) <= 1e-2
+    assert abs(m16["loss"] - me["loss"]) <= 1e-2 * me["loss"]
+    assert rel(g16, ge) <= 0.2

@@ -22,6 +22,7 @@ from ocflow_tpu.models.pwc_fast import _phase_conv_weights as j_phase_conv_weigh
 from ocflow_tpu.models.torch_convert import _deconv_kernel
 from ocflow_tpu.ops.pallas import conv_chain_kernel as jcc
 from ocflow_tpu.ops.pallas.cost_volume_kernel import _forward_pallas
+from test_torch_ops import share_cores  # noqa: F401  (autouse)
 
 ATOL = 1e-4
 

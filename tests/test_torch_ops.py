@@ -4,6 +4,8 @@ Same inputs from numpy seeds through both, fp32 on the CPU. Tolerance 1e-5
 absolute on O(1) values: only summation order differs.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,20 @@ from ocflow_tpu.ops.warp import flow_to_warp as j_flow_to_warp
 from ocflow_tpu.ops.warp import warp as j_warp
 
 ATOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def share_cores():
+    """Give torch this process's share of the CPU cores while a module of
+    the port's tests runs (the other ``test_torch_*`` modules import this
+    fixture). Under pytest-xdist every worker would otherwise run an OpenMP
+    pool over every core, and the pools' spinning threads starve each other
+    and every other worker: the training tests ran ~10x slower that way."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // workers))
+    yield
+    torch.set_num_threads(before)
 
 
 def _nchw(a):

@@ -21,6 +21,7 @@ from ocflow_torch.models import (FlowNetCV, PWCNet, fast_apply, flownetcv_from_f
                                  prepare)
 from ocflow_tpu.models import pwc_net as jpwc
 from ocflow_tpu.models.torch_convert import convert_flownetcv
+from test_torch_ops import share_cores  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 QUARTER_ATOL, FULL_ATOL = 2e-4, 2e-3

@@ -29,6 +29,7 @@ from ocflow_tpu.models import pwc_fast as jpf
 from ocflow_tpu.models import pwc_net as jpwc
 from ocflow_tpu.models.torch_convert import convert_flownetcv
 from ocflow_tpu.ops.pallas import conv_chain_kernel as jcc
+from test_torch_ops import share_cores  # noqa: F401  (autouse)
 
 BF16_REL = 8e-3
 CODE_FRAC = 1e-3
