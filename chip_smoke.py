@@ -20,14 +20,16 @@ Phases (any failure raises and exits non-zero):
    the bf16 conv groups within 2^-6, cost volumes as in phase 3;
 5. drive each path once with every launch counter zeroed just before and
    read just after: the bf16 forward (5 cost volumes, one bf16 conv launch
-   per conv), the W8A8 forward (5, 24, 35 int8 launches) and the GEMM
-   probe ``ocflow_torch.tools.spike_int8`` (2048^3, int8 exact, bf16 within
-   1e-2);
+   per conv, 59, of which 53 on the staged kernel: all but the six stride-2
+   encoder convs), the W8A8 forward (5, 24 bf16 of which 18 staged, 35
+   int8 launches) and the GEMM probe ``ocflow_torch.tools.spike_int8``
+   (2048^3, int8 exact, bf16 within 1e-2);
 6. hold fp32 ``fast_apply`` against the eager fp32 ``FlowNetCV`` (cuDNN,
    TF32 off), bf16 against fp32, W8A8 against the eager fp32 forward;
 7. time every kernel at the path's shapes against its plain version, its
-   bound and a library yardstick, and the bf16 and W8A8 forwards end to
-   end (pairs/s) in turns;
+   bound and a library yardstick (conv groups with their TFLOP/s and share
+   of the bound), and the bf16 and W8A8 forwards end to end (pairs/s) in
+   turns;
 8. training (``longrun_synthetic.yaml`` hparams, seeded FlowNetCV and
    smooth seeded frames, 448x1024, B=8): record every kernel call of one
    fp32 and one bf16 step (pair + loss + backward) and replay each against
@@ -38,8 +40,9 @@ Phases (any failure raises and exits non-zero):
    spread, the eager step with deterministic cuDNN, the eager step with
    the fused run's occlusion mask held); bf16 vs fp32
    gradients; launches of one bf16 step (10 cost volumes, 5 backward, 31
-   ``conv_group_diff`` conv launches, 72 conv launches in all) and of one
-   with a W8A8 backward decode (37 and 35 int8); five bf16 Adam steps;
+   ``conv_group_diff`` conv launches, 72 conv launches in all, every one
+   staged) and of one with a W8A8 backward decode (37 staged and 35 int8);
+   five bf16 Adam steps;
    the bf16 step end to end, and the new kernels' calls against plain,
    bound and cuDNN.
 
@@ -392,13 +395,22 @@ def _counters():
 
 def _count_launches(run):
     """``run()`` with every launch counter zeroed just before; the counts
-    just after, and ``run()``'s result."""
+    just after (``conv_group_staged``: the conv launches on the staged
+    kernel), and ``run()``'s result."""
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    counters["conv_group"].staged_launches = 0
     out = run()
     torch.cuda.synchronize()
-    return {k: fn.launches for k, fn in counters.items()}, out
+    counts = {k: fn.launches for k, fn in counters.items()}
+    counts["conv_group_staged"] = counters["conv_group"].staged_launches
+    return counts, out
+
+
+def _rate(flops, ms, bound_ms):
+    """Achieved TFLOP/s and share of the bound of one timed call."""
+    return f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.2f}% of bound"
 
 
 def _grad_errors(got, ref):
@@ -546,16 +558,24 @@ def _train_phase(card, max_err, per, add, failures):
         # the pair runs the serving decode only: no encoder groups
         fw = pwc_fast.prepare(state.model, torch.bfloat16, dev, q8)
         n_enc = sum(len(g.specs) for g in fw.encoder)
+        n_enc_staged = sum(conv_chain.is_staged(g.dtype, s)
+                           for g in fw.encoder for s in g.specs)
         launches[path], _ = _count_launches(lambda: step(state, batch))
+        want = fw.launch_counts()
         expect = {"cost_volume": 10, "cost_volume_bwd": 5,
-                  "conv_group": n_diff + fw.launch_counts()["conv_group"] - n_enc,
+                  "conv_group": n_diff + want["conv_group"] - n_enc,
+                  "conv_group_staged": n_diff + want["conv_group_staged"] - n_enc_staged,
                   "conv_group_diff": n_diff,
-                  "conv_group_q8": fw.launch_counts()["conv_group_q8"], "gemm_probe": 0}
+                  "conv_group_q8": want["conv_group_q8"], "gemm_probe": 0}
         print(f"main path {path} (one bf16 step) launches: {launches[path]} "
               f"(expected {expect})")
         if launches[path] != expect:
             raise AssertionError(f"{path} launch counts {launches[path]}")
         del state
+    # every bf16 conv of the step is stride 1, dilation 1: all staged
+    if (launches["train"]["conv_group_staged"], launches["train_q8"]["conv_group_staged"]) \
+            != (72, 37):
+        raise AssertionError(f"staged launches per step {launches}, want 72 / 37")
 
     # 5. five bf16 Adam steps
     state = create_train_state(copy.deepcopy(model0), lr, device=dev)
@@ -620,7 +640,8 @@ def _train_phase(card, max_err, per, add, failures):
             per["conv_group_diff"]["bwd_ms"] += bwd_ms
             per["conv_group_diff"]["library_bwd_ms"] += lib_bwd_ms
             print(f"time conv_group_diff bf16 {tuple(inputs[0].shape)} ({n} convs): "
-                  f"forward kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                  f"forward kernel {k_ms:.4f} ms ({_rate(flops, k_ms, bound)}), "
+                  f"plain {p_ms:.4f} ms, library "
                   f"(cuDNN over the concat) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
                   f"{nbytes} B, {flops} flop); backward (cuDNN conv VJPs) {bwd_ms:.4f} ms, "
                   f"library autograd {lib_bwd_ms:.4f} ms [{card}]")
@@ -707,8 +728,11 @@ def main() -> int:
         print(f"main path {path} launches: {launches[path]} (expected {expect})")
         if launches[path] != expect:
             raise AssertionError(f"{path} launch counts {launches[path]}")
-    if (launches["w8a8"]["conv_group"], launches["w8a8"]["conv_group_q8"]) != (24, 35):
-        raise AssertionError(f"W8A8 launches {launches['w8a8']}, want 24 / 35")
+    # staged: every bf16 conv but the encoders' six stride-2 convs
+    if [launches[p][k] for p in ("bf16", "w8a8")
+            for k in ("conv_group", "conv_group_staged", "conv_group_q8")] \
+            != [59, 53, 0, 24, 18, 35]:
+        raise AssertionError(f"launches {launches}, want 59 / 53 / 0 and 24 / 18 / 35")
     print(f"main path spike_int8 launches: {launches['spike_int8']}")
     if launches["spike_int8"]["gemm_probe"] < 2:
         raise AssertionError("the GEMM probe did not launch its kernel")
@@ -788,8 +812,9 @@ def main() -> int:
             nbytes, flops = _cg_cost(*args, outs_cg)
             shape = tuple(args[0][0].shape)
         bound, by = add(kind, k_ms, p_ms, nbytes, flops, PEAK_FLOPS[torch.bfloat16], lib_ms)
-        print(f"time {kind} bf16 {shape}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
+        print(f"time {kind} bf16 {shape}: kernel {k_ms:.4f} ms ({_rate(flops, k_ms, bound)}), "
+              f"plain {p_ms:.4f} ms, library "
+              f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
               f"bound {bound:.4f} ms ({by}; {nbytes} B, {flops} flop) [{card}]")
 
     # the int8 launches of each W8A8 group (its bf16-read up-flow conv runs
@@ -865,6 +890,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "path": path, "launches": launches[path][name],
             "launches_by_path": {k: c[name] for k, c in launches.items()},
+            **({"staged_launches_by_path": {k: c["conv_group_staged"]
+                                            for k, c in launches.items()}}
+               if name == "conv_group" else {}),
             "max_abs_err": max_err[name], "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
             "bound_by": p["bound_by"],

@@ -10,7 +10,9 @@ LeakyReLU(0.1) and stores in the group's dtype (fp32 or bf16); later convs
 read the stored values, as the TPU kernel reads its VMEM stripe.
 
 On CUDA tensors ``conv_group`` launches ``csrc/conv_group.cu`` once per
-conv (``conv_group.launches`` counts the launches); on CPU tensors it runs
+conv (``conv_group.launches`` counts the launches; a bf16 conv of stride 1
+and dilation 1 runs its staged kernel, on the tiles of :func:`staged_tile`,
+and ``conv_group.staged_launches`` counts those too); on CPU tensors it runs
 the plain version ``conv_group_plain``. There is no fallback from one to the
 other. The TPU kernel's lane packing, W-pair stride-2 packing, im2col and
 16-channel padding are TPU layout devices and have no counterpart here: a
@@ -207,6 +209,7 @@ def _lib():
             ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -250,14 +253,42 @@ def tile_cfg(cout: int) -> int:
     return 0 if cout <= 16 else 1 if cout <= 32 else 2 if cout <= 64 else 3
 
 
+# The staged kernel's tile (these match csrc/conv_group.cu's ST_* and TC_*):
+# at most STAGE_PIXELS output pixels, at most STAGE_MAX_ROWS rows; per chunk
+# of STAGE_CHUNK input channels a halo tile [STAGE_CHUNK][R + 2][C +
+# STAGE_EXTRA] in STAGE_HALO bf16 elements of shared memory.
+STAGE_PIXELS = 128
+STAGE_MAX_ROWS = 16
+STAGE_CHUNK = 32
+STAGE_EXTRA = 16
+STAGE_HALO = STAGE_CHUNK * 432
+
+
+def is_staged(dtype: torch.dtype, spec: ConvSpec) -> bool:
+    """Whether a conv runs the staged kernel: bf16, stride 1, dilation 1."""
+    return dtype == torch.bfloat16 and spec.stride == 1 and spec.dilation == 1
+
+
+def staged_tile(wo: int) -> tuple[int, int]:
+    """The staged kernel's output tile, ``(rows R, columns C)``, for an
+    output ``Wo`` wide: a whole row of up to 128 pixels, rounded up to a
+    multiple of 8 (the kernel copies 8 columns at a time), and as many rows
+    as fill 128 pixels (at most 16): 1x128 at 128 or more, 2x64, 4x32,
+    8x16. A tile never straddles two images; the kernel masks rows past
+    ``Ho`` and columns past ``Wo``."""
+    c = min(-(-wo // 8) * 8, STAGE_PIXELS)
+    return min(STAGE_PIXELS // c, STAGE_MAX_ROWS), c
+
+
 def launch_conv(reads: Sequence[torch.Tensor], packed: torch.Tensor,
                 bias: torch.Tensor, out: torch.Tensor, spec: ConvSpec,
                 what: str, counters: Sequence = ()) -> None:
     """One launch of ``csrc/conv_group.cu``: ``out`` (a ``[B, cout, Ho,
     Wo]`` channel range of a stripe, in the kernel dtype) = the conv of the
     channel concat of ``reads`` with ``packed`` (see :func:`pack_weights`)
-    and the fp32 ``bias``. Counts the launch in ``conv_group.launches`` and
-    in the ``launches`` of each of ``counters``."""
+    and the fp32 ``bias``. Counts the launch in ``conv_group.launches``
+    (and, on the staged kernel, in ``conv_group.staged_launches``) and in
+    the ``launches`` of each of ``counters``."""
     segs = merge_segments(reads)
     ptrs, bstr, chans = segment_args(segs)
     b, _, ho, wo = out.shape
@@ -267,9 +298,11 @@ def launch_conv(reads: Sequence[torch.Tensor], packed: torch.Tensor,
                   bstr, chans, b, hin, win, packed.data_ptr(),
                   bias.data_ptr(), out.data_ptr(), out.stride(0), spec.cout,
                   packed.shape[1], ho, wo, spec.stride, spec.dilation,
-                  int(spec.act), stream)
+                  int(spec.act), *staged_tile(wo), stream)
     _build.check(code, what)
     conv_group.launches += 1
+    if is_staged(out.dtype, spec):
+        conv_group.staged_launches += 1
     for c in counters:
         c.launches += 1
 
@@ -311,6 +344,7 @@ def conv_group(inputs: Sequence[torch.Tensor], group: ConvGroup,
 
 
 conv_group.launches = 0
+conv_group.staged_launches = 0
 
 
 class _ConvGroupDiff(torch.autograd.Function):

@@ -55,7 +55,8 @@ from torch import nn
 
 from ocflow_torch import resolve_device
 from ocflow_torch.kernels.conv_chain import (ConvGroup, ConvSpec, conv_group,
-                                              conv_group_diff, prepare_group)
+                                              conv_group_diff, is_staged,
+                                              prepare_group)
 from ocflow_torch.kernels.conv_chain_q8 import (ConvGroupQ8, amax_scale, conv_group_q8,
                                                 dequantize_q8, prepare_group_q8,
                                                 quantize_q8)
@@ -125,9 +126,14 @@ class FastWeights:
 
     def launch_counts(self) -> dict[str, int]:
         """Conv-kernel launches of one forward: ``conv_group`` (bf16/fp32
-        kernel) and ``conv_group_q8`` (int8 kernel)."""
+        kernel), ``conv_group_staged`` (those of them on its staged kernel)
+        and ``conv_group_q8`` (int8 kernel)."""
+        convs = [(torch.bfloat16 if isinstance(g, ConvGroupQ8) else g.dtype, s)
+                 for g in self.groups() for j, s in enumerate(g.specs)
+                 if not (isinstance(g, ConvGroupQ8) and g.int8_read[j])]
         n8 = sum(g.n_int8 for g in self.groups() if isinstance(g, ConvGroupQ8))
-        return {"conv_group": sum(len(g.specs) for g in self.groups()) - n8,
+        return {"conv_group": len(convs),
+                "conv_group_staged": sum(is_staged(d, s) for d, s in convs),
                 "conv_group_q8": n8}
 
 

@@ -1,0 +1,147 @@
+"""Where the bf16 conv-group kernel's time goes, conv by conv, on the card.
+
+Times each conv of the bf16 serving forward's conv groups (FlowNetCV, B=8
+448x1024, seeded weights) with ``csrc/conv_group.cu`` as it is and with
+variants of it:
+
+- ``--remove PART``: the staged kernel with one part taken out of its
+  source text (``copy``: the per-tap window copy into the X slab;
+  ``staging``: the halo tile's fill; ``weights``: the weight-slab loads;
+  ``mma``: the tensor-core products). Such a kernel computes nothing
+  useful; only its time means something. The time a part costs is the
+  kernel's time less the time without it, and the parts overlap, so those
+  differences do not add up to the kernel's time.
+- ``--source NAME=PATH``: another version of the kernel's source (the same
+  C entry point).
+- ``--tile-cap N``: the staged tile capped at N columns (``128 // C`` rows).
+
+Each variant is built aside with nvcc (under ``build/``). Prints, per group
+and variant, the ms of each conv and their sum beside the card's name and
+power limit.
+
+Usage: ``python -m ocflow_torch.tools.conv_ablation [--remove copy staging
+weights mma] [--source NAME=PATH ...] [--tile-cap N ...]``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from ocflow_torch.bench import BATCH, HEIGHT, SEED, WIDTH, cuda_ms, gpu_info, make_inputs
+from ocflow_torch.kernels import _build, conv_chain
+from ocflow_torch.models import pwc_fast
+
+ITERS = 10
+# the source text each removal takes out of the staged kernel's K loop
+REMOVALS = {
+    "copy": [("      window(tap);\n", "")],
+    "staging": [("    stage(c0);\n", "")],
+    "weights": [("load_a(c0, tap + 1);", ";"), ("load_a(c0 + ST_CC, 0);", ";")],
+    "mma": [("wmma::mma_sync(acc[i][j], a[i], bf[j], acc[i][j]);", ";")],
+}
+
+
+def _compile(name: str, text: str, real):
+    """``text`` built as ``build/.../ablation/lib<name>.so``; its
+    ``ocf_conv3x3`` with the argument types of ``real``, the kernel's."""
+    out_dir = _build.BUILD_DIR / "ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
+    src.write_text(text)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build._CSRC),
+                           "-o", str(lib), str(src)], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(str(lib)).ocf_conv3x3
+    fn.argtypes, fn.restype = real.argtypes, real.restype
+    return fn
+
+
+def _removed(part: str) -> str:
+    text = (_build._CSRC / "conv_group.cu").read_text()
+    for old, new in REMOVALS[part]:
+        if text.count(old) != 1:
+            raise ValueError(f"--remove {part}: {old!r} is not in the kernel once")
+        text = text.replace(old, new)
+    return text
+
+
+def _groups(model, x):
+    """The (inputs, group) of every ``conv_group`` call of one forward."""
+    calls, orig = [], pwc_fast.conv_group
+
+    def record(inputs, group, counters=()):
+        calls.append((list(inputs), group))
+        return orig(inputs, group, counters)
+
+    pwc_fast.conv_group = record
+    try:
+        pwc_fast.fast_apply(model, x)
+    finally:
+        pwc_fast.conv_group = orig
+    return calls
+
+
+def _conv_ms(inputs, group) -> list[float]:
+    """Device ms of each conv of ``group``, launched alone."""
+    b = inputs[0].shape[0]
+    ho, wo = conv_chain.out_hw([tuple(t.shape[2:]) for t in inputs], group.specs)
+    stripe = torch.empty((b, group.width, ho, wo), dtype=group.dtype, device=inputs[0].device)
+    per = []
+    for j, s in enumerate(group.specs):
+        o = group.offsets[j]
+        reads = [conv_chain._block(inputs, stripe, group, r) for r in s.reads]
+        per.append(cuda_ms(lambda: conv_chain.launch_conv(  # noqa: B023
+            reads, group.packed[j], group.biases[j], stripe[:, o:o + s.cout], s,
+            "conv_ablation"), ITERS))
+    return per
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--remove", nargs="*", default=[], choices=sorted(REMOVALS))
+    ap.add_argument("--source", nargs="*", default=[], metavar="NAME=PATH")
+    ap.add_argument("--tile-cap", nargs="*", type=int, default=[])
+    args = ap.parse_args(argv)
+    texts = {f"no-{p}": _removed(p) for p in args.remove}
+    for item in args.source:
+        name, path = item.split("=", 1)
+        texts[name] = open(path).read()
+    real = conv_chain._lib()  # built before the variants, which copy its argtypes
+    with ThreadPoolExecutor(max(1, len(texts))) as pool:
+        built = dict(zip(texts, pool.map(lambda kv: _compile(*kv, real), texts.items())))
+    variants = {"kernel": (real, None)}
+    variants.update({f"tile-cap {c}": (real, c) for c in args.tile_cap})
+    variants.update({name: (fn, None) for name, fn in built.items()})
+
+    card = gpu_info()
+    model, x = make_inputs(BATCH, HEIGHT, WIDTH, torch.bfloat16, "cuda", SEED)
+    model.eval()
+    with torch.no_grad():
+        calls = _groups(model, x)
+    lib, tile = conv_chain._lib, conv_chain.staged_tile
+    result = {}
+    try:
+        for inputs, group in calls:
+            shape = tuple(inputs[0].shape)
+            print(f"group {shape}: (stride, cout) {[(s.stride, s.cout) for s in group.specs]}")
+            for name, (fn, cap) in variants.items():
+                conv_chain._lib = lambda fn=fn: fn
+                conv_chain.staged_tile = tile if cap is None else (
+                    lambda wo, cap=cap: (min(128 // min(wo, cap), 16), min(wo, cap)))
+                per = _conv_ms(inputs, group)
+                result.setdefault(str(shape), {})[name] = per
+                print(f"  {name:16s} {sum(per):8.4f} ms: " + " ".join(f"{v:.4f}" for v in per)
+                      + f" [{card}]")
+    finally:
+        conv_chain._lib, conv_chain.staged_tile = lib, tile
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -44,19 +44,45 @@ def _close(got, ref, dtype):
     assert err <= TOL[dtype] * ref.float().abs().max().item(), err
 
 
-def _cases(rng):
+def mixed_case(rng):
     """(inputs, weights, biases, specs): reads out of order and across
-    inputs and stripe blocks, every kernel tile width (cout 8..100), and a
-    stride-2 conv on an odd-sized image chained into a dilated conv."""
+    inputs and stripe blocks, every kernel tile width (cout 8..100), at
+    9x70 (the staged kernel's 2-byte staging: 70 is not a multiple of 8)."""
     x = rng.normal(size=(2, 16, 9, 70))
     z = rng.normal(size=(2, 5, 9, 70))
     specs = [ConvSpec((1,), 24), ConvSpec((2, 0), 8, emit=True),
              ConvSpec((3, 1, 2), 40, act=False, emit=True),
              ConvSpec((2, 3, 4, 0), 100, emit=True)]
     cin = [5, 24 + 16, 8 + 5 + 24, 24 + 8 + 40 + 16]
-    yield ([x, z], [rng.normal(size=(s.cout, c, 3, 3)) * 0.1
-                    for s, c in zip(specs, cin)],
-           [rng.normal(size=(s.cout,)) for s in specs], specs)
+    return ([x, z], [rng.normal(size=(s.cout, c, 3, 3)) * 0.1
+                     for s, c in zip(specs, cin)],
+            [rng.normal(size=(s.cout,)) for s in specs], specs)
+
+
+def decoder_like_case(rng, h, w, c0=81):
+    """A decoder's inputs (a ``c0``-channel cost volume, 1-, 2- and
+    2-channel blocks) read whole (Cin not a multiple of 32, so the staged
+    kernel's channel chunks span the 1-, 2- and 81-channel segments), cout
+    128, 196, 2 and 8; the last conv reads eight segments out of order."""
+    ins = [rng.normal(size=(2, c, h, w)) for c in (c0, 1, 2, 2)]
+    specs = [ConvSpec((0, 1, 2, 3), 128), ConvSpec((0, 1, 2, 3, 4), 196),
+             ConvSpec((4, 5), 2, act=False, emit=True),
+             ConvSpec((6, 0, 5, 1, 4, 2, 3, 6), 8, emit=True)]
+    ch = [c0, 1, 2, 2, 128, 196, 2]
+    cin = [sum(ch[r] for r in s.reads) for s in specs]
+    return (ins, [rng.normal(size=(s.cout, c, 3, 3)) * 0.1
+                  for s, c in zip(specs, cin)],
+            [rng.normal(size=(s.cout,)) for s in specs], specs)
+
+
+def _cases(rng):
+    """The mixed case; decoder-like chains at 7x16 (fewer rows than the
+    staged tile's 8), 5x64 and 3x136 (a partial column tile), all three on
+    the 16-byte staging; a stride-2 conv on an odd-sized image chained
+    into a dilated conv (the gather kernel)."""
+    yield mixed_case(rng)
+    for h, w in ((7, 16), (5, 64), (3, 136)):
+        yield decoder_like_case(rng, h, w)
     specs = [ConvSpec((0,), 16, stride=2, emit=True),
              ConvSpec((1,), 16, dilation=3, emit=True)]
     yield ([rng.normal(size=(2, 3, 15, 33))],
@@ -84,9 +110,12 @@ def test_conv_group_kernel_matches_plain(cuda_device, dtype):
         grp = prepare_group([t(w) for w in weights], [t(b) for b in biases],
                             specs, len(inputs), dtype, cuda_device)
         xs = [t(x).to(cuda_device, dtype) for x in inputs]
+        conv_group.staged_launches = 0
         got = conv_group(xs, grp)
         ref = conv_chain.conv_group_plain(xs, grp)
         torch.cuda.synchronize()
+        assert conv_group.staged_launches == sum(
+            conv_chain.is_staged(dtype, s) for s in specs)
         for g, r in zip(got, ref):
             _close(g, r, dtype)
 

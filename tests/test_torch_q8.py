@@ -317,7 +317,10 @@ def test_prepare_repacks_for_new_scales():
     assert prepare(model, torch.float32, "cpu", other) is not prepare(
         model, torch.float32, "cpu", sc)
     counts = prepare(model, torch.float32, "cpu", sc).launch_counts()
-    assert counts == {"conv_group": 24, "conv_group_q8": 35}
+    # fp32 packing: only the W8A8 groups' bf16 up-flow convs are staged
+    assert counts == {"conv_group": 24, "conv_group_staged": 4, "conv_group_q8": 35}
+    counts = prepare(model, torch.bfloat16, "cpu", sc).launch_counts()
+    assert counts == {"conv_group": 24, "conv_group_staged": 18, "conv_group_q8": 35}
 
 
 def test_cpu_tensors_never_launch_q8_or_gemm():
