@@ -22,14 +22,18 @@ Phases (any failure raises and exits non-zero):
    read just after: the bf16 forward (5 cost volumes, one bf16 conv launch
    per conv, 59, of which 53 on the staged kernel: all but the six stride-2
    encoder convs), the W8A8 forward (5, 24 bf16 of which 18 staged, 35
-   int8 launches) and the GEMM probe ``ocflow_torch.tools.spike_int8``
-   (2048^3, int8 exact, bf16 within 1e-2);
+   int8 launches, all 35 on the staged int8 kernel), the opt-in W8A8
+   forward (as ``launch_counts()`` reckons: its six stride-2 encoder convs
+   and four dilated context convs on the int8 gather kernel) and the GEMM
+   probe ``ocflow_torch.tools.spike_int8`` (2048^3, int8 exact, bf16 within
+   1e-2);
 6. hold fp32 ``fast_apply`` against the eager fp32 ``FlowNetCV`` (cuDNN,
-   TF32 off), bf16 against fp32, W8A8 against the eager fp32 forward;
+   TF32 off), also with PyTorch's default TF32 flags, bf16 against fp32,
+   W8A8 against the eager fp32 forward;
 7. time every kernel at the path's shapes against its plain version, its
-   bound and a library yardstick (conv groups with their TFLOP/s and share
-   of the bound), and the bf16 and W8A8 forwards end to end (pairs/s) in
-   turns;
+   bound and a library yardstick (conv groups with their TFLOP/s or TOP/s
+   and share of the bound), and the bf16 and W8A8 forwards end to end
+   (pairs/s) in turns;
 8. training (``longrun_synthetic.yaml`` hparams, seeded FlowNetCV and
    smooth seeded frames, 448x1024, B=8): record every kernel call of one
    fp32 and one bf16 step (pair + loss + backward) and replay each against
@@ -41,7 +45,8 @@ Phases (any failure raises and exits non-zero):
    the fused run's occlusion mask held); bf16 vs fp32
    gradients; launches of one bf16 step (10 cost volumes, 5 backward, 31
    ``conv_group_diff`` conv launches, 72 conv launches in all, every one
-   staged) and of one with a W8A8 backward decode (37 staged and 35 int8);
+   staged) and of one with a W8A8 backward decode (37 staged, 35 int8, all
+   on the staged int8 kernel);
    five bf16 Adam steps;
    the bf16 step end to end, and the new kernels' calls against plain,
    bound and cuDNN.
@@ -395,16 +400,18 @@ def _counters():
 
 def _count_launches(run):
     """``run()`` with every launch counter zeroed just before; the counts
-    just after (``conv_group_staged``: the conv launches on the staged
-    kernel), and ``run()``'s result."""
+    just after (``conv_group_staged``, ``conv_group_q8_staged``: the conv
+    launches on the staged bf16 and int8 kernels), and ``run()``'s result."""
     counters = _counters()
+    staged = ("conv_group", "conv_group_q8")
     for fn in counters.values():
         fn.launches = 0
-    counters["conv_group"].staged_launches = 0
+    for k in staged:
+        counters[k].staged_launches = 0
     out = run()
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in counters.items()}
-    counts["conv_group_staged"] = counters["conv_group"].staged_launches
+    counts.update({f"{k}_staged": counters[k].staged_launches for k in staged})
     return counts, out
 
 
@@ -566,16 +573,17 @@ def _train_phase(card, max_err, per, add, failures):
                   "conv_group": n_diff + want["conv_group"] - n_enc,
                   "conv_group_staged": n_diff + want["conv_group_staged"] - n_enc_staged,
                   "conv_group_diff": n_diff,
-                  "conv_group_q8": want["conv_group_q8"], "gemm_probe": 0}
+                  "conv_group_q8": want["conv_group_q8"],
+                  "conv_group_q8_staged": want["conv_group_q8_staged"], "gemm_probe": 0}
         print(f"main path {path} (one bf16 step) launches: {launches[path]} "
               f"(expected {expect})")
         if launches[path] != expect:
             raise AssertionError(f"{path} launch counts {launches[path]}")
         del state
-    # every bf16 conv of the step is stride 1, dilation 1: all staged
-    if (launches["train"]["conv_group_staged"], launches["train_q8"]["conv_group_staged"]) \
-            != (72, 37):
-        raise AssertionError(f"staged launches per step {launches}, want 72 / 37")
+    # every conv of the step is stride 1, dilation 1: all staged
+    if [launches[p][k] for p in ("train", "train_q8")
+            for k in ("conv_group_staged", "conv_group_q8_staged")] != [72, 0, 37, 35]:
+        raise AssertionError(f"staged launches per step {launches}, want 72 / 0, 37 / 35")
 
     # 5. five bf16 Adam steps
     state = create_train_state(copy.deepcopy(model0), lr, device=dev)
@@ -660,6 +668,8 @@ def main() -> int:
     from ocflow_torch.tools import spike_int8
     from ocflow_torch.tools.q8_error import flow_errors
 
+    # PyTorch's own TF32 flags, read once for phase 6; off everywhere else
+    tf32_defaults = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = gpu_info()
@@ -712,27 +722,29 @@ def main() -> int:
         del calls
 
     # 5. each path once, its launches counted
-    want = {"bf16": pwc_fast.prepare(model_b, torch.bfloat16, dev).launch_counts(),
-            "w8a8": pwc_fast.prepare(model_b, torch.bfloat16, dev,
-                                     scales["w8a8"]).launch_counts()}
+    want = {"bf16": pwc_fast.prepare(model_b, torch.bfloat16, dev).launch_counts()}
+    want.update({mode: pwc_fast.prepare(model_b, torch.bfloat16, dev, sc).launch_counts()
+                 for mode, sc in scales.items()})
     launches, outs = {}, {}
     launches["bf16"], outs["bf16"] = _count_launches(
         lambda: pwc_fast.fast_apply(model_b, xb))
-    launches["w8a8"], outs["w8a8"] = _count_launches(
-        lambda: pwc_fast.fast_apply(model_b, xb, q8=scales["w8a8"]))
+    for mode, sc in scales.items():
+        launches[mode], outs[mode] = _count_launches(
+            lambda: pwc_fast.fast_apply(model_b, xb, q8=sc))  # noqa: B023
     launches["spike_int8"], gemm_res = _count_launches(
         spike_int8.probe)
-    for path in ("bf16", "w8a8"):
+    for path in want:
         expect = {"cost_volume": 5, "cost_volume_bwd": 0, "conv_group_diff": 0,
                   **want[path], "gemm_probe": 0}
         print(f"main path {path} launches: {launches[path]} (expected {expect})")
         if launches[path] != expect:
             raise AssertionError(f"{path} launch counts {launches[path]}")
-    # staged: every bf16 conv but the encoders' six stride-2 convs
-    if [launches[p][k] for p in ("bf16", "w8a8")
-            for k in ("conv_group", "conv_group_staged", "conv_group_q8")] \
-            != [59, 53, 0, 24, 18, 35]:
-        raise AssertionError(f"launches {launches}, want 59 / 53 / 0 and 24 / 18 / 35")
+    # staged: every bf16 conv but the encoders' six stride-2 convs, every
+    # int8 conv of the default W8A8 forward
+    counted = ("conv_group", "conv_group_staged", "conv_group_q8", "conv_group_q8_staged")
+    if [launches[p][k] for p in ("bf16", "w8a8") for k in counted] \
+            != [59, 53, 0, 0, 24, 18, 35, 35]:
+        raise AssertionError(f"launches {launches}, want 59 / 53 / 0 / 0 and 24 / 18 / 35 / 35")
     print(f"main path spike_int8 launches: {launches['spike_int8']}")
     if launches["spike_int8"]["gemm_probe"] < 2:
         raise AssertionError("the GEMM probe did not launch its kernel")
@@ -740,12 +752,18 @@ def main() -> int:
         print(f"check gemm_probe {name} {spike_int8.SIZE}^3: max_abs_err "
               f"{r['max_abs_err']:.3e} ({'exact required' if name == 'int8' else '1e-2 of max|plain|'})")
 
-    # 6. end to end
+    # 6. end to end; fp32 fast_apply once more with PyTorch's default TF32
+    # flags (a user's run; fast_apply pins its fp32 cuDNN convolutions),
+    # against the same eager forward (TF32 off)
     out_f = pwc_fast.fast_apply(model, x32)
     with torch.no_grad():
         ref = model(x32)
-    outs["w8a8_enc_ctx"] = pwc_fast.fast_apply(model_b, xb, q8=scales["w8a8_enc_ctx"])
-    torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+    try:
+        out_tf32 = pwc_fast.fast_apply(model, x32)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
     for i, name in enumerate(("full", "quarter")):
         want_shape = (BATCH, HEIGHT, WIDTH, 2) if name == "full" else (
@@ -757,13 +775,18 @@ def main() -> int:
                 raise AssertionError(f"{name}: bad output {t.shape} {t.dtype}")
         scale = r.abs().max().item()
         err32 = (out_f[i] - r).abs().max().item()
+        err_tf32 = (out_tf32[i] - r).abs().max().item()
         eb = flow_errors(outs["bf16"][i], r)
         print(f"e2e {name}: fp32 fast vs eager max_abs_err {err32:.3e} "
-              f"(tol {E2E_FP32_TOL * scale:.3e}, max|eager| {scale:.3e}); "
-              f"bf16 vs fp32 rel_l2 {eb['rel_l2']:.4f} (tol {E2E_BF16_REL_L2}) "
-              f"max_abs_err {eb['max_abs']:.3e}")
+              f"(tol {E2E_FP32_TOL * scale:.3e}, max|eager| {scale:.3e}); with "
+              f"PyTorch's default TF32 flags (cudnn {tf32_defaults[0]}, matmul "
+              f"{tf32_defaults[1]}) {err_tf32:.3e} ({err_tf32 / scale:.3e} of "
+              f"max|eager|, same tol); bf16 vs fp32 rel_l2 {eb['rel_l2']:.4f} (tol "
+              f"{E2E_BF16_REL_L2}) max_abs_err {eb['max_abs']:.3e}")
         if not err32 <= E2E_FP32_TOL * scale:
             failures.append(f"{name}: fp32 fast_apply vs eager {err32}")
+        if not err_tf32 <= E2E_FP32_TOL * scale:
+            failures.append(f"{name}: fp32 fast_apply, default TF32 flags, vs eager {err_tf32}")
         if not eb["rel_l2"] <= E2E_BF16_REL_L2:
             failures.append(f"{name}: bf16 vs fp32 rel_l2 {eb['rel_l2']}")
         for mode, tol in E2E_Q8_TOL.items():
@@ -834,11 +857,19 @@ def main() -> int:
         nbytes, ops = _q8_cost(inputs, group, outs_q8)
         bound, by = add("conv_group_q8", k_ms, p_ms, nbytes, ops,
                         PEAK_FLOPS[torch.int8], None)
+        per["conv_group_q8"]["yard_ms"] = per["conv_group_q8"].get("yard_ms", 0.0) + yard_ms
         shape = tuple(inputs[0].shape)
         print(f"time conv_group_q8 w8a8 {shape} ({group.n_int8} int8 convs): kernel "
-              f"{k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOP/s), plain {p_ms:.4f} ms, "
-              f"library none (bf16 cuDNN conv of the same shapes {yard_ms:.4f} ms), "
-              f"bound {bound:.4f} ms ({by}; {nbytes} B, {ops} op) [{card}]")
+              f"{k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOP/s, {100 * bound / k_ms:.2f}% of "
+              f"bound), plain {p_ms:.4f} ms, library none (bf16 cuDNN conv of the same "
+              f"shapes {yard_ms:.4f} ms), bound {bound:.4f} ms ({by}; {nbytes} B, "
+              f"{ops} op) [{card}]")
+    for kind in ("conv_group", "conv_group_q8"):
+        p = per[kind]
+        print(f"time {kind} sum over the {'bf16' if kind == 'conv_group' else 'w8a8'} "
+              f"forward's groups: kernel {p['ms']:.4f} ms, bound {p['bound_ms']:.4f} ms "
+              f"({100 * p['bound_ms'] / p['ms']:.2f}% of bound), cuDNN "
+              f"{p.get('yard_ms', p['library_ms']):.4f} ms [{card}]")
     for name, r in gemm_res.items():
         print(f"time gemm_probe {name} {spike_int8.SIZE}^3: kernel {r['ms']:.4f} ms "
               f"({r['tops']:.1f} TOP/s), library {r['library_ms']:.4f} ms "
@@ -890,16 +921,16 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "path": path, "launches": launches[path][name],
             "launches_by_path": {k: c[name] for k, c in launches.items()},
-            **({"staged_launches_by_path": {k: c["conv_group_staged"]
+            **({"staged_launches_by_path": {k: c[f"{name}_staged"]
                                             for k, c in launches.items()}}
-               if name == "conv_group" else {}),
+               if name in ("conv_group", "conv_group_q8") else {}),
             "max_abs_err": max_err[name], "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
             "bound_by": p["bound_by"],
             "library_ms": p["library_ms"] if name in (
                 "conv_group", "conv_group_diff", "gemm_probe") else None,
             **({"library_reason": NO_LIBRARY[name]} if name in NO_LIBRARY else {}),
-            **{k: p[k] for k in ("bwd_ms", "library_bwd_ms") if k in p},
+            **{k: p[k] for k in ("bwd_ms", "library_bwd_ms", "yard_ms") if k in p},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,4 +31,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even
 }
 
+// n / d by one multiply-high, exact for d >= 2 and 0 <= n, n * d < 2^32
+// (the staged conv kernels' halo indexing; tests check every divisor and
+// range their tiles give)
+struct FastDiv {
+  unsigned m;
+  __device__ explicit FastDiv(int d) : m(0xffffffffu / d + 1) {}
+  __device__ int operator()(int n) const { return (int)__umulhi((unsigned)n, m); }
+};
+
 }  // namespace ocf

@@ -376,13 +376,7 @@ constexpr int ST_CC = TC_BK;        // input channels per chunk = K per step
 constexpr int ST_EXTRA = 16;        // halo row = C + 16 positions
 constexpr int ST_PLANE_MAX = 432;   // (R + 2) * (C + 16) of any tile
 constexpr int ST_HALO = ST_CC * ST_PLANE_MAX;
-
-// n / d by one multiply-high, exact for d >= 2 and 0 <= n, n * d < 2^32
-struct FastDiv {
-  unsigned m;
-  __device__ explicit FastDiv(int d) : m(0xffffffffu / d + 1) {}
-  __device__ int operator()(int n) const { return (int)__umulhi((unsigned)n, m); }
-};
+using ocf::FastDiv;
 
 // The halo tile of a chunk: [ST_CC][R+2][HP], HP = C + 16, halo position p
 // of a row holding input column ox0 - 8 + p, so that 16-byte vectors of an

@@ -29,6 +29,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ocflow_torch import full_fp32_convs
 from ocflow_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -399,10 +400,11 @@ class _ConvGroupDiff(torch.autograd.Function):
                 x_b = block(bid)
                 cb = x_b.shape[1]
                 want_dx = bid >= n_in or need_in[bid]
-                dx, dw, _ = torch.ops.aten.convolution_backward(
-                    dacc, x_b, weights[j][:, off:off + cb], None,
-                    [s.stride] * 2, [s.dilation] * 2, [s.dilation] * 2, False,
-                    [0, 0], 1, [want_dx, True, False])
+                with full_fp32_convs(dacc.dtype):
+                    dx, dw, _ = torch.ops.aten.convolution_backward(
+                        dacc, x_b, weights[j][:, off:off + cb], None,
+                        [s.stride] * 2, [s.dilation] * 2, [s.dilation] * 2, False,
+                        [0, 0], 1, [want_dx, True, False])
                 parts.append(dw)
                 off += cb
                 if want_dx:

@@ -25,9 +25,11 @@ accumulation, launched on the bf16 conv-group kernel of
 ``kernels/conv_chain.py``.
 
 On CUDA tensors ``conv_group_q8`` launches ``csrc/conv_group_q8.cu`` once
-per int8-read spec (``conv_group_q8.launches``) and the bf16 kernel once
-per bf16-read spec (``conv_group.launches``); on CPU tensors it runs the
-plain version ``conv_group_q8_plain``, which computes the integer conv
+per int8-read spec (``conv_group_q8.launches``; a conv of stride 1 and
+dilation 1 runs its staged kernel, on the tiles of :func:`staged_tile_q8`,
+and ``conv_group_q8.staged_launches`` counts those too) and the bf16 kernel
+once per bf16-read spec (``conv_group.launches``); on CPU tensors it runs
+the plain version ``conv_group_q8_plain``, which computes the integer conv
 exactly (float64 holds every int32 sum of the path) and the epilogue with
 the same fp32 operations in the same order, so the kernel's codes equal it
 bit for bit. The TPU kernel's 32-channel padding, lane packing, W-pair
@@ -53,6 +55,51 @@ from ocflow_torch.kernels.conv_chain import (COUT_ALIGN, ConvSpec, check_kernel_
 QMAX = 127
 SCALE_FLOOR = 1e-30  # a degenerate (all-zero) tensor must not give scale 0
 _K_ALIGN = 32        # packed K padding: the kernel's K step
+
+# The staged int8 kernel's tile (these match csrc/conv_group_q8.cu's ST_*
+# and BN): at most STAGE_Q8_PIXELS output pixels, C a multiple of
+# STAGE_Q8_ALIGN; per chunk of STAGE_Q8_CHUNK input channels a halo tile
+# [STAGE_Q8_CHUNK][R + 2][C + STAGE_Q8_EXTRA] bytes, its plane at most
+# STAGE_Q8_PLANE_MAX.
+STAGE_Q8_PIXELS = 128
+STAGE_Q8_ALIGN = 16
+STAGE_Q8_CHUNK = 32
+STAGE_Q8_EXTRA = 32
+STAGE_Q8_PLANE_MAX = 480
+
+
+def is_staged_q8(spec: ConvSpec) -> bool:
+    """Whether an int8-read conv runs the staged kernel: stride 1, dilation 1."""
+    return spec.stride == 1 and spec.dilation == 1
+
+
+def staged_tile_q8(wo: int) -> tuple[int, int]:
+    """The staged int8 kernel's output tile, ``(rows R, columns C)``, for an
+    output ``Wo`` wide: a whole row of up to 128 pixels, rounded up to a
+    multiple of 16 (a 16-byte vector holds 16 int8 pixels), and as many rows
+    as fill 128 pixels: 1x128 at 128 or more, 2x64, 4x32, 8x16. A tile never
+    straddles two images; the kernel masks rows past ``Ho`` and columns past
+    ``Wo``."""
+    c = min(-(-wo // STAGE_Q8_ALIGN) * STAGE_Q8_ALIGN, STAGE_Q8_PIXELS)
+    return STAGE_Q8_PIXELS // c, c
+
+
+def pack_weights_q8(wq: torch.Tensor, staged: bool) -> torch.Tensor:
+    """int8 OIHW ``[cout, Cin, 3, 3]`` -> the int8 kernel's ``[cout_pad,
+    K]``, zero past ``cout``. Staged convs: ``K = 9 * Cin32`` (Cin rounded
+    up to 32), row co holding ``k = tap*Cin32 + c``, zero for c >= Cin, so
+    the 32 K bytes of each (tap, channel chunk) are two aligned 16-byte
+    vectors. Gather convs: ``k = tap*Cin + c``, zero past ``9*Cin`` up to a
+    multiple of 32."""
+    cout, cin = wq.shape[:2]
+    cout_pad = -(-cout // COUT_ALIGN) * COUT_ALIGN
+    wk = wq.permute(0, 2, 3, 1).reshape(cout, 9, cin)
+    if staged:
+        wk = F.pad(wk, (0, -(-cin // _K_ALIGN) * _K_ALIGN - cin)).reshape(cout, -1)
+    else:
+        wk = wk.reshape(cout, 9 * cin)
+        wk = F.pad(wk, (0, -(-9 * cin // _K_ALIGN) * _K_ALIGN - 9 * cin))
+    return F.pad(wk, (0, 0, 0, cout_pad - cout)).contiguous()
 
 
 def _f32(s, like: torch.Tensor) -> torch.Tensor:
@@ -107,7 +154,7 @@ class ConvGroupQ8:
     scales: tuple                   # per spec: output scale (q8) or None
     int8_read: tuple[bool, ...]     # per spec: reads the int8 stripe
     weights: list[torch.Tensor]     # int8-read: wq OIHW int8; else OIHW bf16
-    packed: list[torch.Tensor]      # int8-read: [cout_pad, K9p] int8, k = tap*Cin + c;
+    packed: list[torch.Tensor]      # int8-read: pack_weights_q8's [cout_pad, K] int8;
                                     # else the bf16 kernel's [9*Cin, cout_pad]
     dq: list                        # int8-read: fp32 [cout] wscale / s_out; else None
     bq: list[torch.Tensor]          # fp32 [cout]: bias / s_out (int8-read) or bias
@@ -165,13 +212,8 @@ def prepare_group_q8(weights: Sequence[torch.Tensor],
             wq, wscale = fold_quant_weights(
                 torch.split(w, widths, 1), [block_scale[r] for r in s.reads])
             s_out = scales[j] if s.q8 else 1.0
-            cout_pad = -(-s.cout // COUT_ALIGN) * COUT_ALIGN
-            k9 = 9 * w.shape[1]
-            wk = wq.permute(0, 2, 3, 1).reshape(s.cout, k9)
-            wk = F.pad(wk, (0, -(-k9 // _K_ALIGN) * _K_ALIGN - k9,
-                            0, cout_pad - s.cout))
             ws.append(wq.to(device))
-            packed.append(wk.contiguous().to(device))
+            packed.append(pack_weights_q8(wq, is_staged_q8(s)).to(device))
             dqs.append((wscale / _f32(s_out, wscale)).to(device))
             bqs.append((b / _f32(s_out, b)).to(device))
             int8_read.append(True)
@@ -274,10 +316,36 @@ def _lib():
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch_conv_q8(reads: Sequence[torch.Tensor], packed: torch.Tensor,
+                   dq: torch.Tensor, bq: torch.Tensor, out: torch.Tensor,
+                   spec: ConvSpec, what: str) -> None:
+    """One launch of ``csrc/conv_group_q8.cu``: ``out`` (a ``[B, cout, Ho,
+    Wo]`` channel range of a stripe: int8 for a q8 spec, else bf16) = the
+    requantized int8 conv of the channel concat of the int8 ``reads`` with
+    ``packed`` (see :func:`pack_weights_q8`), ``dq`` and ``bq``. Counts the
+    launch in ``conv_group_q8.launches`` (and, on the staged kernel, in
+    ``conv_group_q8.staged_launches``)."""
+    segs = merge_segments(reads)
+    ptrs, bstr, chans = segment_args(segs)
+    b, _, ho, wo = out.shape
+    hin, win = segs[0].shape[2:]
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    code = _lib()(tile_cfg(spec.cout), len(segs), ptrs, bstr, chans, b, hin,
+                  win, packed.data_ptr(), packed.shape[1], packed.shape[0],
+                  dq.data_ptr(), bq.data_ptr(), out.data_ptr(), out.stride(0),
+                  int(spec.q8), spec.cout, ho, wo, spec.stride, spec.dilation,
+                  int(spec.act), *staged_tile_q8(wo), stream)
+    _build.check(code, what)
+    conv_group_q8.launches += 1
+    if is_staged_q8(spec):
+        conv_group_q8.staged_launches += 1
 
 
 def conv_group_q8(inputs: Sequence[torch.Tensor],
@@ -293,27 +361,17 @@ def conv_group_q8(inputs: Sequence[torch.Tensor],
     _check_inputs(inputs, group)
     check_kernel_inputs(inputs, group.packed[0], "conv_group_q8")
     s8, s16 = _stripes(inputs, group)
-    stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
     for j, s in enumerate(group.specs):
         reads = [_block(inputs, s8, s16, group, r) for r in s.reads]
         out = _block(inputs, s8, s16, group, group.n_inputs + j)
-        if not group.int8_read[j]:
+        if group.int8_read[j]:
+            launch_conv_q8(reads, group.packed[j], group.dq[j], group.bq[j], out,
+                           s, f"conv_group_q8 conv {j}")
+        else:
             launch_conv(reads, group.packed[j], group.bq[j], out, s,
                         f"conv_group_q8 bf16 conv {j}")
-            continue
-        segs = merge_segments(reads)
-        ptrs, bstr, chans = segment_args(segs)
-        b, _, ho, wo = out.shape
-        hin, win = segs[0].shape[2:]
-        pk = group.packed[j]
-        code = _lib()(tile_cfg(s.cout), len(segs), ptrs, bstr, chans, b, hin,
-                      win, pk.data_ptr(), pk.shape[1], pk.shape[0],
-                      group.dq[j].data_ptr(), group.bq[j].data_ptr(),
-                      out.data_ptr(), out.stride(0), int(s.q8), s.cout, ho,
-                      wo, s.stride, s.dilation, int(s.act), stream)
-        _build.check(code, f"conv_group_q8 conv {j}")
-        conv_group_q8.launches += 1
     return _emitted(s8, s16, group)
 
 
 conv_group_q8.launches = 0
+conv_group_q8.staged_launches = 0

@@ -53,13 +53,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ocflow_torch import resolve_device
+from ocflow_torch import full_fp32_convs, resolve_device
 from ocflow_torch.kernels.conv_chain import (ConvGroup, ConvSpec, conv_group,
                                               conv_group_diff, is_staged,
                                               prepare_group)
 from ocflow_torch.kernels.conv_chain_q8 import (ConvGroupQ8, amax_scale, conv_group_q8,
-                                                dequantize_q8, prepare_group_q8,
-                                                quantize_q8)
+                                                dequantize_q8, is_staged_q8,
+                                                prepare_group_q8, quantize_q8)
 from ocflow_torch.kernels.cost_volume import cost_volume
 from ocflow_torch.models.pwc_net import (CONTEXT, DECODER_LEVELS, GROWTH, LEVEL_FEATURES,
                                          FlowNetCV)
@@ -126,15 +126,18 @@ class FastWeights:
 
     def launch_counts(self) -> dict[str, int]:
         """Conv-kernel launches of one forward: ``conv_group`` (bf16/fp32
-        kernel), ``conv_group_staged`` (those of them on its staged kernel)
-        and ``conv_group_q8`` (int8 kernel)."""
+        kernel), ``conv_group_staged`` (those of them on its staged kernel),
+        ``conv_group_q8`` (int8 kernel) and ``conv_group_q8_staged`` (those
+        of them on its staged kernel)."""
         convs = [(torch.bfloat16 if isinstance(g, ConvGroupQ8) else g.dtype, s)
                  for g in self.groups() for j, s in enumerate(g.specs)
                  if not (isinstance(g, ConvGroupQ8) and g.int8_read[j])]
-        n8 = sum(g.n_int8 for g in self.groups() if isinstance(g, ConvGroupQ8))
+        convs8 = [s for g in self.groups() if isinstance(g, ConvGroupQ8)
+                  for j, s in enumerate(g.specs) if g.int8_read[j]]
         return {"conv_group": len(convs),
                 "conv_group_staged": sum(is_staged(d, s) for d, s in convs),
-                "conv_group_q8": n8}
+                "conv_group_q8": len(convs8),
+                "conv_group_q8_staged": sum(map(is_staged_q8, convs8))}
 
 
 def _decoder_specs(n_in: int, head_emit: bool, q8: bool = False) -> list[ConvSpec]:
@@ -392,23 +395,25 @@ def fast_apply(model_or_state, x: torch.Tensor, q8=None, device=None,
     only without it, and not with ``q8``.
     Runs on ``device`` (default ``cuda``; pass ``"cpu"`` for the plain
     versions of the kernels). Returns ``(flow_full [B, H, W, 2],
-    flow_quarter [B, H/4, W/4, 2])`` in fp32.
+    flow_quarter [B, H/4, W/4, 2])`` in fp32. In fp32 its cuDNN
+    convolutions run without TF32 (``full_fp32_convs``).
     """
     dev = resolve_device(device)
     model = _model(model_or_state, dev)
     x = x.to(dev)
     b = x.shape[0]
-    if diff:
-        if q8 is not None:
-            raise ValueError("fast_apply: W8A8 is a serving mode; diff takes no q8")
-        feats = _encode_diff(model, _images(x))
-        return _flows(_decode_diff(model, [f[:b] for f in feats],
-                                   [f[b:] for f in feats]))
-    with torch.no_grad():
-        fw = prepare(model, x.dtype, dev, q8)
-        feats = _encode(fw, _images(x))
-        return _flows(_decode_fused(model, fw, [f[:b] for f in feats],
-                                    [f[b:] for f in feats]))
+    if diff and q8 is not None:
+        raise ValueError("fast_apply: W8A8 is a serving mode; diff takes no q8")
+    with full_fp32_convs(x.dtype):
+        if diff:
+            feats = _encode_diff(model, _images(x))
+            return _flows(_decode_diff(model, [f[:b] for f in feats],
+                                       [f[b:] for f in feats]))
+        with torch.no_grad():
+            fw = prepare(model, x.dtype, dev, q8)
+            feats = _encode(fw, _images(x))
+            return _flows(_decode_fused(model, fw, [f[:b] for f in feats],
+                                        [f[b:] for f in feats]))
 
 
 def fast_apply_pair(model: FlowNetCV, x: torch.Tensor, q8=None, device=None,
@@ -426,21 +431,23 @@ def fast_apply_pair(model: FlowNetCV, x: torch.Tensor, q8=None, device=None,
     compute dtype. Returns ``((flow_full, flow_quarter), (back_full,
     back_quarter))``, NHWC fp32; only the first pair carries gradients.
     ``mark``: a timing hook, called with ``"encoder"``, ``"forward
-    decode"`` and ``"backward decode"`` as each part has been issued.
+    decode"`` and ``"backward decode"`` as each part has been issued. In
+    fp32 its cuDNN convolutions run without TF32 (``full_fp32_convs``).
     """
     mark = mark or _no_mark
     dev = resolve_device(device)
     x = x.to(dev)
     b = x.shape[0]
-    feats = _encode_diff(model, _images(x))
-    mark("encoder")
-    f1, f2 = [f[:b] for f in feats], [f[b:] for f in feats]
-    fwd = _flows(_decode_diff(model, f1, f2))
-    mark("forward decode")
-    with torch.no_grad():
-        fw = prepare(model, x.dtype, dev, q8)
-        bwd = _flows(_decode_fused(model, fw, [f.detach() for f in f2],
-                                   [f.detach() for f in f1]))
+    with full_fp32_convs(x.dtype):
+        feats = _encode_diff(model, _images(x))
+        mark("encoder")
+        f1, f2 = [f[:b] for f in feats], [f[b:] for f in feats]
+        fwd = _flows(_decode_diff(model, f1, f2))
+        mark("forward decode")
+        with torch.no_grad():
+            fw = prepare(model, x.dtype, dev, q8)
+            bwd = _flows(_decode_fused(model, fw, [f.detach() for f in f2],
+                                       [f.detach() for f in f1]))
     mark("backward decode")
     return fwd, bwd
 

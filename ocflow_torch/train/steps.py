@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ocflow_torch import losses
+from ocflow_torch import full_fp32_convs, losses
 from ocflow_torch.models.pwc_fast import fast_apply, fast_apply_pair
 from ocflow_torch.ops import (occlusion_fb_consistency, occlusion_from_back_flow,
                               resize_bilinear, warp)
@@ -194,10 +194,14 @@ def make_unsupervised_flow_step(hparams: dict):
         mark("losses")
         return loss, metrics
 
+    # an fp32 step's cuDNN convolutions, forward and backward, without TF32
+    step_dtype = cdt or torch.float32
+
     def train_step(state, batch):
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(state, batch)
-        loss.backward()
+        with full_fp32_convs(step_dtype):
+            loss, metrics = loss_fn(state, batch)
+            loss.backward()
         mark("backward")
         state.optimizer.step()
         mark("optimizer")
@@ -205,7 +209,7 @@ def make_unsupervised_flow_step(hparams: dict):
         return state, {k: v.detach() for k, v in metrics.items()}
 
     def eval_step(state, batch):
-        with torch.no_grad():
+        with torch.no_grad(), full_fp32_convs(step_dtype):
             return loss_fn(state, batch)[1]
 
     return train_step, eval_step

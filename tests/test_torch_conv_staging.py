@@ -150,10 +150,13 @@ def test_staged_tiles_cover_and_fit(ho):
 
 def test_ablation_removals_match_the_kernel():
     """Each part ``tools.conv_ablation`` takes out of the staged kernel is
-    in the kernel's source exactly once (the tool times what is left)."""
-    source = (_build._CSRC / "conv_group.cu").read_text()
-    for part in REMOVALS:
-        assert _removed(part) != source  # raises unless each text is there once
+    in the kernel's source exactly once (the tool times what is left), in
+    the bf16 kernel's and, for ``--q8``, in the int8 kernel's."""
+    for q8, name in ((False, "conv_group.cu"), (True, "conv_group_q8.cu")):
+        source = (_build._CSRC / name).read_text()
+        for part in REMOVALS:
+            # raises unless each text is there once
+            assert _removed(part, q8) != source
 
 
 def test_fast_division_is_exact():

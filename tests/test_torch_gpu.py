@@ -137,21 +137,73 @@ def test_fast_apply_on_gpu_goes_through_the_kernels(cuda_device):
         assert (f - r).abs().max().item() <= 1e-4 * r.abs().max().item()
 
 
-def _q8_cases(rng):
+def mixed_q8_case(rng):
     """(inputs, weights, biases, specs, in_scale, scales): int8 reads out of
     order across inputs and stripe blocks, q8 and bf16 outputs, every tile
-    width, a conv reading the bf16 side stripe; then a stride-2 conv on an
-    odd-sized image chained into a dilated one."""
+    width, a conv reading the bf16 side stripe, at 9x70 (the staged int8
+    kernel's byte staging: 70 is not a multiple of 16)."""
     x = rng.normal(size=(2, 16, 9, 70))
     z = rng.normal(size=(2, 5, 9, 70))
     specs = [ConvSpec((1,), 24, q8=True), ConvSpec((2, 0), 8, emit=True),
              ConvSpec((3,), 40, act=False, emit=True),
              ConvSpec((2, 0, 1), 100, q8=True, emit=True)]
     cin = [5, 24 + 16, 8, 24 + 16 + 5]
-    yield ([x, z], [rng.normal(size=(s.cout, c, 3, 3)) * 0.1
-                    for s, c in zip(specs, cin)],
-           [rng.normal(size=(s.cout,)) for s in specs], specs, 0.04,
-           [0.05, None, None, 0.1])
+    return ([x, z], [rng.normal(size=(s.cout, c, 3, 3)) * 0.1
+                     for s, c in zip(specs, cin)],
+            [rng.normal(size=(s.cout,)) for s in specs], specs, 0.04,
+            [0.05, None, None, 0.1])
+
+
+def decoder_like_q8_case(rng, h, w, c0=81):
+    """A W8A8 decoder's int8 inputs (a ``c0``-channel cost volume, 1-, 2-
+    and 2-channel blocks) read whole (Cin not a multiple of 32, so the
+    staged kernel's channel chunks span segments): two growth-like q8 convs
+    (cout 128, 96), a bf16 flow head (cout 2), a bf16 conv reading eight
+    int8 segments out of order (cout 8) and a conv reading the head from
+    the bf16 side stripe (the bf16 kernel)."""
+    ins = [rng.normal(size=(2, c, h, w)) for c in (c0, 1, 2, 2)]
+    specs = [ConvSpec((0, 1, 2, 3), 128, q8=True),
+             ConvSpec((0, 1, 2, 3, 4), 96, q8=True, emit=True),
+             ConvSpec((4, 5), 2, act=False, emit=True),
+             ConvSpec((5, 0, 4, 1, 3, 2, 5, 4), 8, emit=True),
+             ConvSpec((6,), 8, act=False, emit=True)]
+    ch = [c0, 1, 2, 2, 128, 96, 2]
+    cin = [sum(ch[r] for r in s.reads) for s in specs]
+    return (ins, [rng.normal(size=(s.cout, c, 3, 3)) * 0.1
+                  for s, c in zip(specs, cin)],
+            [rng.normal(size=(s.cout,)) * 0.1 for s in specs], specs, 3 / 127,
+            [8 / 127, 8 / 127, None, None, None])
+
+
+def test_fp32_fast_apply_holds_with_default_tf32_flags(cuda_device):
+    """With cuDNN's TF32 flag on, as PyTorch sets it by default, fp32
+    fast_apply at 2x448x1024 stays within 1e-4 of max|flow| of the eager
+    fp32 forward run with TF32 off (its cuDNN convolutions are pinned to
+    fp32; unpinned it measured 1.06e-4 at B=8), and hands the flag back."""
+    model = FlowNetCV(generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    x = torch.rand((2, 448, 1024, 6), generator=torch.Generator().manual_seed(1))
+    x = (x * 2 - 1).to(cuda_device)
+    with torch.no_grad():
+        ref = model(x)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        fast = fast_apply(model, x)
+        torch.cuda.synchronize()
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    for f, r in zip(fast, ref):
+        assert (f - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+def _q8_cases(rng):
+    """The mixed case; decoder-like chains at 7x16 (fewer rows than the
+    staged tile's 8), 5x64 and 3x136 (a partial column tile), all three on
+    the 16-byte staging; then a stride-2 conv on an odd-sized image chained
+    into a dilated one (the gather kernel) and a stride-1 conv over both."""
+    yield mixed_q8_case(rng)
+    for h, w in ((7, 16), (5, 64), (3, 136)):
+        yield decoder_like_q8_case(rng, h, w)
     specs = [ConvSpec((0,), 16, stride=2, q8=True, emit=True),
              ConvSpec((1,), 16, dilation=3, q8=True, emit=True),
              ConvSpec((1, 2), 12, act=False, emit=True)]
@@ -165,7 +217,8 @@ def _q8_cases(rng):
 
 def test_conv_group_q8_kernel_matches_plain(cuda_device):
     """Codes and int8-read bf16 outputs equal; the bf16-read conv within
-    2^-6 of max|plain|."""
+    2^-6 of max|plain|. Every int8-read conv of stride 1 and dilation 1
+    runs the staged kernel."""
     rng = np.random.default_rng(2)
     t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
     for inputs, weights, biases, specs, s_in, scales in _q8_cases(rng):
@@ -173,9 +226,13 @@ def test_conv_group_q8_kernel_matches_plain(cuda_device):
                                specs, [x.shape[1] for x in inputs], s_in,
                                scales, cuda_device)
         xs = [quantize_q8(t(x).to(cuda_device), s_in) for x in inputs]
+        conv_chain_q8.conv_group_q8.staged_launches = 0
         got = conv_chain_q8.conv_group_q8(xs, grp)
         ref = conv_chain_q8.conv_group_q8_plain(xs, grp)
         torch.cuda.synchronize()
+        assert conv_chain_q8.conv_group_q8.staged_launches == sum(
+            conv_chain_q8.is_staged_q8(s) for j, s in enumerate(specs)
+            if grp.int8_read[j])
         emitted = [j for j, s in enumerate(specs) if s.emit]
         for j, g, r in zip(emitted, got, ref):
             assert g.dtype == r.dtype
@@ -201,20 +258,23 @@ def test_gemm_probe_matches_plain(cuda_device):
 
 
 def test_fast_apply_q8_on_gpu_goes_through_the_kernels(cuda_device):
-    """W8A8 fast_apply on the card: one int8 launch per int8-read conv, one
-    bf16 launch per other conv, finite flows near the exact forward."""
+    """W8A8 fast_apply on the card: one int8 launch per int8-read conv (all
+    35 on the staged kernel), one bf16 launch per other conv, finite flows
+    near the exact forward."""
     model = FlowNetCV(generator=torch.Generator().manual_seed(0)).to(cuda_device)
     x = torch.rand((2, 64, 128, 6), generator=torch.Generator().manual_seed(1))
     x = (x * 2 - 1).to(cuda_device)
     scales = calibrate_q8(model, x)
     want = prepare(model, x.dtype, cuda_device, scales).launch_counts()
     cv_mod.cost_volume.launches = conv_chain.conv_group.launches = 0
-    conv_chain_q8.conv_group_q8.launches = 0
+    conv_chain_q8.conv_group_q8.launches = conv_chain_q8.conv_group_q8.staged_launches = 0
     fast = fast_apply(model, x, q8=scales)
     torch.cuda.synchronize()
     assert (cv_mod.cost_volume.launches, conv_chain.conv_group.launches,
-            conv_chain_q8.conv_group_q8.launches) == (
-                5, want["conv_group"], want["conv_group_q8"]) == (5, 24, 35)
+            conv_chain_q8.conv_group_q8.launches,
+            conv_chain_q8.conv_group_q8.staged_launches) == (
+                5, want["conv_group"], want["conv_group_q8"],
+                want["conv_group_q8_staged"]) == (5, 24, 35, 35)
     with torch.no_grad():
         ref = model(x)
     for f, r in zip(fast, ref):

@@ -145,3 +145,34 @@ def test_port_imports_neither_jax_nor_ocflow_tpu():
     assert len(files) > 5
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
+
+
+def test_fp32_paths_pin_cudnn_convolutions_to_fp32(monkeypatch):
+    """fp32 ``fast_apply`` (serving and ``diff``) runs its cuDNN
+    convolutions with TF32 off whatever the caller's flag, and gives the
+    flag back; bf16 leaves it alone. (PyTorch's default TF32 flag moved the
+    fp32 forward to 1.06e-4 of max|flow| on the H100, over the port's
+    1e-4; tests/test_torch_gpu.py holds the card run.)"""
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(*args, **kwargs):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    model = FlowNetCV(generator=torch.Generator().manual_seed(4))
+    xt = torch.from_numpy(_input(5, b=1))
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for diff in (False, True):
+            seen.clear()
+            fast_apply(model, xt, device="cpu", diff=diff)
+            assert seen and not any(seen), diff
+            assert torch.backends.cudnn.allow_tf32
+        seen.clear()
+        fast_apply(model.bfloat16(), xt.bfloat16(), device="cpu")
+        assert seen and all(seen)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
