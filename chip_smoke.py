@@ -49,7 +49,14 @@ Phases (any failure raises and exits non-zero):
    on the staged int8 kernel);
    five bf16 Adam steps;
    the bf16 step end to end, and the new kernels' calls against plain,
-   bound and cuDNN.
+   bound and cuDNN;
+9. FlowNetC family serving (FlowNetC, OcclusionNetC, FlowOccNetC, seeded
+   with BatchNorm statistics, B=8, 448x1024, fp32, eval mode): per net, the
+   launches of one forward (one d=10 cost volume, no other kernel), the
+   d=10 call replayed against its plain version in fp32 and cast to bf16,
+   the forward against the same forward on the plain cost volume (also
+   with PyTorch's default TF32 flags), the d=10 call's time against its
+   plain version and bound, the forward end to end.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -177,10 +184,14 @@ def _timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def _cv_cost(f1):
+def _cv_cost(f1, d=4):
+    """Bytes (f1, f2 read once, the (2d+1)^2 maps written once) and
+    operations (a multiply and an add per shift, channel and pixel) of a
+    cost-volume forward."""
     b, c, h, w = f1.shape
-    nbytes = (2 * b * c * h * w + 81 * b * h * w) * f1.element_size()
-    return nbytes, 2 * 81 * b * c * h * w
+    k = (2 * d + 1) ** 2
+    nbytes = (2 * b * c * h * w + k * b * h * w) * f1.element_size()
+    return nbytes, 2 * k * b * c * h * w
 
 
 def _cg_cost(inputs, group, outs):
@@ -656,6 +667,102 @@ def _train_phase(card, max_err, per, add, failures):
     return launches
 
 
+def _flownetc_phase(card, tf32_defaults):
+    """The FlowNetC family's serving forward (B=8, 448x1024, fp32, eval, a
+    seeded net with BatchNorm statistics, seed 0): launches, the d=10 call
+    against its plain version (fp32, and cast to bf16), the forward against
+    the plain-cost-volume forward (also with PyTorch's default TF32 flags),
+    timings. Returns the launch counts per net and the d=10 call's numbers
+    (FlowNetC's call)."""
+    from ocflow_torch.bench import BATCH, HEIGHT, SEED, WIDTH, cuda_ms, make_flownetc_inputs
+    from ocflow_torch.kernels import cost_volume as cv_mod
+    from ocflow_torch.models import FlowNetC, FlowOccNetC, OcclusionNetC
+    from ocflow_torch.models import flow_net_s as fns
+
+    launches, d10 = {}, {"max_abs_err": 0.0}
+    failures = []
+    for key, cls in (("flownetc", FlowNetC), ("occnetc", OcclusionNetC),
+                     ("flowoccnetc", FlowOccNetC)):
+        model, x = make_flownetc_inputs(BATCH, HEIGHT, WIDTH, "cuda", SEED, cls)
+
+        def forward():
+            with torch.no_grad():
+                out = model(x)  # noqa: B023
+            return out if isinstance(out, tuple) else (out,)
+
+        launches[key], out = _count_launches(forward)
+        expect = {k: 0 for k in launches[key]}
+        expect["cost_volume"] = 1
+        print(f"main path {key} (one fp32 eval forward) launches: {launches[key]} "
+              f"(expected {expect})")
+        if launches[key] != expect:
+            raise AssertionError(f"{key} launch counts {launches[key]}")
+
+        calls = _record([(fns, "cost_volume")], forward)
+        if [(k, a[2]) for k, a in calls] != [("cost_volume", 10)]:
+            raise AssertionError(f"{key}: cost-volume calls {[(k, a[2]) for k, a in calls]}")
+        f1, f2, _ = calls[0][1]
+        err = {"cost_volume": 0.0}
+        _check_float("cost_volume", (f1, f2, 10), torch.float32, err, f"{key} d=10 ")
+        _check_float("cost_volume", (f1.bfloat16(), f2.bfloat16(), 10), torch.bfloat16,
+                     err, f"{key} d=10 ")
+        d10["max_abs_err"] = max(d10["max_abs_err"], err["cost_volume"])
+
+        saved, fns.cost_volume = fns.cost_volume, cv_mod.cost_volume_plain
+        try:
+            ref = forward()
+        finally:
+            fns.cost_volume = saved
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+        try:
+            out_tf32 = forward()
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        for head, o, t, r in zip(cls.HEADS, out, out_tf32, ref):
+            want = (BATCH, HEIGHT, WIDTH, 2 if head == "flow" else 1)
+            for v in (o, t):
+                if tuple(v.shape) != want or v.dtype != torch.float32 \
+                        or not torch.isfinite(v).all():
+                    raise AssertionError(f"{key} {head}: bad output {v.shape} {v.dtype}")
+            if head == "occ" and not (0 <= o.min().item() and o.max().item() <= 1):
+                failures.append(f"{key} occ outside [0, 1]")
+            scale = r.abs().max().item()
+            e, e_tf32 = (o - r).abs().max().item(), (t - r).abs().max().item()
+            print(f"e2e {key} {head}: kernel forward vs plain-cost-volume forward "
+                  f"max_abs_err {e:.3e} (tol {E2E_FP32_TOL * scale:.3e}, max|plain| "
+                  f"{scale:.3e}); with PyTorch's default TF32 flags (cudnn "
+                  f"{tf32_defaults[0]}, matmul {tf32_defaults[1]}) {e_tf32:.3e} "
+                  f"({e_tf32 / scale:.3e} of max|plain|, same tol)")
+            if not e <= E2E_FP32_TOL * scale:
+                failures.append(f"{key} {head}: kernel vs plain forward {e}")
+            if not e_tf32 <= E2E_FP32_TOL * scale:
+                failures.append(f"{key} {head}: default TF32 flags {e_tf32}")
+        del out, out_tf32, ref
+
+        if key == "flownetc":
+            k_ms = cuda_ms(lambda: cv_mod.cost_volume(f1, f2, 10), 20)  # noqa: B023
+            p_ms = cuda_ms(lambda: cv_mod.cost_volume_plain(f1, f2, 10), 3)  # noqa: B023
+            nbytes, ops = _cv_cost(f1, 10)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            o_ms = ops / PEAK_FLOPS[torch.float32] * 1e3
+            d10.update(ms=k_ms, plain_ms=p_ms, bound_ms=max(b_ms, o_ms),
+                       bound_by="bytes" if b_ms >= o_ms else "operations")
+            print(f"time cost_volume d=10 fp32 {tuple(f1.shape)}: kernel {k_ms:.4f} ms "
+                  f"({_rate(ops, k_ms, d10['bound_ms'])}), plain {p_ms:.4f} ms, library "
+                  f"none, bound {d10['bound_ms']:.4f} ms ({d10['bound_by']}; bytes "
+                  f"{b_ms:.4f} ms at 3.35 TB/s, operations {o_ms:.4f} ms at 67 TFLOP/s "
+                  f"fp32; {nbytes} B, {ops} flop) [{card}]")
+        e2e = cuda_ms(forward, 10)
+        print(f"e2e {key} fp32 eval forward B={BATCH} {HEIGHT}x{WIDTH}: {e2e:.3f} "
+              f"ms/batch, {BATCH * 1e3 / e2e:.2f} pairs/s [{card}]")
+        del model, x, calls, f1, f2
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, d10
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -894,6 +1001,10 @@ def main() -> int:
     if failures:
         raise AssertionError("; ".join(failures))
 
+    # 9. the FlowNetC family, d=10
+    fnetc_launches, d10 = _flownetc_phase(card, tf32_defaults)
+    launches.update(fnetc_launches)
+
     # per kernel: its source, the TPU kernel it replaces, and the path whose
     # calls its times sum (its "launches" are that path's count)
     meta = {
@@ -932,6 +1043,10 @@ def main() -> int:
             **({"library_reason": NO_LIBRARY[name]} if name in NO_LIBRARY else {}),
             **{k: p[k] for k in ("bwd_ms", "library_bwd_ms", "yard_ms") if k in p},
         })
+        if name == "cost_volume":
+            # the numbers above are the d=4 calls of the bf16 forward; the
+            # d=10 call of one FlowNetC forward, fp32, beside them
+            kernels[-1].update(d=4, **{f"{k}_d10": v for k, v in d10.items()})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Benchmarks of the port: FlowNetCV serving (``fast_apply``) and training
-(the occlusion-aware unsupervised step), pairs/s.
+(the occlusion-aware unsupervised step), and FlowNetC serving, pairs/s.
 
 Runs 448x1024, batch 8, bf16 weights and input, random weights from a
 seed; warms up, then times 20 forwards with CUDA events. Prints one
@@ -22,7 +22,14 @@ CUDA events, each with its optimizer update. Metric
 ``flownetcv_448x1024_bf16_train_step``, with ``ms_per_step`` in place of
 ``ms_per_batch``.
 
-Usage: ``python -m ocflow_torch.bench [--q8 | --train] [--device cuda]``.
+With ``--model flownetc`` it times the FlowNetC serving forward: a seeded
+FlowNetC (BatchNorm statistics included) in eval mode and fp32, as the JAX
+package serves it, on a seeded batch; metric
+``flownetc_448x1024_fp32_inference``. ``--q8`` and ``--train`` are
+FlowNetCV's only.
+
+Usage: ``python -m ocflow_torch.bench [--model pwc|flownetc] [--q8 | --train]
+[--device cuda]``.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ocflow_torch import resolve_device
+from ocflow_torch.models.flow_net_s import FlowNetC
 from ocflow_torch.models.pwc_fast import calibrate_q8, fast_apply
 from ocflow_torch.models.pwc_net import FlowNetCV
 from ocflow_torch.train import (LONGRUN_SYNTHETIC, config_from_dict, create_train_state,
@@ -67,6 +75,17 @@ def make_inputs(batch: int, height: int, width: int, dtype, device,
     return model, x.to(device=device, dtype=dtype)
 
 
+def make_flownetc_inputs(batch: int, height: int, width: int, device,
+                         seed: int = 0, cls=FlowNetC):
+    """Seeded random FlowNetC (or another net of its family, ``cls``;
+    BatchNorm statistics included) in eval mode, fp32, and a ``[B, H, W,
+    6]`` input in [-1, 1]."""
+    gen = torch.Generator().manual_seed(seed)
+    model = cls(generator=gen).eval().to(device)
+    x = torch.rand((batch, height, width, 6), generator=gen) * 2 - 1
+    return model, x.to(device)
+
+
 def calibration_batch(like: torch.Tensor, seed: int = CALIB_SEED) -> torch.Tensor:
     """A held-out batch of ``like``'s shape, dtype and device, uniform in
     [-1, 1] from ``seed`` (calibrating on the measured batch would flatter
@@ -91,22 +110,36 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _mean_ms(run, device: torch.device, iters: int, warmup: int) -> float:
+    """Mean ms per ``run()`` over ``iters`` calls after ``warmup``, timed
+    with CUDA events on the card (host clock on the CPU)."""
+    for _ in range(warmup):
+        run()
+    if device.type == "cuda":
+        return cuda_ms(run, iters)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
 def measure(model, x, q8=None, iters: int = ITERS, warmup: int = WARMUP) -> dict:
     """Mean ms per ``fast_apply`` call over ``iters`` calls after
     ``warmup``, timed with CUDA events on the card (host clock on the CPU).
     """
-    def run():
-        fast_apply(model, x, q8=q8, device=x.device)
+    ms = _mean_ms(lambda: fast_apply(model, x, q8=q8, device=x.device), x.device,
+                  iters, warmup)
+    return {"ms_per_batch": ms, "pairs_per_sec": x.shape[0] * 1e3 / ms}
 
-    for _ in range(warmup):
-        run()
-    if x.device.type == "cuda":
-        ms = cuda_ms(run, iters)
-    else:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            run()
-        ms = (time.perf_counter() - t0) * 1e3 / iters
+
+def measure_forward(model, x, iters: int = ITERS, warmup: int = WARMUP) -> dict:
+    """Mean ms per ``model(x)`` (no autograd) over ``iters`` calls after
+    ``warmup``, as :func:`measure`."""
+    def run():
+        with torch.no_grad():
+            model(x)
+
+    ms = _mean_ms(run, x.device, iters, warmup)
     return {"ms_per_batch": ms, "pairs_per_sec": x.shape[0] * 1e3 / ms}
 
 
@@ -146,18 +179,7 @@ def measure_train(state, train_step, batch, iters: int = TRAIN_ITERS,
     """Mean ms per training step (forward, backward, Adam update) over
     ``iters`` steps after ``warmup``, CUDA events on the card (host clock
     on the CPU)."""
-    def run():
-        train_step(state, batch)
-
-    for _ in range(warmup):
-        run()
-    if state.device.type == "cuda":
-        ms = cuda_ms(run, iters)
-    else:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            run()
-        ms = (time.perf_counter() - t0) * 1e3 / iters
+    ms = _mean_ms(lambda: train_step(state, batch), state.device, iters, warmup)
     b = batch["images"].shape[0]
     return {"ms_per_step": ms, "pairs_per_sec": b * 1e3 / ms}
 
@@ -165,21 +187,28 @@ def measure_train(state, train_step, batch, iters: int = TRAIN_ITERS,
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--model", choices=("pwc", "flownetc"), default="pwc",
+                    help="FlowNetCV (pwc) or FlowNetC serving")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--q8", action="store_true",
                       help="W8A8 decoders, scales calibrated on a held-out batch")
     mode.add_argument("--train", action="store_true",
                       help="the occlusion-aware training step (longrun_synthetic.yaml)")
     args = ap.parse_args(argv)
+    if args.model == "flownetc" and (args.q8 or args.train):
+        raise ValueError("--q8 and --train are FlowNetCV's (--model pwc) only")
     dev = resolve_device(args.device)
-    if args.train:
+    if args.model == "flownetc":
+        res = measure_forward(*make_flownetc_inputs(BATCH, HEIGHT, WIDTH, dev, SEED))
+        metric, per = "fp32_inference", {"ms_per_batch": res["ms_per_batch"]}
+    elif args.train:
         res = measure_train(*make_train_inputs(BATCH, HEIGHT, WIDTH, dev, SEED))
-        metric, per = "train_step", {"ms_per_step": res["ms_per_step"]}
+        metric, per = "bf16_train_step", {"ms_per_step": res["ms_per_step"]}
     else:
         model, x = make_inputs(BATCH, HEIGHT, WIDTH, torch.bfloat16, dev, SEED)
         q8 = calibrate_q8(model, calibration_batch(x), device=dev) if args.q8 else None
         res = measure(model, x, q8)
-        metric = "inference"
+        metric = f"{'w8a8' if args.q8 else 'bf16'}_inference"
         per = {"ms_per_batch": res["ms_per_batch"]}
     if dev.type == "cuda":
         name, _, limit = gpu_info().partition(", ")
@@ -187,7 +216,8 @@ def main(argv=None) -> dict:
     else:
         device = {"name": "cpu", "power_limit": None}
     result = {
-        "metric": f"flownetcv_{HEIGHT}x{WIDTH}_{'w8a8' if args.q8 else 'bf16'}_{metric}",
+        "metric": f"{'flownetc' if args.model == 'flownetc' else 'flownetcv'}"
+                  f"_{HEIGHT}x{WIDTH}_{metric}",
         "value": res["pairs_per_sec"],
         "unit": "pairs/sec/chip" if dev.type == "cuda" else "pairs/sec/cpu",
         **per,

@@ -8,7 +8,9 @@ Replaces ``ocflow_tpu/ops/pallas/cost_volume_kernel.py``: the forward
 -> ``_bwd_xla_mirror``). The wrapper takes ``[B, C, H, W]`` features and
 returns ``[B, (2d+1)^2, H, W]`` (the channel-major layout the decoders
 read). A CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises. Only d = 4 (81 shifts, the FlowNetCV path) is compiled.
+kernel or raises. The forward is compiled for d = 4 (81 shifts, the
+FlowNetCV path) and d = 10 (441 shifts, the FlowNetC family); the backward
+for d = 4 only.
 
 Under autograd (an input that requires grad, grad mode on) ``cost_volume``
 runs through ``_CostVolume``, whose backward is ``cost_volume_backward``:
@@ -30,7 +32,8 @@ from ocflow_torch.kernels import _build
 from ocflow_torch.ops.cost_volume import cost_volume as cost_volume_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_DISPLACEMENT = 4
+FORWARD_DISPLACEMENTS = (4, 10)   # csrc/cost_volume.cu
+BACKWARD_DISPLACEMENTS = (4,)     # csrc/cost_volume_bwd.cu
 
 
 def _fn(name: str, symbol: str, n_ptr: int):
@@ -42,7 +45,7 @@ def _fn(name: str, symbol: str, n_ptr: int):
     return fn
 
 
-def _check(what: str, max_displacement: int, *ts: torch.Tensor) -> None:
+def _check_tensors(what: str, *ts: torch.Tensor) -> None:
     f1 = ts[0]
     if f1.device.type != "cuda" or any(t.device != f1.device for t in ts):
         raise ValueError(f"{what}: unsupported devices {[t.device for t in ts]}")
@@ -52,16 +55,16 @@ def _check(what: str, max_displacement: int, *ts: torch.Tensor) -> None:
         raise ValueError(f"{what}: shapes {[tuple(t.shape) for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{what}: inputs must be contiguous NCHW")
-    if max_displacement != KERNEL_DISPLACEMENT:
-        raise ValueError(
-            f"{what}: the kernel is built for d={KERNEL_DISPLACEMENT}, "
-            f"got d={max_displacement}")
 
 
 def _forward(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int) -> torch.Tensor:
     if f1.device.type == "cpu":
         return cost_volume_plain(f1, f2, max_displacement)
-    _check("cost_volume", max_displacement, f1, f2)
+    if max_displacement not in FORWARD_DISPLACEMENTS:
+        raise ValueError(
+            f"cost_volume: the forward kernel is built for d in "
+            f"{FORWARD_DISPLACEMENTS}, got d={max_displacement}")
+    _check_tensors("cost_volume", f1, f2)
     b, c, h, w = f1.shape
     n = 2 * max_displacement + 1
     out = torch.empty((b, n * n, h, w), dtype=f1.dtype, device=f1.device)
@@ -104,7 +107,11 @@ def cost_volume_backward(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
     CUDA, plain version on the CPU."""
     if f1.device.type == "cpu":
         return cost_volume_backward_plain(f1, f2, g, max_displacement)
-    _check("cost_volume_backward", max_displacement, f1, f2, g)
+    if max_displacement not in BACKWARD_DISPLACEMENTS:
+        raise ValueError(
+            f"cost_volume_backward: the backward kernel is built for d in "
+            f"{BACKWARD_DISPLACEMENTS}, got d={max_displacement}")
+    _check_tensors("cost_volume_backward", f1, f2, g)
     b, c, h, w = f1.shape
     if g.shape != (b, (2 * max_displacement + 1) ** 2, h, w):
         raise ValueError(f"cost_volume_backward: cotangent {tuple(g.shape)}")

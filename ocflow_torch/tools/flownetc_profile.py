@@ -1,0 +1,114 @@
+"""Where the FlowNetC family's serving forward spends its time on the card.
+
+Runs the fp32 eval forward of a seeded net of the family
+(``bench.make_flownetc_inputs``: B=8, 448x1024, seed 0) and prints one JSON
+line with:
+
+- ``ms_per_batch``: device ms per forward (CUDA events over ``--iters``
+  forwards after 3 warm-up forwards), and ``host_ms_per_batch``, the
+  host's time to issue one (a host time near the device time means the
+  host paces the card);
+- ``kernel_ms_per_batch`` and ``busy_share``: the device time of every
+  kernel in a ``torch.profiler`` trace of the same forwards, per forward
+  and as a share of their device time;
+- ``by_kind``: that kernel time summed by kind (cost volume, convolution,
+  BatchNorm, LeakyReLU, concatenation, copies, the rest), the kind read
+  from the kernel's name; ``top``: the kernels with the most device time.
+
+Usage: ``python -m ocflow_torch.tools.flownetc_profile [--model flownetc]
+[--iters 10]``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from ocflow_torch.bench import (BATCH, HEIGHT, SEED, WIDTH, cuda_ms, gpu_info,
+                                make_flownetc_inputs)
+from ocflow_torch.models import FlowNetC, FlowOccNetC, OcclusionNetC
+from ocflow_torch.tools.train_profile import _device_us
+
+MODELS = {"flownetc": FlowNetC, "occnetc": OcclusionNetC, "flowoccnetc": FlowOccNetC}
+# kernel-name fragments of each kind, tried in this order
+KINDS = (("cost_volume", ("cost_volume",)),
+         ("batchnorm", ("batch_norm", "batchnorm", "bn_fw")),
+         ("leaky_relu", ("leaky",)),
+         ("concat", ("CatArray", "cat_")),
+         ("conv", ("conv", "xmma", "cudnn", "gemm", "fprop", "dgrad", "winograd",
+                   "fft", "region_transform", "implicit", "sm90")),
+         ("copy", ("copy", "nchwToNhwc", "nhwcToNchw", "transpose")))
+
+
+def kind_of(name: str) -> str:
+    low = name.lower()
+    for kind, parts in KINDS:
+        if any(p.lower() in low for p in parts):
+            return kind
+    return "other"
+
+
+def profile_forward(model, x, iters: int) -> dict:
+    def forward():
+        with torch.no_grad():
+            model(x)
+
+    for _ in range(3):
+        forward()
+    ms = cuda_ms(forward, iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        forward()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(iters):
+            forward()
+        end.record()
+        end.synchronize()
+    traced_ms = start.elapsed_time(end) / iters
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0]
+    kernel_ms = sum(_device_us(e) for e in kernels) / 1e3 / iters
+    by_kind: dict[str, float] = {}
+    for e in kernels:
+        k = kind_of(e.key)
+        by_kind[k] = by_kind.get(k, 0.0) + _device_us(e) / 1e3 / iters
+    top = sorted(kernels, key=_device_us, reverse=True)[:12]
+    return {
+        "ms_per_batch": ms, "pairs_per_sec": x.shape[0] * 1e3 / ms,
+        "host_ms_per_batch": host_ms, "traced_ms_per_batch": traced_ms,
+        "kernel_ms_per_batch": kernel_ms,
+        "busy_share": kernel_ms / traced_ms if traced_ms else None,
+        "by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+        "top": [{"name": e.key[:90], "kind": kind_of(e.key),
+                 "ms_per_batch": _device_us(e) / 1e3 / iters,
+                 "calls_per_batch": e.count / iters} for e in top],
+    }
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=tuple(MODELS), default="flownetc")
+    ap.add_argument("--iters", type=int, default=10)
+    args = ap.parse_args(argv)
+    model, x = make_flownetc_inputs(BATCH, HEIGHT, WIDTH, "cuda", SEED,
+                                    MODELS[args.model])
+    name, _, limit = gpu_info().partition(", ")
+    result = {"model": args.model, **profile_forward(model, x, args.iters),
+              "batch": BATCH, "device": {"name": name, "power_limit": limit}}
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

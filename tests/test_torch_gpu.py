@@ -23,7 +23,9 @@ from ocflow_torch.kernels import conv_chain, conv_chain_q8, cost_volume as cv_mo
 from ocflow_torch.kernels import gemm as gemm_mod
 from ocflow_torch.kernels.conv_chain import ConvSpec, conv_group, prepare_group
 from ocflow_torch.kernels.conv_chain_q8 import prepare_group_q8, quantize_q8
-from ocflow_torch.models import FlowNetCV, calibrate_q8, fast_apply, prepare
+from ocflow_torch.models import (FlowNetC, FlowNetCV, FlowOccNetC, OcclusionNetC,
+                                 calibrate_q8, fast_apply, prepare)
+from ocflow_torch.models import flow_net_s as fns
 from ocflow_torch.train import create_train_state, make_unsupervised_flow_step
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
@@ -100,6 +102,61 @@ def test_cost_volume_kernel_matches_plain(cuda_device, dtype):
     torch.cuda.synchronize()
     assert got.shape == (2, 81, 13, 70) and got.dtype == dtype
     _close(got, cv_mod.cost_volume_plain(f1, f2, 4), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 8, 9, 70), (2, 20, 33, 40), (8, 256, 56, 128)])
+def test_cost_volume_d10_kernel_matches_plain(cuda_device, shape, dtype):
+    """The d=10 kernel (441 shifts): H under 2d+1 (most shifts read the
+    zero padding), W not a multiple of 32, C not a multiple of its 8-channel
+    chunk, and the FlowNetC family's serving shape."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    f1, f2 = (torch.randn(*shape, device=cuda_device, generator=gen).to(dtype)
+              for _ in range(2))
+    got = cv_mod.cost_volume(f1, f2, 10)
+    torch.cuda.synchronize()
+    b, _, h, w = shape
+    assert got.shape == (b, 441, h, w) and got.dtype == dtype
+    _close(got, cv_mod.cost_volume_plain(f1, f2, 10), dtype)
+
+
+def test_cost_volume_kernel_rejects_other_displacements(cuda_device):
+    f = torch.randn(1, 8, 9, 70, device=cuda_device)
+    g = torch.randn(1, 441, 9, 70, device=cuda_device)
+    with pytest.raises(ValueError, match="d=7"):
+        cv_mod.cost_volume(f, f, 7)
+    with pytest.raises(ValueError, match="d=10"):
+        cv_mod.cost_volume_backward(f, f, g, 10)
+
+
+@pytest.mark.parametrize("cls", [FlowNetC, OcclusionNetC, FlowOccNetC])
+def test_flownetc_family_forward_on_gpu_launches_the_cost_volume_once(cuda_device, cls):
+    """One eval forward at 2x128x128 fp32: one d=10 cost-volume launch, no
+    other kernel; within 1e-4 of max|output| of the same forward with the
+    plain cost volume."""
+    model = cls(generator=torch.Generator().manual_seed(0)).eval().to(cuda_device)
+    x = torch.rand((2, 128, 128, 6), generator=torch.Generator().manual_seed(1))
+    x = (x * 2 - 1).to(cuda_device)
+    counters = (cv_mod.cost_volume, cv_mod.cost_volume_backward, conv_chain.conv_group,
+                conv_chain.conv_group_diff, conv_chain_q8.conv_group_q8)
+    for c in counters:
+        c.launches = 0
+    with torch.no_grad():
+        got = model(x)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [1, 0, 0, 0, 0]
+    saved = fns.cost_volume
+    fns.cost_volume = cv_mod.cost_volume_plain
+    try:
+        with torch.no_grad():
+            ref = model(x)
+    finally:
+        fns.cost_volume = saved
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
