@@ -56,7 +56,12 @@ Phases (any failure raises and exits non-zero):
    d=10 call replayed against its plain version in fp32 and cast to bf16,
    the forward against the same forward on the plain cost volume (also
    with PyTorch's default TF32 flags), the d=10 call's time against its
-   plain version and bound, the forward end to end.
+   plain version and bound, the forward end to end; FlowNetC's fp32 input
+   gradient under a seeded cotangent (one d=10 forward and one d=10
+   backward launch) against the gradient with the plain backward on the
+   same forward (cuDNN's deterministic algorithms in both), its d=10
+   backward call replayed against its plain version in fp32 and cast to
+   bf16, and timed beside its bound.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -85,6 +90,18 @@ TOL_REASON = {torch.float32: "1e-4 of max|plain|: summation order",
 # fast_apply fp32 vs eager fp32 (cuDNN, TF32 off), relative to max |eager|:
 # summation order through ~30 layers
 E2E_FP32_TOL = 1e-4
+# phase 9: FlowNetC's fp32 gradient with respect to its input (TF32 off),
+# through the d=10 kernels, vs the same gradient with the plain backward in
+# place of the backward kernel on the same forward, both with cuDNN's
+# deterministic algorithms, max-abs over max|grad|: the two differ in the
+# cost-volume backward's summation order only, carried back through
+# conv3..conv1's VJPs, as the forward's 1e-4 (2.3e-7-2.9e-7 measured on
+# the H100). The gradient moves further when anything else changes: with
+# cuDNN's default algorithms it read 3.2e-4 from the reference, with the
+# plain cost volume's forward 9.2e-4 (the forward's summation order flips
+# a few LeakyReLU slopes), which is why the check holds the forward and
+# cuDNN's algorithms fixed; both readings are printed beside it.
+GRAD_FP32_TOL = 1e-4
 # fast_apply bf16 vs fp32, relative L2 error: the random-weight network
 # amplifies bf16 rounding (0.006-0.014 measured on the CPU plain path at
 # 64x128)
@@ -390,13 +407,32 @@ def _held_occlusion(run, mask=None):
     return out, box["mask"]
 
 
-def _cv_bwd_cost(f1):
+def _cv_bwd_cost(f1, d=4):
     """Bytes (g, f1, f2 read once; df1, df2 written once) and operations
     (a multiply and an add per shift, channel and pixel, for df1 and df2)
-    of a cost-volume backward."""
+    of a cost-volume backward with (2d+1)^2 shifts."""
     b, c, h, w = f1.shape
-    nbytes = (81 * b * h * w + 4 * b * c * h * w) * f1.element_size()
-    return nbytes, 4 * 81 * b * c * h * w
+    k = (2 * d + 1) ** 2
+    nbytes = (k * b * h * w + 4 * b * c * h * w) * f1.element_size()
+    return nbytes, 4 * k * b * c * h * w
+
+
+class _PlainBackward(torch.autograd.Function):
+    """A cost volume whose forward is ``forward_fn`` and whose backward is
+    the plain version: the references of phase 9's input gradient."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, d, forward_fn):
+        ctx.save_for_backward(f1, f2)
+        ctx.d = d
+        return forward_fn(f1, f2, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ocflow_torch.kernels.cost_volume import cost_volume_backward_plain
+
+        df1, df2 = cost_volume_backward_plain(*ctx.saved_tensors, g.contiguous(), ctx.d)
+        return df1, df2, None, None
 
 
 def _counters():
@@ -628,7 +664,7 @@ def _train_phase(card, max_err, per, add, failures):
         if kind == "cost_volume_backward":
             k_ms = cuda_ms(lambda: cv_mod.cost_volume_backward(*args), 20)
             p_ms = cuda_ms(lambda: cv_mod.cost_volume_backward_plain(*args), 3)
-            nbytes, ops = _cv_bwd_cost(args[0])
+            nbytes, ops = _cv_bwd_cost(args[0], args[3])
             bound, by = add("cost_volume_bwd", k_ms, p_ms, nbytes, ops,
                             PEAK_FLOPS[torch.bfloat16], None)
             print(f"time cost_volume_bwd bf16 {tuple(args[0].shape)}: kernel {k_ms:.4f} ms, "
@@ -667,6 +703,98 @@ def _train_phase(card, max_err, per, add, failures):
     return launches
 
 
+def _flownetc_grad(model, x, card):
+    """FlowNetC's input gradient under a seeded cotangent on the flow (fp32,
+    eval): its launches (one d=10 forward, one d=10 backward); with cuDNN's
+    deterministic algorithms, against the gradient with the plain backward
+    on the same forward (beside it a second run, the plain cost volume's
+    gradient, and the counted run with cuDNN's default algorithms); the
+    d=10 backward call against its plain version (fp32, and cast to bf16)
+    and its time beside its bound. Returns the launch counts and the
+    backward's numbers."""
+    from ocflow_torch.bench import cuda_ms
+    from ocflow_torch.kernels import cost_volume as cv_mod
+    from ocflow_torch.models import flow_net_s as fns
+
+    def flow_of(inp):
+        out = model(inp)
+        return out[0] if isinstance(out, tuple) else out
+
+    with torch.no_grad():
+        shape = flow_of(x).shape
+    gen = torch.Generator(device=x.device).manual_seed(1)
+    cot = torch.randn(shape, device=x.device, generator=gen)
+
+    def grad():
+        xg = x.detach().requires_grad_()
+        return torch.autograd.grad(flow_of(xg), xg, cot)[0]
+
+    launches, got = _count_launches(grad)
+    expect = {k: 0 for k in launches}
+    expect.update(cost_volume=1, cost_volume_bwd=1)
+    print(f"main path flownetc input gradient (one fp32 eval forward and backward) "
+          f"launches: {launches} (expected {expect})")
+    if launches != expect:
+        raise AssertionError(f"flownetc gradient launch counts {launches}")
+
+    def through(forward_fn):
+        """The gradient with the cost volume's forward ``forward_fn`` and the
+        plain backward."""
+        saved = fns.cost_volume
+        fns.cost_volume = lambda a, b, d: _PlainBackward.apply(a, b, d, forward_fn)
+        try:
+            return grad()
+        finally:
+            fns.cost_volume = saved
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        det = grad()
+        ref = through(cv_mod.cost_volume)
+        others = {"the kernels again": grad(),
+                  "the plain forward and backward": through(cv_mod.cost_volume_plain),
+                  "the kernels with cuDNN's default algorithms": got}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    rel = (det - ref).abs().max().item() / scale
+    print(f"e2e flownetc input gradient (cuDNN deterministic), kernels vs the plain "
+          f"backward on the same forward: {rel:.3e} of max|grad| {scale:.3e} (tol "
+          f"{GRAD_FP32_TOL}); beside it, vs " + "; ".join(
+              f"{k} {(r - ref).abs().max().item() / scale:.3e}" for k, r in others.items())
+          + f"; finite {bool(torch.isfinite(det).all())}")
+    if det.shape != x.shape or not torch.isfinite(det).all() or not rel <= GRAD_FP32_TOL:
+        raise AssertionError(f"flownetc input gradient: {rel} > {GRAD_FP32_TOL}")
+    del got, det, ref, others
+
+    calls = _record([(cv_mod, "cost_volume_backward")], grad)
+    if [(k, a[3]) for k, a in calls] != [("cost_volume_backward", 10)]:
+        raise AssertionError(f"backward calls {[(k, a[3]) for k, a in calls]}")
+    args = calls[0][1]
+    err = {"cost_volume_bwd": 0.0}
+    _check_float("cost_volume_bwd", args, torch.float32, err, "flownetc d=10 ")
+    bf = tuple(a.bfloat16() for a in args[:3]) + (10,)
+    _check_float("cost_volume_bwd", bf, torch.bfloat16, err, "flownetc d=10 ")
+    res = {"max_abs_err": err["cost_volume_bwd"]}
+    for dtype, a in ((torch.float32, args), (torch.bfloat16, bf)):
+        k_ms = cuda_ms(lambda: cv_mod.cost_volume_backward(*a), 20)  # noqa: B023
+        p_ms = cuda_ms(lambda: cv_mod.cost_volume_backward_plain(*a), 3)  # noqa: B023
+        nbytes, ops = _cv_bwd_cost(a[0], 10)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = ops / PEAK_FLOPS[dtype] * 1e3
+        by = "bytes" if b_ms >= o_ms else "operations"
+        if dtype == torch.float32:
+            res.update(ms=k_ms, plain_ms=p_ms, bound_ms=max(b_ms, o_ms), bound_by=by)
+        print(f"time cost_volume_bwd d=10 {str(dtype)[6:]} {tuple(a[0].shape)}: kernel "
+              f"{k_ms:.4f} ms ({_rate(ops, k_ms, max(b_ms, o_ms))}), plain {p_ms:.4f} ms, "
+              f"library none, bound {max(b_ms, o_ms):.4f} ms ({by}; bytes {b_ms:.4f} ms "
+              f"at 3.35 TB/s, operations {o_ms:.4f} ms at {PEAK_FLOPS[dtype] / 1e12:.0f} "
+              f"TFLOP/s; {nbytes} B, {ops} flop) [{card}]")
+    return launches, res
+
+
 def _flownetc_phase(card, tf32_defaults):
     """The FlowNetC family's serving forward (B=8, 448x1024, fp32, eval, a
     seeded net with BatchNorm statistics, seed 0): launches, the d=10 call
@@ -679,7 +807,7 @@ def _flownetc_phase(card, tf32_defaults):
     from ocflow_torch.models import FlowNetC, FlowOccNetC, OcclusionNetC
     from ocflow_torch.models import flow_net_s as fns
 
-    launches, d10 = {}, {"max_abs_err": 0.0}
+    launches, d10, d10_bwd = {}, {"max_abs_err": 0.0}, {}
     failures = []
     for key, cls in (("flownetc", FlowNetC), ("occnetc", OcclusionNetC),
                      ("flowoccnetc", FlowOccNetC)):
@@ -741,6 +869,7 @@ def _flownetc_phase(card, tf32_defaults):
         del out, out_tf32, ref
 
         if key == "flownetc":
+            launches["flownetc_grad"], d10_bwd = _flownetc_grad(model, x, card)
             k_ms = cuda_ms(lambda: cv_mod.cost_volume(f1, f2, 10), 20)  # noqa: B023
             p_ms = cuda_ms(lambda: cv_mod.cost_volume_plain(f1, f2, 10), 3)  # noqa: B023
             nbytes, ops = _cv_cost(f1, 10)
@@ -760,7 +889,7 @@ def _flownetc_phase(card, tf32_defaults):
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError("; ".join(failures))
-    return launches, d10
+    return launches, d10, d10_bwd
 
 
 def main() -> int:
@@ -947,6 +1076,11 @@ def main() -> int:
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
               f"bound {bound:.4f} ms ({by}; {nbytes} B, {flops} flop) [{card}]")
 
+    p = per["cost_volume"]
+    print(f"time cost_volume d=4 sum over the bf16 forward's 5 levels: kernel "
+          f"{p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms "
+          f"({100 * p['bound_ms'] / p['ms']:.2f}% of bound) [{card}]")
+
     # the int8 launches of each W8A8 group (its bf16-read up-flow conv runs
     # the bf16 kernel and is left out here)
     q8_calls = [args for kind, args in recorded["w8a8"] if kind == "conv_group_q8"]
@@ -1002,7 +1136,7 @@ def main() -> int:
         raise AssertionError("; ".join(failures))
 
     # 9. the FlowNetC family, d=10
-    fnetc_launches, d10 = _flownetc_phase(card, tf32_defaults)
+    fnetc_launches, d10, d10_bwd = _flownetc_phase(card, tf32_defaults)
     launches.update(fnetc_launches)
 
     # per kernel: its source, the TPU kernel it replaces, and the path whose
@@ -1047,6 +1181,11 @@ def main() -> int:
             # the numbers above are the d=4 calls of the bf16 forward; the
             # d=10 call of one FlowNetC forward, fp32, beside them
             kernels[-1].update(d=4, **{f"{k}_d10": v for k, v in d10.items()})
+        if name == "cost_volume_bwd":
+            # the d=4 calls of the bf16 step; the d=10 call of FlowNetC's
+            # input gradient, fp32, beside them
+            kernels[-1].update(d=4, launches_d10=launches["flownetc_grad"][name],
+                               **{f"{k}_d10": v for k, v in d10_bwd.items()})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,9 @@ Replaces ``ocflow_tpu/ops/pallas/cost_volume_kernel.py``: the forward
 -> ``_bwd_xla_mirror``). The wrapper takes ``[B, C, H, W]`` features and
 returns ``[B, (2d+1)^2, H, W]`` (the channel-major layout the decoders
 read). A CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises. The forward is compiled for d = 4 (81 shifts, the
-FlowNetCV path) and d = 10 (441 shifts, the FlowNetC family); the backward
-for d = 4 only.
+kernel or raises. Both kernels are compiled for d = 4 (81 shifts, the
+FlowNetCV path) and d = 10 (441 shifts, the FlowNetC family); any other d
+raises before a launch.
 
 Under autograd (an input that requires grad, grad mode on) ``cost_volume``
 runs through ``_CostVolume``, whose backward is ``cost_volume_backward``:
@@ -18,7 +18,8 @@ the backward kernel on CUDA, ``cost_volume_backward_plain`` on the CPU.
 ``cost_volume.launches`` counts forward launches and
 ``cost_volume_backward.launches`` backward launches.
 
-Bound: memory, both ways (see the source notes in ``csrc/``).
+What bounds each kernel on the card differs with d: bytes at d=4,
+fp32 operations at d=10 (see the source notes in ``csrc/``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from ocflow_torch.ops.cost_volume import cost_volume as cost_volume_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FORWARD_DISPLACEMENTS = (4, 10)   # csrc/cost_volume.cu
-BACKWARD_DISPLACEMENTS = (4,)     # csrc/cost_volume_bwd.cu
+BACKWARD_DISPLACEMENTS = (4, 10)  # csrc/cost_volume_bwd.cu
 
 
 def _fn(name: str, symbol: str, n_ptr: int):
@@ -79,10 +80,10 @@ def _forward(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int) -> torch
 
 def cost_volume_backward_plain(f1: torch.Tensor, f2: torch.Tensor,
                                g: torch.Tensor, max_displacement: int = 4):
-    """Plain version of the backward (port of ``_bwd_xla_mirror``): 81
-    shifted products each for ``df1`` and ``df2``, fp32 accumulation (fp64
-    for fp64 input), returned in the input dtype. ``g``: ``[B, (2d+1)^2, H,
-    W]``."""
+    """Plain version of the backward (port of ``_bwd_xla_mirror``):
+    (2d+1)^2 shifted products each for ``df1`` and ``df2``, fp32
+    accumulation (fp64 for fp64 input), returned in the input dtype.
+    ``g``: ``[B, (2d+1)^2, H, W]``."""
     _, c, h, w = f1.shape
     d = max_displacement
     n = 2 * d + 1

@@ -199,18 +199,20 @@ def test_fp32_forward_pins_cudnn_convolutions_to_fp32(monkeypatch):
 
 
 def test_kernel_wrappers_check_the_displacement_before_launching():
-    """Off the CPU the forward takes d = 4 or 10 and the backward d = 4,
-    each with its own message (meta tensors reach the checks without a
-    card; they then fail the device check)."""
+    """Off the CPU the forward and the backward take d = 4 or 10, each
+    refusing another d with its own message (meta tensors reach the checks
+    without a card; they then fail the device check)."""
     f = torch.empty(1, 8, 5, 6, device="meta")
-    g = torch.empty(1, 441, 5, 6, device="meta")
     with pytest.raises(ValueError, match=r"forward kernel is built for d in \(4, 10\), got d=7"):
         cv_mod.cost_volume(f, f, 7)
+    with pytest.raises(ValueError, match=r"backward kernel is built for d in \(4, 10\), got d=7"):
+        cv_mod.cost_volume_backward(f, f, torch.empty(1, 225, 5, 6, device="meta"), 7)
     for d in (4, 10):
+        g = torch.empty(1, (2 * d + 1) ** 2, 5, 6, device="meta")
         with pytest.raises(ValueError, match="unsupported devices"):
             cv_mod.cost_volume(f, f, d)
-    with pytest.raises(ValueError, match=r"backward kernel is built for d in \(4,\), got d=10"):
-        cv_mod.cost_volume_backward(f, f, g, 10)
+        with pytest.raises(ValueError, match="unsupported devices"):
+            cv_mod.cost_volume_backward(f, f, g, d)
 
 
 def test_bench_flownetc_measures_on_cpu_and_refuses_other_modes():

@@ -93,14 +93,24 @@ def _cases(rng):
            [rng.normal(size=(16,)) for _ in specs], specs)
 
 
+# the five FlowNetCV pyramid levels at B=8 448x1024 (L6..L2)
+FLOWNETCV_LEVELS = [(8, 196, 7, 16), (8, 128, 14, 32), (8, 96, 28, 64),
+                    (8, 64, 56, 128), (8, 32, 112, 256)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cost_volume_kernel_matches_plain(cuda_device, dtype):
+@pytest.mark.parametrize("shape", [(2, 40, 13, 70), *FLOWNETCV_LEVELS])
+def test_cost_volume_kernel_matches_plain(cuda_device, shape, dtype):
+    """The d=4 kernel: a ragged shape (W not a multiple of 16 bytes, so the
+    staging reads one element at a time; C not a multiple of the chunk)
+    and the five FlowNetCV levels."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    f1, f2 = (torch.randn(2, 40, 13, 70, device=cuda_device, generator=gen)
+    f1, f2 = (torch.randn(*shape, device=cuda_device, generator=gen)
               .to(dtype) for _ in range(2))
     got = cv_mod.cost_volume(f1, f2, 4)
     torch.cuda.synchronize()
-    assert got.shape == (2, 81, 13, 70) and got.dtype == dtype
+    b, _, h, w = shape
+    assert got.shape == (b, 81, h, w) and got.dtype == dtype
     _close(got, cv_mod.cost_volume_plain(f1, f2, 4), dtype)
 
 
@@ -125,8 +135,8 @@ def test_cost_volume_kernel_rejects_other_displacements(cuda_device):
     g = torch.randn(1, 441, 9, 70, device=cuda_device)
     with pytest.raises(ValueError, match="d=7"):
         cv_mod.cost_volume(f, f, 7)
-    with pytest.raises(ValueError, match="d=10"):
-        cv_mod.cost_volume_backward(f, f, g, 10)
+    with pytest.raises(ValueError, match="d=7"):
+        cv_mod.cost_volume_backward(f, f, torch.randn(1, 225, 9, 70, device=cuda_device), 7)
 
 
 @pytest.mark.parametrize("cls", [FlowNetC, OcclusionNetC, FlowOccNetC])
@@ -339,17 +349,39 @@ def test_fast_apply_q8_on_gpu_goes_through_the_kernels(cuda_device):
         assert (f - r).abs().max().item() <= 0.15 * r.abs().max().item()
 
 
+def _cv_backward_inputs(device, shape, d, dtype, seed=4):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f1, f2 = (torch.randn(*shape, device=device, generator=gen).to(dtype)
+              for _ in range(2))
+    b, _, h, w = shape
+    g = torch.randn(b, (2 * d + 1) ** 2, h, w, device=device, generator=gen).to(dtype)
+    return f1, f2, g
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cost_volume_backward_kernel_matches_plain(cuda_device, dtype):
-    gen = torch.Generator(device=cuda_device).manual_seed(4)
-    f1, f2 = (torch.randn(2, 40, 13, 70, device=cuda_device, generator=gen)
-              .to(dtype) for _ in range(2))
-    g = torch.randn(2, 81, 13, 70, device=cuda_device, generator=gen).to(dtype)
-    got = cv_mod.cost_volume_backward(f1, f2, g, 4)
+@pytest.mark.parametrize("shape", [(2, 40, 13, 70), (1, 8, 9, 70), (2, 20, 33, 40),
+                                   (8, 256, 56, 128)])
+@pytest.mark.parametrize("d", [4, 10])
+def test_cost_volume_backward_kernel_matches_plain(cuda_device, d, shape, dtype):
+    """Both displacements: H under 2d+1 (9 rows), W not a multiple of the
+    32-column strip or of 16 bytes (70), C not a multiple of the 32-channel
+    group (40, 20, 8), and the FlowNetC family's shape."""
+    f1, f2, g = _cv_backward_inputs(cuda_device, shape, d, dtype)
+    got = cv_mod.cost_volume_backward(f1, f2, g, d)
     torch.cuda.synchronize()
-    for a, b in zip(got, cv_mod.cost_volume_backward_plain(f1, f2, g, 4)):
+    for a, b in zip(got, cv_mod.cost_volume_backward_plain(f1, f2, g, d)):
         assert a.shape == f1.shape and a.dtype == dtype
         _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("d", [4, 10])
+def test_cost_volume_backward_kernel_is_deterministic(cuda_device, d):
+    """Gather form, no atomics: two calls give the same bits."""
+    f1, f2, g = _cv_backward_inputs(cuda_device, (2, 40, 13, 70), d, torch.float32)
+    first = cv_mod.cost_volume_backward(f1, f2, g, d)
+    second = cv_mod.cost_volume_backward(f1, f2, g, d)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_conv_group_diff_grads_on_gpu(cuda_device):

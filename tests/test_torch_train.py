@@ -54,27 +54,33 @@ def _rel(got, want):
 
 # -- cost-volume VJP --------------------------------------------------------
 
-def test_cost_volume_backward_plain_matches_jax():
+@pytest.mark.parametrize("d, shape", [(4, (2, 8, 128, 16)), (10, (2, 12, 40, 24)),
+                                      (10, (2, 13, 20, 13))])
+def test_cost_volume_backward_plain_matches_jax(d, shape):
     """The port's plain backward == ``cost_volume_kernel._bwd`` (the XLA
-    mirror), at the case of tests/test_ops_cost_volume.py:68, atol 2e-3 as
-    there."""
+    mirror), NHWC inputs: at d=4 the case of tests/test_ops_cost_volume.py:68;
+    at d=10 (441 shifts) with H under 2d+1 = 21, W not a multiple of the
+    kernel's 32-column strip, and C a multiple of its 8-channel thread set
+    (24) and not (13). atol 2e-3 as there."""
     rng = np.random.default_rng(42)
-    f1 = rng.standard_normal((2, 8, 128, 16)).astype(np.float32)
-    f2 = rng.standard_normal((2, 8, 128, 16)).astype(np.float32)
-    g = rng.standard_normal((2, 8, 128, 81)).astype(np.float32)
-    want = jcv._bwd(4, (jnp.asarray(f1), jnp.asarray(f2)), jnp.asarray(g))
-    got = cost_volume_backward_plain(_nchw(f1), _nchw(f2), _nchw(g), 4)
+    f1 = rng.standard_normal(shape).astype(np.float32)
+    f2 = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal((*shape[:3], (2 * d + 1) ** 2)).astype(np.float32)
+    want = jcv._bwd(d, (jnp.asarray(f1), jnp.asarray(f2)), jnp.asarray(g))
+    got = cost_volume_backward_plain(_nchw(f1), _nchw(f2), _nchw(g), d)
     for gt, wt in zip(got, want):
         np.testing.assert_allclose(_nhwc(gt), np.asarray(wt), atol=2e-3)
 
 
-def test_cost_volume_gradcheck():
+@pytest.mark.parametrize("d", [4, 10])
+def test_cost_volume_gradcheck(d):
     """The differentiable cost volume's backward is the adjoint of its
-    forward (float64, finite differences)."""
+    forward (float64, finite differences); at d=10 most of the 441 shifts
+    read the zero padding of the 5x6 map."""
     gen = torch.Generator().manual_seed(0)
     f1, f2 = (torch.randn(1, 3, 5, 6, dtype=torch.float64, generator=gen,
                           requires_grad=True) for _ in range(2))
-    assert torch.autograd.gradcheck(lambda a, b: cost_volume(a, b, 4), (f1, f2),
+    assert torch.autograd.gradcheck(lambda a, b: cost_volume(a, b, d), (f1, f2),
                                     fast_mode=True)
 
 
