@@ -61,7 +61,20 @@ Phases (any failure raises and exits non-zero):
    backward launch) against the gradient with the plain backward on the
    same forward (cuDNN's deterministic algorithms in both), its d=10
    backward call replayed against its plain version in fp32 and cast to
-   bf16, and timed beside its bound.
+   bf16, and timed beside its bound;
+10. the training system on ``configs/longrun_synthetic.yaml`` at full width
+   (448x1024, B=8), cut to 44 samples (35 / 4 / 5), 2 epochs, every step
+   logged and panels every epoch, outputs in a temporary directory:
+   ``SyntheticFlowWarp`` generated on the card against the same samples on
+   the CPU (1e-4) and its ms per sample; the device cache's bytes and
+   dtypes; ``make_loaders`` + ``fit`` with the launches of one train step
+   counted (10 cost volumes, 5 backward, 72 conv launches of which 31
+   ``conv_group_diff``, all staged, no int8) and of one eval step; the
+   CSV's rows and finite losses; the PNG panels decoded with zlib and
+   equal to the panels; the best checkpoint restored into a fresh model
+   and Adam, bit for bit, and ``evaluate`` on it against the in-memory
+   state (1e-6 relative); the loop's ms per step (CUDA events) beside
+   ``bench.measure_train``'s on a batch of the loader.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -144,6 +157,25 @@ TRAIN_PARAM_ATOL = 5e-4
 # through a random-weight network (0.122 measured on the H100; per tensor
 # median 0.21, up to 0.93 on tensors whose gradient is near zero)
 TRAIN_BF16_REL_L2 = 0.2
+
+# phase 10: the fit loop's cuts of configs/longrun_synthetic.yaml (full
+# width: 448x1024, B=8): 44 samples split 35 / 4 / 5, so 4 train steps per
+# epoch, a ragged val batch of 4 and a ragged test batch of 5
+FIT_CUTS = {"dataset_size": 44, "max_epochs": 2, "log_every_n_steps": 1,
+            "log_image_every_epoch": 1}
+# cuda samples vs the same samples generated on the CPU by the port: the
+# blur's and the remap's summation order (the port vs OpenCV on the CPU
+# reads <= 1e-5)
+FIT_DATA_TOL = {"images": 1e-4, "flow": 1e-4}
+# a train step's launches (PERF.md §3): cost volume 10, its backward 5, 72
+# bf16 conv launches all staged (31 conv_group_diff + 41 of the backward
+# decode), no int8
+FIT_STEP_LAUNCHES = {"cost_volume": 10, "cost_volume_bwd": 5, "conv_group": 72,
+                     "conv_group_diff": 31, "conv_group_q8": 0, "gemm_probe": 0,
+                     "conv_group_staged": 72, "conv_group_q8_staged": 0}
+# evaluate on the restored state vs the in-memory state, per metric,
+# relative: the same weights; the range map's index_add_ adds with atomics
+FIT_EVAL_REL = 1e-6
 
 
 # kernels with no single PyTorch call computing the same function
@@ -445,21 +477,34 @@ def _counters():
             "conv_group_q8": conv_chain_q8.conv_group_q8, "gemm_probe": gemm.gemm}
 
 
-def _count_launches(run):
-    """``run()`` with every launch counter zeroed just before; the counts
-    just after (``conv_group_staged``, ``conv_group_q8_staged``: the conv
-    launches on the staged bf16 and int8 kernels), and ``run()``'s result."""
+STAGED = ("conv_group", "conv_group_q8")  # wrappers that count staged launches too
+
+
+def _zero_counts():
     counters = _counters()
-    staged = ("conv_group", "conv_group_q8")
     for fn in counters.values():
         fn.launches = 0
-    for k in staged:
+    for k in STAGED:
         counters[k].staged_launches = 0
+
+
+def _read_counts():
+    """Every launch counter now, with ``conv_group_staged`` and
+    ``conv_group_q8_staged`` (the conv launches on the staged bf16 and int8
+    kernels)."""
+    counters = _counters()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    counts.update({f"{k}_staged": counters[k].staged_launches for k in STAGED})
+    return counts
+
+
+def _count_launches(run):
+    """``run()`` with every launch counter zeroed just before; the counts
+    just after, and ``run()``'s result."""
+    _zero_counts()
     out = run()
     torch.cuda.synchronize()
-    counts = {k: fn.launches for k, fn in counters.items()}
-    counts.update({f"{k}_staged": counters[k].staged_launches for k in staged})
-    return counts, out
+    return _read_counts(), out
 
 
 def _rate(flops, ms, bound_ms):
@@ -892,6 +937,275 @@ def _flownetc_phase(card, tf32_defaults):
     return launches, d10, d10_bwd
 
 
+def _png_pixels(path):
+    """A PNG file of the port's writer (8-bit RGB, filter 0 on every row)
+    decoded with zlib: uint8 ``[H, W, 3]``."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if crc != zlib.crc32(kind + body) & 0xFFFFFFFF:
+            raise AssertionError(f"{path}: bad CRC in {kind}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, colour = header[:4]
+    if (depth, colour) != (8, 2):
+        raise AssertionError(f"{path}: depth {depth}, colour type {colour}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def _fit_phase(card):
+    """The training system (``make_loaders`` + ``fit`` + ``evaluate`` and a
+    checkpoint restore) on ``configs/longrun_synthetic.yaml`` at full width
+    with ``FIT_CUTS``, outputs in a temporary directory: the dataset
+    generated on the card against the CPU, the device cache's bytes, the
+    launches of one train and one eval step of ``fit``, the CSV, the
+    panels, the checkpoint round trip, the loop's ms per step beside
+    ``bench.measure_train``'s. Returns the launch counts of that train step
+    (``fit``) and eval step (``fit_eval``)."""
+    import math
+    import os
+    import tempfile
+
+    from ocflow_torch.bench import measure_train
+    from ocflow_torch.data import SyntheticFlowWarp
+    from ocflow_torch.models.pwc_net import FlowNetCV
+    from ocflow_torch.train import (LONGRUN_SYNTHETIC, config_from_dict, create_train_state,
+                                    loop, make_unsupervised_flow_step)
+    from ocflow_torch.train_unsupervised import viz_fn
+    from ocflow_torch.utils.checkpoint import CheckpointManager, load_state
+
+    dev = torch.device("cuda")
+    print("fit: configs/longrun_synthetic.yaml at full width, cut: " + ", ".join(
+        f"{k} {v} (config {LONGRUN_SYNTHETIC.get(k, 'default 10')})"
+        for k, v in FIT_CUTS.items()))
+    with tempfile.TemporaryDirectory() as out:
+        cfg = config_from_dict({
+            **LONGRUN_SYNTHETIC, **FIT_CUTS, "metrics_csv": f"{out}/metrics.csv",
+            "log_dir": f"{out}/tb", "checkpoint_dir": f"{out}/ckpt", "result_dir": out})
+        h, w = cfg.image_size
+        n = cfg.dataset_size
+        split = (int(0.8 * n), int(0.1 * n), n - int(0.8 * n) - int(0.1 * n))
+
+        # 1. data on the card vs the same samples on the CPU
+        ds = SyntheticFlowWarp(size=n, image_size=(h, w), device=dev)
+        ds_cpu = SyntheticFlowWarp(size=n, image_size=(h, w), device="cpu")
+        for idx in (0, n - 1):
+            got, ref = ds[idx], ds_cpu[idx]
+            for k, tol in FIT_DATA_TOL.items():
+                err = (got[k].cpu() - ref[k]).abs().max().item()
+                print(f"fit data: SyntheticFlowWarp[{idx}] {k} {tuple(got[k].shape)} cuda "
+                      f"vs cpu max_abs_err {err:.3e} (tol {tol})")
+                if not err <= tol or got[k].device.type != "cuda":
+                    raise AssertionError(f"SyntheticFlowWarp[{idx}] {k}: {err} on "
+                                         f"{got[k].device}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for idx in range(8):
+            ds[idx]
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t0) * 1e3 / 8
+        t0 = time.perf_counter()
+        ds_cpu[1]
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        print(f"fit data: SyntheticFlowWarp {h}x{w} generation on the card {gen_ms:.2f} "
+              f"ms/sample (8 samples, host clock to a sync; the numpy draws included), on "
+              f"this host's CPU {cpu_ms:.1f} ms [{card}]")
+        del ds, ds_cpu, got, ref
+
+        # 2. the loaders and the device cache
+        train_loader, val_loader, test_loader = loop.make_loaders(cfg, dev)
+        for name, ld, m in zip(("train", "val", "test"),
+                               (train_loader, val_loader, test_loader), split):
+            want = {"images": (m * h * w * 6 * 2, torch.bfloat16),
+                    "flow": (m * h * w * 2 * 4, torch.float32)}
+            got = {k: (v.numel() * v.element_size(), v.dtype)
+                   for k, v in ld.cache().items()}
+            print(f"fit device cache {name} ({m} samples): {got} (expected {want}; "
+                  f"{sum(b for b, _ in got.values()) / 1e6:.1f} MB)")
+            if got != want or any(v.device.type != "cuda"
+                                  for v in ld.cache().values()):
+                raise AssertionError(f"device cache {name}: {got}")
+
+        # 3. fit, through wrappers of the step functions that count one train
+        # and one eval step's launches, record a CUDA event after each train
+        # step, and keep the state each epoch's checkpoint saves (validation
+        # runs on the state fit then saves)
+        model = FlowNetCV(displacement=cfg.displacement,
+                          generator=torch.Generator().manual_seed(cfg.seed))
+        state = create_train_state(model, cfg.learning_rate, device=dev)
+        train_step, eval_step = make_unsupervised_flow_step(cfg.as_hparams())
+        count_step = 2
+        rec = {"ends": [], "snap": {}, "panels": {}, "epoch": -1}
+        launches = {}
+
+        def train_wrapped(st, batch):
+            before = _read_counts() if st.step == count_step else None
+            st, metrics = train_step(st, batch)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            rec["ends"].append(ev)
+            if before is not None:  # the counters count on the host, at each launch
+                after = _read_counts()
+                launches["fit"] = {k: after[k] - before[k] for k in after}
+            return st, metrics
+
+        def eval_wrapped(st, batch):
+            if st.step not in rec["snap"]:
+                rec["epoch"] += 1
+                rec["snap"][st.step] = (rec["epoch"], {
+                    "step": st.step,
+                    "params": {k: v.clone() for k, v in st.model.state_dict().items()},
+                    "opt_state": copy.deepcopy(st.optimizer.state_dict())})
+            if "fit_eval" in launches:
+                return eval_step(st, batch)
+            before = _read_counts()
+            metrics = eval_step(st, batch)
+            after = _read_counts()
+            launches["fit_eval"] = {k: after[k] - before[k] for k in after}
+            return metrics
+
+        def viz_wrapped(st, batch):
+            panels = viz_fn(st, batch)
+            rec["panels"][rec["epoch"]] = panels
+            return panels
+
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = loop.fit(cfg, state, train_wrapped, eval_wrapped, train_loader, val_loader,
+                         viz_fn=viz_wrapped)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        total = _read_counts()
+        steps_per_epoch = split[0] // cfg.batch_size
+        print(f"fit: {cfg.max_epochs} epochs of {steps_per_epoch} steps in {fit_s:.2f} s "
+              f"wall (caches built before); launches over the whole fit {total}")
+        for path, want in (("fit", FIT_STEP_LAUNCHES), ("fit_eval", None)):
+            print(f"main path {path} (one {'train' if want else 'eval'} step of fit, B="
+                  f"{cfg.batch_size if want else split[1]}) launches: {launches[path]}"
+                  + (f" (expected {want})" if want else ""))
+        if launches["fit"] != FIT_STEP_LAUNCHES:
+            raise AssertionError(f"fit train step launches {launches['fit']}")
+        for k in ("cost_volume", "cost_volume_bwd", "conv_group", "conv_group_diff"):
+            if total[k] == 0:
+                raise AssertionError(f"fit ran no {k} kernel")
+        if launches["fit_eval"]["cost_volume"] == 0 or launches["fit_eval"]["conv_group"] == 0:
+            raise AssertionError(f"eval step launches {launches['fit_eval']}")
+
+        # 4. the run's records: CSV rows, finite losses, panels
+        with open(cfg.metrics_csv) as f:
+            lines = f.read().splitlines()
+        keys = lines[0].split(",")
+        rows = [dict(zip(keys, line.split(","))) for line in lines[1:]]
+        n_train = sum(r["phase"] == "train" for r in rows)
+        n_val = sum(r["phase"] == "val" for r in rows)
+        want_rows = (cfg.max_epochs * steps_per_epoch, cfg.max_epochs)
+        losses = [float(r["loss"]) for r in rows]
+        print(f"fit CSV: {n_train} train rows, {n_val} val rows (expected {want_rows}); "
+              f"losses {losses}")
+        if (n_train, n_val) != want_rows or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"CSV rows {(n_train, n_val)}, losses {losses}")
+        for epoch, panels in rec["panels"].items():
+            for tag, img in panels.items():
+                path = os.path.join(out, f"val_{epoch}", f"{tag}.png")
+                pix = _png_pixels(path)
+                print(f"fit panel val_{epoch}/{tag}.png: {pix.shape}, equal to the "
+                      f"panel: {(pix == img).all()}")
+                if pix.shape != (4 * h, w, 3) or not (pix == img).all():
+                    raise AssertionError(f"{path}: {pix.shape}")
+        if sorted(rec["panels"]) != list(range(cfg.max_epochs)) \
+                or any(sorted(p) != ["flow", "warp"] for p in rec["panels"].values()):
+            raise AssertionError(f"panels {[(e, sorted(p)) for e, p in rec['panels'].items()]}")
+
+        # 5. the checkpoint: restore() into a fresh model and Adam, equal bit
+        # for bit to the state fit saved; evaluate on both
+        mgr = CheckpointManager(cfg.checkpoint_dir)
+        best = mgr.best_step
+        saved = {epoch: snap for epoch, snap in rec["snap"].values()}[best]
+        restored = create_train_state(FlowNetCV(displacement=cfg.displacement),
+                                      cfg.learning_rate, device=dev)
+        load_state(restored, mgr.restore())
+        same_params = all(torch.equal(v, saved["params"][k])
+                          for k, v in restored.model.state_dict().items())
+        opt_r = restored.optimizer.state_dict()
+        same_opt = (opt_r["param_groups"] == saved["opt_state"]["param_groups"]
+                    and all(torch.equal(v, saved["opt_state"]["state"][i][k])
+                            for i, s in opt_r["state"].items() for k, v in s.items()))
+        print(f"fit checkpoint: best epoch {best} of {cfg.max_epochs} (val losses "
+              f"{[float(r['loss']) for r in rows if r['phase'] == 'val']}); restored "
+              f"step {restored.step} (saved {saved['step']}), parameters bit for bit "
+              f"{same_params}, Adam state bit for bit {same_opt}")
+        if not (same_params and same_opt and restored.step == saved["step"]):
+            raise AssertionError("the restored checkpoint differs from the saved state")
+        if best == cfg.max_epochs - 1:
+            in_memory, which = state, "the state fit returned"
+        else:
+            in_memory = create_train_state(FlowNetCV(displacement=cfg.displacement),
+                                           cfg.learning_rate, device=dev)
+            load_state(in_memory, saved)
+            which = f"the state fit held at epoch {best}, kept in memory"
+        t0 = time.perf_counter()
+        m_restored = loop.evaluate(cfg, restored, eval_step, test_loader)
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        m_memory = loop.evaluate(cfg, in_memory, eval_step, test_loader)
+        rel = {k: abs(m_restored[k] - v) / max(abs(v), 1e-30) for k, v in m_memory.items()}
+        print(f"fit evaluate (test split, {split[2]} pairs): restored {m_restored}; "
+              f"{which} {m_memory}; relative difference {rel} (tol {FIT_EVAL_REL})")
+        if set(m_restored) != set(m_memory) or not all(v <= FIT_EVAL_REL
+                                                       for v in rel.values()):
+            raise AssertionError(f"evaluate restored vs in memory: {rel}")
+
+        # 6. timing: what fit does at each epoch's end (a checkpoint save, a
+        # validation pass: here evaluate over the test split, one batch),
+        # then the loop's ms per step from the CUDA events after each
+        # train step (steps 3-8 of the run, leaving out each epoch's first
+        # interval, which holds the validation, the panels and the save), and
+        # bench.measure_train on a batch of the loader, in this process
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CheckpointManager(f"{out}/timing").save(0, state, 0.0)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(CheckpointManager(f"{out}/timing").path(0))
+        print(f"fit epoch end: a checkpoint save {save_ms:.1f} ms ({size / 1e6:.1f} MB), "
+              f"evaluate over {split[2]} pairs in one batch {eval_ms:.1f} ms (host clock) "
+              f"[{card}]")
+        ends = rec["ends"]
+        firsts = set(range(0, len(ends), steps_per_epoch))
+        gaps = [ends[i - 1].elapsed_time(ends[i]) for i in range(2, len(ends))
+                if i not in firsts]
+        loop_ms = sum(gaps) / len(gaps)
+        batch = next(iter(train_loader))
+        bench_state = create_train_state(copy.deepcopy(state.model), cfg.learning_rate,
+                                         device=dev)
+        bench = measure_train(bench_state, train_step, batch)
+        print(f"fit timing: the loop {loop_ms:.3f} ms/step ({cfg.batch_size * 1e3 / loop_ms:.2f} "
+              f"pairs/s; CUDA events between the ends of steps {[i + 1 for i in range(2, len(ends)) if i not in firsts]}, "
+              f"intervals {[round(g, 3) for g in gaps]} ms; a metrics fetch every step), "
+              f"bench.measure_train {bench['ms_per_step']:.3f} ms/step "
+              f"({bench['pairs_per_sec']:.2f} pairs/s; no fetch), loop / bench "
+              f"{loop_ms / bench['ms_per_step']:.3f} [{card}]")
+        del state, bench_state, restored, in_memory, rec, train_loader, val_loader, test_loader
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1138,6 +1452,9 @@ def main() -> int:
     # 9. the FlowNetC family, d=10
     fnetc_launches, d10, d10_bwd = _flownetc_phase(card, tf32_defaults)
     launches.update(fnetc_launches)
+
+    # 10. the training system: loaders, fit, evaluate, a checkpoint restore
+    launches.update(_fit_phase(card))
 
     # per kernel: its source, the TPU kernel it replaces, and the path whose
     # calls its times sum (its "launches" are that path's count)

@@ -13,9 +13,13 @@ modules, the weight and W8A8-scale bridges from the JAX package
 config) over the gradient-carrying pair ``fast_apply_pair`` (the
 differentiable cost volume with its backward kernel, ``conv_group_diff``),
 the losses (``losses``: photometric, census, smoothness, BCE) and the
-range map and occlusion masks (``ops.range_map``); and measurement tools
-(``tools``: the int8 / bf16 GEMM probe, W8A8 accuracy, the training
-step's profile).
+range map and occlusion masks (``ops.range_map``); the training system
+around the step (``python -m ocflow_torch.train_unsupervised``: the
+procedural datasets and loaders with the device cache, ``data``; the fit
+loop, ``train.loop``; checkpoints, panels and the PNG writer, ``utils``;
+flow metrics, ``metrics``); and measurement tools (``tools``: the int8 /
+bf16 GEMM probe, W8A8 accuracy, the training step's profile, the W8A8
+arms' EPE on trained weights).
 
 Layout: the public model entry points take and return NHWC like the JAX
 package; everything inside (ops, kernels, modules) is NCHW.

@@ -2,13 +2,14 @@
 
 ``Config`` carries the keys of the repository's ``configs/*.yaml``;
 ``as_hparams`` gives the dict the step factories read. ``load_config``
-needs PyYAML and imports it only when called; ``LONGRUN_SYNTHETIC`` is
-``configs/longrun_synthetic.yaml`` as a dict, for machines without it.
+reads those files without PyYAML (:func:`parse_flat_yaml`);
+``LONGRUN_SYNTHETIC`` is ``configs/longrun_synthetic.yaml`` as a dict.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional, Tuple
 
 
@@ -86,11 +87,88 @@ class Config:
         return d
 
 
-def load_config(path: str) -> Config:
-    import yaml
+# YAML 1.1 plain-scalar resolution, as PyYAML's SafeLoader resolves the
+# scalars the configs use (a float needs a dot: ``1e-4`` stays a string)
+_BOOL = {s: v for v, words in ((True, "yes Yes YES true True TRUE on On ON"),
+                               (False, "no No NO false False FALSE off Off OFF"))
+         for s in words.split()}
+_NULL = {"", "~", "null", "Null", "NULL"}
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?$"
+                    r"|[-+]?\.[0-9_]+(?:[eE][-+][0-9]+)?$")
+_KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_]*):(?:\s+(.*))?$")
 
+
+def _scalar(text: str, where: str):
+    """One scalar: quoted string, bool, null, int, float or plain string."""
+    if text and text[0] in "\"'":
+        q = text[0]
+        if len(text) < 2 or text[-1] != q or q in text[1:-1] or "\\" in text:
+            raise ValueError(f"{where}: unsupported quoted scalar {text!r}")
+        return text[1:-1]
+    if text in _BOOL:
+        return _BOOL[text]
+    if text in _NULL:
+        return None
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _FLOAT.match(text):
+        return float(text.replace("_", ""))
+    # other numbers (octal, hex, sexagesimal, .inf), YAML indicators, nesting
+    if re.match(r"[-+]?[0-9.]|[\[\]{}&*!|>%@`?,#-]", text) or ": " in text \
+            or text.endswith(":"):
+        raise ValueError(f"{where}: unsupported YAML {text!r}")
+    return text
+
+
+def _strip_comment(line: str) -> str:
+    """``line`` without a trailing `` # ...`` comment (outside quotes)."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def parse_flat_yaml(text: str, name: str = "<config>") -> dict:
+    """The flat YAML subset of ``configs/*.yaml``: one ``key: value`` per
+    line, values plain or quoted scalars or inline lists of them (``[448,
+    1024]``), full-line and trailing ``# ...`` comments. Equal to
+    ``yaml.safe_load`` on those files; anything else (nesting, block lists,
+    flow mappings, anchors, tags, multi-line values, repeated keys) raises
+    ``ValueError``."""
+    out = {}
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw)
+        where = f"{name}:{n}"
+        if not line.strip():
+            continue
+        m = _KEY.match(line)
+        if m is None:
+            raise ValueError(f"{where}: not a flat 'key: value' line: {raw!r}")
+        key, value = m.group(1), (m.group(2) or "").strip()
+        if key in out:
+            raise ValueError(f"{where}: repeated key {key!r}")
+        if value.startswith("["):
+            if not value.endswith("]") or "[" in value[1:] or "]" in value[:-1]:
+                raise ValueError(f"{where}: unsupported list {value!r}")
+            inner = value[1:-1].strip()
+            items = [t.strip() for t in inner.split(",")] if inner else []
+            if any(not t for t in items):
+                raise ValueError(f"{where}: empty list item in {value!r}")
+            out[key] = [_scalar(t, where) for t in items]
+        else:
+            out[key] = _scalar(value, where)
+    return out
+
+
+def load_config(path: str) -> Config:
     with open(path) as f:
-        raw = yaml.safe_load(f) or {}
+        raw = parse_flat_yaml(f.read(), path)
     return config_from_dict(raw)
 
 

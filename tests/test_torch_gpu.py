@@ -457,3 +457,36 @@ def test_train_step_on_gpu_goes_through_the_kernels(cuda_device):
     assert rel(g32, ge) <= 1e-2
     assert abs(m16["loss"] - me["loss"]) <= 1e-2 * me["loss"]
     assert rel(g16, ge) <= 0.2
+
+
+@pytest.mark.parametrize("size,index", [((64, 128), 3), ((448, 1024), 0)])
+def test_synthetic_flow_warp_on_the_card_matches_cpu(cuda_device, size, index):
+    """The dataset generated on the card (cuDNN blur, gathers) against the
+    same sample generated on the CPU: images within 1e-4 abs, flow within
+    1e-4 px (summation order)."""
+    from ocflow_torch.data import SyntheticFlowWarp
+
+    got = SyntheticFlowWarp(size=8, image_size=size, device=cuda_device)[index]
+    ref = SyntheticFlowWarp(size=8, image_size=size, device="cpu")[index]
+    for k in ("images", "flow"):
+        assert got[k].device.type == "cuda" and got[k].dtype == torch.float32
+        assert (got[k].cpu() - ref[k]).abs().max().item() <= 1e-4, k
+
+
+def test_device_cache_loader_serves_cuda_tensors(cuda_device):
+    """The cache is resident on the card (bf16 images, fp32 flow) and every
+    batch is an fp32 gather there, the ragged eval batch kept."""
+    from ocflow_torch.data import DeviceCacheLoader, SyntheticFlowWarp
+
+    ds = SyntheticFlowWarp(size=6, image_size=(64, 128), device=cuda_device)
+    loader = DeviceCacheLoader(ds, batch_size=4, drop_last=False, num_workers=2,
+                               device=cuda_device)
+    cache = loader.cache()
+    assert cache["images"].dtype == torch.bfloat16 and cache["flow"].dtype == torch.float32
+    assert all(v.device.type == "cuda" for v in cache.values())
+    batches = list(loader)
+    assert [b["images"].shape[0] for b in batches] == [4, 2]
+    for b in batches:
+        assert all(v.device.type == "cuda" and v.dtype == torch.float32 for v in b.values())
+    assert torch.equal(batches[1]["flow"][1], cache["flow"][5])
+    assert torch.equal(batches[1]["images"][1], cache["images"][5].float())
