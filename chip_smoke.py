@@ -76,17 +76,50 @@ Phases (any failure raises and exits non-zero):
    state (1e-6 relative); the loop's ms per step (CUDA events) beside
    ``bench.measure_train``'s on a batch of the loader.
 
+11. the file-backed data path and both CLIs at real sizes, from the seed,
+   in a temporary directory: a Sintel tree (2 scenes of 5 frames, 436x1024,
+   ``.flo`` flows, 0/255 occlusion PNGs), a KITTI 2015 tree (3 pairs,
+   375x1242, sparse 16-bit flow PNGs) and a FlyingChairs2 tree (24 pairs,
+   384x512), every PNG written by the port's writer with a seeded mix of
+   the five row filters; frames, masks, ``.flo`` and 16-bit flows read back
+   bit for bit; the host decode's ms per pair (one thread, the loader's 6);
+   ``python -m ocflow_torch.evaluate --task flow --model pwc`` on
+   ``MpiSintelClean`` (384x1024, B=8) and ``KITTI2015`` (320x1216: level 6
+   is 19 wide) and ``--task flow_occ --model flowoccnetc`` on
+   ``MpiSintelFlowOccClean``: each batch's launches (5 cost volumes, or 1
+   at d=10), every cost-volume call replayed against its plain version
+   (fp32, 1e-4 of max|plain|), the EPE and F1 against the same evaluation
+   on the plain cost volume (1e-4 relative); ``evaluate``'s steady pairs/s
+   over 12 batches of 8 (a 96-pair tree of links to the Sintel frames),
+   timed from the second batch on, beside the decode and the warm forward,
+   and the card's busy share there from a ``torch.profiler`` trace;
+   ``python -m ocflow_torch.infer --q8 --save_flo`` on 16 pairs of Sintel
+   frames (links, as above) and on the KITTI frames, pair by pair: each
+   ``.flo`` equal to ``fast_apply``'s flow bit for bit, launches per pair
+   5 / 0 / 24 / 0 / 35, every kernel call of the first pair replayed
+   against its plain version, the W8A8 quarter flow against the eager fp32
+   forward (0.1 of max|flow_quarter|), pairs/s after the first pair; one epoch of ``fit`` on the
+   FlyingChairs2 tree through ``make_loaders`` with ``root`` and the device
+   cache, the first train step's kernel calls replayed (bf16), the second's
+   launches (10 / 5 / 72 / 31 / 0), the test metrics finite.
+
+Phases 6 and 8 hold their references (the eager fp32 forward, the eager
+step) on the plain cost volume; phase 6 also holds the eager forward on the
+cost-volume kernel (5 launches) against it.
+
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -467,6 +500,27 @@ class _PlainBackward(torch.autograd.Function):
         return df1, df2, None, None
 
 
+@contextlib.contextmanager
+def _plain_eager_cost_volume(active: bool = True):
+    """The eager FlowNetCV on the plain cost volume while inside (a
+    reference that does not run the kernel it is held against)."""
+    from ocflow_torch.kernels.cost_volume import cost_volume_plain
+    from ocflow_torch.models import pwc_net
+
+    saved = pwc_net.cost_volume
+    if active:
+        pwc_net.cost_volume = cost_volume_plain
+    try:
+        yield
+    finally:
+        pwc_net.cost_volume = saved
+
+
+def _no_grad(model, x):
+    with torch.no_grad():
+        return model(x)
+
+
 def _counters():
     from ocflow_torch.kernels import conv_chain, conv_chain_q8, cost_volume, gemm
 
@@ -563,7 +617,10 @@ def _train_phase(card, max_err, per, add, failures):
         box = {}
 
         def run():
-            box["metrics"] = step(state, batch)[1]
+            # the eager step (the fused step's reference) on the plain cost
+            # volume, as before the eager FlowNetCV took the kernel
+            with _plain_eager_cost_volume(hp.get("fast_forward") == "off"):
+                box["metrics"] = step(state, batch)[1]
 
         calls, occ = _held_occlusion(
             lambda: _record(targets, run) if record else run(), mask)
@@ -1206,12 +1263,523 @@ def _fit_phase(card):
     return launches
 
 
+# phase 11: the file-backed data path and the serving and eval CLIs, at
+# real sizes: Sintel (2 scenes of 5 frames, 436x1024, cropped to 384x1024 by
+# the floor-64 rule), KITTI 2015 (3 pairs, 375x1242 -> 320x1216: level 6 is
+# 19 wide) and FlyingChairs2 (24 pairs, 384x512), generated from the seed
+FILES_SINTEL = (2, 5, 436, 1024)  # scenes, frames per scene, height, width
+FILES_KITTI = (3, 375, 1242)      # pairs, height, width
+FILES_CHAIRS2 = (24, 384, 512)    # pairs, height, width
+FILES_SEED = 0
+# the steady rates: evaluate over a Sintel tree of 49 frames a scene (96
+# pairs, 12 batches of 8) and infer over a folder of 17 frames (16 pairs),
+# both links to the generated frames, timed after the first batch / pair
+FILES_STEADY_FRAMES = (49, 17)
+# evaluate's EPE and occlusion F1 on the kernels vs on the plain cost
+# volume, relative: the cost volume's summation order through an fp32
+# forward (1e-4 of max|flow| per flow, phase 6), averaged over pixels
+FILES_METRIC_REL = 1e-4
+
+
+def _smooth(rng, h, w, c, lo, hi):
+    """A smooth seeded field ``[h, w, c]`` in ``[lo, hi]``: uniform noise on
+    a grid 16x coarser, bilinearly upsampled (float32)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    coarse = torch.from_numpy(rng.uniform(lo, hi, (1, c, h // 16 + 2, w // 16 + 2))
+                              .astype(np.float32))
+    return F.interpolate(coarse, size=(h, w), mode="bilinear",
+                         align_corners=False)[0].permute(1, 2, 0).numpy()
+
+
+def _write_trees(root):
+    """The three trees under ``root``, written by the port's own writers
+    (every PNG with a seeded mix of the five row filters, so the decoder's
+    unfiltering of each type runs). Returns ``{tree: path}`` and what was
+    written of each file kind, to read back."""
+    import os
+
+    import numpy as np
+
+    from ocflow_torch.data import write_flo
+    from ocflow_torch.utils.png import write_png
+
+    rng = np.random.default_rng(FILES_SEED)
+    frame = lambda h, w: _smooth(rng, h, w, 3, 0, 255).round().astype(np.uint8)  # noqa: E731
+    filters = lambda h: rng.integers(0, 5, h)  # noqa: E731
+    written = {}
+    sintel = os.path.join(root, "sintel")
+    scenes, frames, h, w = FILES_SINTEL
+    for s in range(scenes):
+        for sub in ("clean", "flow", "occlusions"):
+            os.makedirs(os.path.join(sintel, sub, f"scene_{s}"))
+        for f in range(1, frames + 1):
+            img = frame(h, w)
+            path = os.path.join(sintel, "clean", f"scene_{s}", f"frame_{f:04d}.png")
+            write_png(path, img, filters(h))
+            written.setdefault("frame", (path, img))
+            if f == frames:
+                continue
+            flow = _smooth(rng, h, w, 2, -20, 20)
+            path = os.path.join(sintel, "flow", f"scene_{s}", f"frame_{f:04d}.flo")
+            write_flo(path, flow)
+            written.setdefault("flo", (path, flow))
+            occ = (_smooth(rng, h, w, 1, 0, 1) > 0.7).astype(np.uint8) * 255
+            path = os.path.join(sintel, "occlusions", f"scene_{s}", f"frame_{f:04d}.png")
+            write_png(path, occ, filters(h))
+            written.setdefault("occ", (path, occ))
+    kitti = os.path.join(root, "kitti")
+    n, h, w = FILES_KITTI
+    for sub in ("image_2", "flow_occ"):
+        os.makedirs(os.path.join(kitti, sub))
+    for i in range(n):
+        for suffix in ("10", "11"):
+            write_png(os.path.join(kitti, "image_2", f"{i:06d}_{suffix}.png"), frame(h, w),
+                      filters(h))
+        flow = _smooth(rng, h, w, 2, -40, 40)
+        raw = np.empty((h, w, 3), np.uint16)
+        raw[..., :2] = np.clip(flow * 64.0 + 2 ** 15, 0, 65535).astype(np.uint16)
+        raw[..., 2] = rng.uniform(size=(h, w)) > 0.3  # sparse: ~70% valid
+        path = os.path.join(kitti, "flow_occ", f"{i:06d}_10.png")
+        write_png(path, raw, filters(h))
+        written.setdefault("kitti_flow", (path, raw))
+    chairs2 = os.path.join(root, "chairs2")
+    os.makedirs(chairs2)
+    n, h, w = FILES_CHAIRS2
+    for i in range(n):
+        for k in (1, 2):
+            write_png(os.path.join(chairs2, f"{i:05d}-img_{k}.png"), frame(h, w), filters(h))
+        write_flo(os.path.join(chairs2, f"{i:05d}-flow_01.flo"), _smooth(rng, h, w, 2, -10, 10))
+        write_png(os.path.join(chairs2, f"{i:05d}-occ_01.png"),
+                  (_smooth(rng, h, w, 1, 0, 1) > 0.7).astype(np.uint8) * 255, filters(h))
+    return {"sintel": sintel, "kitti": kitti, "chairs2": chairs2}, written
+
+
+def _linked_sintel(sintel, dst, frames):
+    """A Sintel tree of ``frames`` frames a scene, each file a link, in
+    turn, to a frame or ``.flo`` of ``sintel``: the decode work of as many
+    real files, written in no time."""
+    import os
+
+    scenes, n = FILES_SINTEL[:2]
+    for s in range(scenes):
+        for sub, ext, k, m in (("clean", "png", n, frames), ("flow", "flo", n - 1, frames - 1)):
+            os.makedirs(os.path.join(dst, sub, f"scene_{s}"))
+            for f in range(m):
+                os.symlink(os.path.join(sintel, sub, f"scene_{s}", f"frame_{f % k + 1:04d}.{ext}"),
+                           os.path.join(dst, sub, f"scene_{s}", f"frame_{f + 1:04d}.{ext}"))
+    return dst
+
+
+def _busy_share(prof, mark):
+    """The card's busy share in a ``torch.profiler`` trace: the union of
+    its kernels and copies from the start of the host's second ``mark``
+    range to the last of them, over that window; and the window in ms.
+    (The trace also holds each ``mark`` range on the device's timeline:
+    not work, so left out of both.)"""
+    on_card = lambda e: str(getattr(e, "device_type", "")).endswith("CUDA")  # noqa: E731
+    evs = prof.events()
+    starts = sorted(e.time_range.start for e in evs if e.name == mark and not on_card(e))
+    dev = sorted((e.time_range.start, e.time_range.end) for e in evs
+                 if on_card(e) and e.name != mark)
+    if len(starts) < 2 or not dev:
+        raise AssertionError(f"profiler trace: {len(starts)} {mark!r} ranges, "
+                             f"{len(dev)} device events")
+    t0, t1 = starts[1], max(end for _, end in dev)
+    busy, at = 0.0, t0
+    for a, b in dev:
+        a, b = max(a, at), min(b, t1)
+        if b > a:
+            busy += b - a
+            at = b
+    return busy / (t1 - t0), (t1 - t0) / 1e3
+
+
+class _Timed:
+    """Wraps a module-level function: per call, the launch counts of that
+    call (every counter zeroed at its start), CUDA events around it, its
+    host start time and, with ``keep``, its arguments and result."""
+
+    def __init__(self, module, name, fn=None, keep=False):
+        self.module, self.name, self.keep = module, name, keep
+        self.saved = getattr(module, name)
+        self.fn = fn or self.saved
+        self.counts, self.events, self.starts, self.calls = [], [], [], []
+
+    def __call__(self, *args, **kwargs):
+        self.starts.append(time.perf_counter())
+        _zero_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = self.fn(*args, **kwargs)
+        end.record()
+        self.counts.append(_read_counts())
+        self.events.append((start, end))
+        if self.keep:
+            self.calls.append((args, kwargs, out))
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+    def span_ms(self, first: int = 0) -> float:
+        """The CUDA-event spans of the calls from ``first`` on, summed: the
+        card's work in them and its idle gaps inside them."""
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events[first:])
+
+
+def _files_phase(card, max_err):
+    """The file-backed data path and both CLIs on the card (see the module
+    docstring, phase 11). Returns the launch counts per evaluate batch, per
+    infer pair and of one train step of ``fit`` on FlyingChairs2."""
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from ocflow_torch import evaluate, infer
+    from ocflow_torch.bench import cuda_ms
+    from ocflow_torch.data import (DataLoader, build_dataset, native_io, read_flo, read_gen,
+                                   read_kitti_png_flow, write_flo)
+    from ocflow_torch.kernels import cost_volume as cv_mod
+    from ocflow_torch.models import flow_net_s as fns
+    from ocflow_torch.models import pwc_fast, pwc_net
+    from ocflow_torch.models.pwc_net import FlowNetCV
+    from ocflow_torch.tools.q8_error import flow_errors
+    from ocflow_torch.train import (LONGRUN_SYNTHETIC, config_from_dict, create_train_state,
+                                    loop, make_unsupervised_flow_step)
+    from ocflow_torch.train_unsupervised import viz_fn
+    from ocflow_torch.utils.png import encode_png
+    from ocflow_torch.utils.viz import flow_to_image
+
+    dev = torch.device("cuda")
+    launches, warm_ms = {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        # 1. the trees, 2. read back bit for bit
+        t0 = time.perf_counter()
+        trees, written = _write_trees(out)
+        print(f"files: wrote the Sintel ({FILES_SINTEL}), KITTI ({FILES_KITTI}) and "
+              f"FlyingChairs2 ({FILES_CHAIRS2}) trees in {time.perf_counter() - t0:.2f} s "
+              f"(host)")
+        path, img = written["frame"]
+        path_o, occ = written["occ"]
+        path_f, flow = written["flo"]
+        path_k, raw = written["kitti_flow"]
+        kflow = read_kitti_png_flow(path_k)
+        checks = {
+            "frame": np.array_equal(read_gen(path), img),
+            "occlusion": np.array_equal(read_gen(path_o), occ),
+            ".flo": np.array_equal(read_flo(path_f), flow),
+            "kitti 16-bit": (np.array_equal(kflow[..., 0], (raw[..., 0] - 2.0 ** 15) / 64.0)
+                             and np.array_equal(kflow[..., 1], (raw[..., 1] - 2.0 ** 15) / 64.0)
+                             and np.array_equal(kflow[..., 2], raw[..., 2]))}
+        print(f"files IO: read back bit for bit {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"file IO round trip {checks}")
+
+        # host decode per pair: one thread, then the loader's 6
+        ds = build_dataset("MpiSintelClean", root=trees["sintel"])
+        pair = ds.image_list[0]
+        th, tw = sintel_hw = ds.render_size
+        t0 = time.perf_counter()
+        for p in ds.image_list:
+            native_io.read_pair_norm(*p, th, tw)
+        dec_ms = (time.perf_counter() - t0) * 1e3 / len(ds)
+        with ThreadPoolExecutor(6) as pool:
+            list(pool.map(lambda p: native_io.read_pair_norm(*p, th, tw), ds.image_list))
+            t0 = time.perf_counter()
+            for _ in range(3):
+                list(pool.map(lambda p: native_io.read_pair_norm(*p, th, tw), ds.image_list))
+            dec6_ms = (time.perf_counter() - t0) * 1e3 / (3 * len(ds))
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds[i]
+        sample_ms = (time.perf_counter() - t0) * 1e3 / len(ds)
+        loader = DataLoader(ds, len(ds), num_workers=6, drop_last=False)
+        t0 = time.perf_counter()
+        batch = next(iter(loader))
+        loader_ms = (time.perf_counter() - t0) * 1e3 / len(ds)
+        print(f"files decode: Sintel {FILES_SINTEL[2]}x{FILES_SINTEL[3]} -> {th}x{tw}, "
+              f"{len(ds)} pairs ({os.path.getsize(pair[0])} B a frame): the fused decode "
+              f"of a PNG pair {dec_ms:.2f} ms on one thread, {dec6_ms:.2f} ms per pair on 6 "
+              f"threads (warm pool, 3 passes); a sample with its .flo {sample_ms:.2f} ms "
+              f"(one thread); a batch of all {len(ds)} through the loader's 6 threads, "
+              f"stacked, {loader_ms:.2f} ms per pair (host clock; {os.cpu_count()} CPUs) "
+              f"[{card}]")
+        if tuple(batch["images"].shape) != (len(ds), th, tw, 6):
+            raise AssertionError(f"Sintel batch {batch['images'].shape}")
+        del batch, loader
+
+        # 3. evaluate --task flow --model pwc on Sintel and KITTI: on the
+        # kernels (calls recorded, launches counted per batch), then on the
+        # plain cost volume
+        def run_eval(argv, fn_module, plain):
+            """evaluate.main: its result, its cost-volume calls (the kernel
+            run), its forwards' counts and events, its wall ms."""
+            box = {}
+            with _Timed(evaluate, "predict", keep=not plain) as timed:
+                t0 = time.perf_counter()
+                if plain:
+                    saved = fn_module.cost_volume
+                    fn_module.cost_volume = cv_mod.cost_volume_plain
+                    try:
+                        box["res"] = evaluate.main(argv)
+                    finally:
+                        fn_module.cost_volume = saved
+                    calls = None
+                else:
+                    calls = _record([(fn_module, "cost_volume")], lambda: box.update(
+                        res=evaluate.main(argv)))
+                return box["res"], calls, timed, (time.perf_counter() - t0) * 1e3
+
+        runs = [("evaluate_sintel", "MpiSintelClean", trees["sintel"], "flow", "pwc", pwc_net),
+                ("evaluate_kitti", "KITTI2015", trees["kitti"], "flow", "pwc", pwc_net),
+                ("evaluate_flowoccnetc", "MpiSintelFlowOccClean", trees["sintel"],
+                 "flow_occ", "flowoccnetc", fns)]
+        for path_name, name, root, task, model_key, fn_module in runs:
+            argv = ["--task", task, "--model", model_key, "--dataset", name, "--root", root,
+                    "--batch_size", "8"]
+            got, calls, timed, wall = run_eval(argv, fn_module, plain=False)
+            ref, _, _, _ = run_eval(argv, fn_module, plain=True)
+            n = len(build_dataset(name, root=root))
+            d = 10 if model_key == "flowoccnetc" else 4
+            # the first batch's forward again, warm: what the card needs per batch
+            (model, x), _, _ = timed.calls[0]
+            fwd_ms = cuda_ms(lambda: evaluate.predict(model, x), 3)  # noqa: B023
+            del model, x, timed.calls[:]
+            for k, (_, args) in enumerate(calls):
+                _check_float("cost_volume", args, torch.float32, max_err,
+                             f"{path_name} d={d} call {k} ")
+            expect = {k: 0 for k in timed.counts[0]}
+            expect["cost_volume"] = 1 if d == 10 else 5
+            launches[path_name] = timed.counts[0]
+            warm_ms[path_name] = fwd_ms
+            span = timed.span_ms()
+            rel = {k: abs(got[k] - v) / max(abs(v), 1e-30) for k, v in ref.items()}
+            shape = tuple(calls[0][1][0].shape) if calls else None
+            print(f"main path {path_name} ({name}, {n} pairs, batches "
+                  f"{[c['cost_volume'] for c in timed.counts]} cost volumes each) launches "
+                  f"per batch: {timed.counts} (expected {expect} each)")
+            print(f"e2e {path_name}: {got} on the kernels, {ref} on the plain cost volume, "
+                  f"relative {rel} (tol {FILES_METRIC_REL}); {n} pairs in {wall:.1f} ms wall "
+                  f"({n * 1e3 / wall:.2f} pairs/s end to end, the model's build and the cold "
+                  f"first forward included), the forwards' CUDA-event span {span:.1f} ms "
+                  f"({100 * span / wall:.1f}% of the wall; idle gaps inside counted); the "
+                  f"same forward warm {fwd_ms:.2f} ms per "
+                  f"batch of {len(calls and calls[0][1][0]) or 0}); the first cost volume "
+                  f"{shape} [{card}]")
+            if any(c != expect for c in timed.counts) or len(calls) != len(timed.counts) * \
+                    expect["cost_volume"]:
+                raise AssertionError(f"{path_name} launches {timed.counts}")
+            if set(got) != set(ref) or not all(v <= FILES_METRIC_REL for v in rel.values()) \
+                    or not all(math.isfinite(v) for v in got.values()):
+                raise AssertionError(f"{path_name}: {got} vs {ref}")
+            if task == "flow_occ" and "occlusion_f1" not in got:
+                raise AssertionError(f"{path_name}: no occlusion F1")
+            # KITTI's crop 1216 wide: levels 19, 38, 76, 152, 304 wide
+            tw = FILES_KITTI[2] // 64 * 64
+            if model_key == "pwc" and name.startswith("KITTI") and sorted(
+                    {a[0].shape[-1] for _, a in calls}) != [tw >> k for k in (6, 5, 4, 3, 2)]:
+                raise AssertionError(f"KITTI widths {[a[0].shape for _, a in calls]}")
+            del calls
+
+        # evaluate's steady rate: 12 batches of 8 from a tree of links,
+        # timed from the second batch's forward to the end (the model's
+        # build and the cold first batch left out), then again under
+        # torch.profiler for the card's busy share in that window
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        from ocflow_torch.models import predict
+
+        def marked(model, x):
+            with record_function("evaluate.predict"):
+                return predict(model, x)
+
+        root = _linked_sintel(trees["sintel"], os.path.join(out, "sintel_steady"),
+                              FILES_STEADY_FRAMES[0])
+        argv = ["--task", "flow", "--model", "pwc", "--dataset", "MpiSintelClean", "--root",
+                root, "--batch_size", "8"]
+        n = len(build_dataset("MpiSintelClean", root=root))
+        rates = []
+        for traced in (False, True):
+            with _Timed(evaluate, "predict", fn=marked) as timed, (
+                    profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    if traced else contextlib.nullcontext()) as prof:
+                res = evaluate.main(argv)
+                t_end = time.perf_counter()
+            window = (t_end - timed.starts[1]) * 1e3
+            rates.append((n - 8) * 1e3 / window)
+            if not traced:
+                per_batch, span = window / (len(timed.starts) - 1), timed.span_ms(1)
+                batches, first_ms = len(timed.starts), (timed.starts[1] - timed.starts[0]) * 1e3
+        busy, traced_ms = _busy_share(prof, "evaluate.predict")
+        print(f"e2e evaluate_steady (MpiSintelClean, {n} pairs of {sintel_hw}, {batches} "
+              f"batches of 8): {rates[0]:.2f} pairs/s from the second batch's forward to "
+              f"the end ({per_batch:.1f} ms a batch; the first batch {first_ms:.1f} ms); "
+              f"beside it the decode of 8 pairs on 6 threads {8 * dec6_ms:.1f} ms and the "
+              f"warm forward {warm_ms['evaluate_sintel']:.2f} ms a batch; the forwards' "
+              f"CUDA-event span {100 * span / window:.1f}% of the window (idle gaps inside "
+              f"counted); under torch.profiler {rates[1]:.2f} pairs/s, the card busy "
+              f"{100 * busy:.1f}% of {traced_ms:.1f} ms (kernels and copies, union); epe "
+              f"{res['epe']:.4f} [{card}]")
+        if not (batches == n // 8 and all(math.isfinite(r) and r > 0 for r in rates)
+                and 0 < busy <= 1 and math.isfinite(res["epe"])):
+            raise AssertionError(f"evaluate_steady: {batches} batches, {rates}, busy {busy}")
+        del prof, timed
+
+        # 5. infer --q8 --save_flo pair by pair on Sintel and KITTI frames
+        targets = [(pwc_fast, n) for n in ("cost_volume", "conv_group", "conv_group_q8")]
+        linked = _linked_sintel(trees["sintel"], os.path.join(out, "sintel_infer"),
+                                FILES_STEADY_FRAMES[1])
+        for path_name, frames in (("infer_q8", os.path.join(linked, "clean", "scene_0")),
+                                  ("infer_q8_kitti", os.path.join(trees["kitti"], "image_2"))):
+            dst = os.path.join(out, path_name)
+            first = {}
+
+            def fast(model, x, q8=None, device=None):
+                if not first:  # the first pair: every kernel call recorded
+                    first["calls"] = _record(targets, lambda: first.update(
+                        out=pwc_fast.fast_apply(model, x, q8=q8, device=device)))
+                    first.update(model=model, x=x, q8=q8)
+                    return first["out"]
+                return pwc_fast.fast_apply(model, x, q8=q8, device=device)
+
+            with _Timed(infer, "fast_apply", fn=fast, keep=True) as timed:
+                t0 = time.perf_counter()
+                paths = infer.main(["--input", frames, "--output", dst, "--save_flo", "--q8"])
+                wall = (time.perf_counter() - t0) * 1e3
+            n = len(timed.calls)
+            for kind, args in first["calls"]:
+                if kind == "conv_group_q8":
+                    _check_q8(args, max_err, f"{path_name} ")
+                else:
+                    _check_float(kind, args, torch.float32, max_err, f"{path_name} ")
+            same = [np.array_equal(read_flo(paths[2 * i + 1]), out_[0][0].cpu().numpy())
+                    for i, (_, _, out_) in enumerate(timed.calls)]
+            with torch.no_grad(), _plain_eager_cost_volume():
+                ref = first["model"](first["x"])
+            e = flow_errors(timed.calls[0][2][1], ref[1])
+            want = pwc_fast.prepare(first["model"], torch.float32, dev,
+                                    first["q8"]).launch_counts()
+            expect = {"cost_volume": 5, "cost_volume_bwd": 0, "conv_group_diff": 0, **want,
+                      "gemm_probe": 0}
+            launches[path_name] = timed.counts[0]
+            steady = np.diff(timed.starts) * 1e3  # ms from one pair's start to the next
+            # the host's share of a pair: colouring, PNG encode, .flo write
+            flow0 = timed.calls[-1][2][0][0].cpu().numpy()
+            host = {}
+            for what, fn in (("flow_to_image", lambda: flow_to_image(flow0)),  # noqa: B023
+                             ("PNG encode", lambda: encode_png(flow_to_image(flow0))),  # noqa: B023
+                             (".flo write", lambda: write_flo(  # noqa: B023
+                                 os.path.join(out, "t.flo"), flow0))):
+                t0 = time.perf_counter()
+                fn()
+                host[what] = (time.perf_counter() - t0) * 1e3
+            host["PNG encode"] -= host["flow_to_image"]
+            shape = tuple(first["x"].shape)
+            print(f"main path {path_name} ({n} pairs of {shape}) launches per pair: "
+                  f"{timed.counts[0]} (expected {expect}; all pairs equal: "
+                  f"{all(c == expect for c in timed.counts)})")
+            print(f"e2e {path_name}: .flo files equal to fast_apply's flow bit for bit "
+                  f"{same}; the W8A8 quarter flow vs the eager fp32 forward (plain cost "
+                  f"volume) max_abs_err {e['max_abs']:.3e} ({e['max_abs_rel']:.4f} of "
+                  f"max|flow_quarter|, tol {E2E_Q8_TOL['w8a8']}); {n} pairs in {wall:.1f} ms "
+                  f"wall ({n * 1e3 / wall:.2f} pairs/s end to end, the model's build and the "
+                  f"calibration included; {1e3 / steady.mean():.2f} pairs/s between the "
+                  f"pairs after the first, {steady.mean():.1f} ms per pair), fast_apply's "
+                  f"CUDA-event span {timed.span_ms():.1f} ms (per pair "
+                  f"{[round(a.elapsed_time(b), 2) for a, b in timed.events]} ms, idle gaps "
+                  f"inside counted; the first with its calls recorded); host ms per pair "
+                  f"{host} [{card}]")
+            if any(c != expect for c in timed.counts) or (want["conv_group"],
+                                                          want["conv_group_q8"]) != (24, 35):
+                raise AssertionError(f"{path_name} launches {timed.counts}")
+            if not all(same) or len(paths) != 2 * n or not e["max_abs_rel"] <= E2E_Q8_TOL["w8a8"]:
+                raise AssertionError(f"{path_name}: flo {same}, W8A8 {e}")
+            del first, timed, ref
+
+        # 6. one epoch of fit on FlyingChairs2 through make_loaders (root,
+        # device cache), the longrun hparams, one train step's kernel calls
+        # replayed and its launches counted
+        cfg = config_from_dict({
+            **LONGRUN_SYNTHETIC, "dataset_name": "FlyingChairs2", "root": trees["chairs2"],
+            "image_size": None, "dataset_size": None, "max_epochs": 1,
+            "log_every_n_steps": 1, "num_workers": 6, "metrics_csv": f"{out}/fit.csv",
+            "log_dir": f"{out}/tb", "checkpoint_dir": f"{out}/ckpt",
+            "result_dir": f"{out}/fit"})
+        t0 = time.perf_counter()
+        train_loader, val_loader, test_loader = loop.make_loaders(cfg, dev)
+        cache = train_loader.cache()
+        cache_s = time.perf_counter() - t0
+        n, h, w = FILES_CHAIRS2
+        n_train = int(0.8 * n)
+        want = {"images": ((n_train, h, w, 6), torch.bfloat16),
+                "flow": ((n_train, h, w, 2), torch.float32),
+                "occ": ((n_train, h, w, 1), torch.bfloat16)}  # 0/1: exact in bf16
+        got = {k: (tuple(v.shape), v.dtype) for k, v in cache.items()}
+        print(f"fit files: FlyingChairs2 {h}x{w} through make_loaders (root, device cache): "
+              f"train cache {got} (expected {want}), built in {cache_s:.2f} s [{card}]")
+        if got != want or any(v.device.type != dev.type for v in cache.values()):
+            raise AssertionError(f"FlyingChairs2 cache {got}")
+        model = FlowNetCV(displacement=cfg.displacement,
+                          generator=torch.Generator().manual_seed(cfg.seed))
+        state = create_train_state(model, cfg.learning_rate, device=dev)
+        train_step, eval_step = make_unsupervised_flow_step(cfg.as_hparams())
+        names = {"cost_volume_backward": "cost_volume_bwd"}
+        step_targets = [(pwc_fast, "cost_volume"), (pwc_fast, "conv_group"),
+                        (pwc_fast, "conv_group_diff"), (cv_mod, "cost_volume_backward")]
+        rec = {}
+
+        def train_wrapped(st, batch):
+            if st.step == 0:
+                box = {}
+                rec["calls"] = _record(step_targets, lambda: box.update(
+                    r=train_step(st, batch)))
+                return box["r"]
+            before = _read_counts()
+            r = train_step(st, batch)
+            after = _read_counts()
+            rec["launches"] = {k: after[k] - before[k] for k in after}
+            return r
+
+        t0 = time.perf_counter()
+        state = loop.fit(cfg, state, train_wrapped, eval_step, train_loader, val_loader,
+                         viz_fn=viz_fn)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        for kind, args in rec["calls"]:
+            _check_float(names.get(kind, kind), args, torch.bfloat16, max_err, "fit files ")
+        launches["fit_files"] = rec["launches"]
+        test = loop.evaluate(cfg, state, eval_step, test_loader)
+        print(f"main path fit_files (one bf16 train step of fit, B={cfg.batch_size}, "
+              f"{h}x{w}) launches: {rec['launches']} (expected {FIT_STEP_LAUNCHES}); "
+              f"{len(rec['calls'])} kernel calls of the first step replayed; one epoch of "
+              f"{n_train // cfg.batch_size} steps in {fit_s:.2f} s wall; test {test} [{card}]")
+        if rec["launches"] != FIT_STEP_LAUNCHES or state.step != n_train // cfg.batch_size \
+                or not all(math.isfinite(v) for v in test.values()) or "occ_error" not in test:
+            raise AssertionError(f"fit on FlyingChairs2: {rec['launches']}, step "
+                                 f"{state.step}, test {test}")
+        del state, rec, train_loader, val_loader, test_loader, cache
+    torch.cuda.empty_cache()
+    print(f"files: phase 11 took {time.perf_counter() - t_phase:.1f} s wall")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from ocflow_torch.bench import (BATCH, HEIGHT, SEED, WIDTH, calibration_batch,
                                     cuda_ms, gpu_info, make_inputs, measure)
+    from ocflow_torch.data import native_io
     from ocflow_torch.kernels import _build, conv_chain, conv_chain_q8
     from ocflow_torch.kernels import cost_volume as cv_mod
     from ocflow_torch.models import pwc_fast
@@ -1226,9 +1794,13 @@ def main() -> int:
     print(card)  # name, power limit: the line nvidia-smi gives
     dev = torch.device("cuda")
 
-    # 2. build
+    # 2. build: the kernels (one nvcc each) and the host decoder (g++), all
+    # started together
     t0 = time.perf_counter()
-    built = _build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native_io.build)
+        built = _build.build_all()
+        built["host decoder (g++)"] = host.result()
     print(f"build: {time.perf_counter() - t0:.2f} s wall; " + ", ".join(
         f"{k} {v['seconds']:.2f} s" for k, v in built.items()))
 
@@ -1306,8 +1878,10 @@ def main() -> int:
     # flags (a user's run; fast_apply pins its fp32 cuDNN convolutions),
     # against the same eager forward (TF32 off)
     out_f = pwc_fast.fast_apply(model, x32)
-    with torch.no_grad():
+    with torch.no_grad(), _plain_eager_cost_volume():
         ref = model(x32)
+    # the eager FlowNetCV itself on the cost-volume kernel (5 levels)
+    launches["eager"], out_eager = _count_launches(lambda: _no_grad(model, x32))
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
     try:
         out_tf32 = pwc_fast.fast_apply(model, x32)
@@ -1348,6 +1922,21 @@ def main() -> int:
                   f"{e16['rel_l2']:.4f} max_abs_err {e16['max_abs']:.3e}")
             if name == "quarter" and not e["max_abs_rel"] <= tol:
                 failures.append(f"{mode} vs fp32 eager: {e['max_abs_rel']} of max > {tol}")
+    expect = {k: 0 for k in launches["eager"]}
+    expect["cost_volume"] = 5
+    print(f"main path eager (the eager fp32 FlowNetCV forward) launches: "
+          f"{launches['eager']} (expected {expect})")
+    if launches["eager"] != expect:
+        raise AssertionError(f"eager launch counts {launches['eager']}")
+    for name, o, r in zip(("full", "quarter"), out_eager, ref):
+        scale = r.abs().max().item()
+        e = (o - r).abs().max().item()
+        print(f"e2e {name}: eager fp32 FlowNetCV on the cost-volume kernel vs on the "
+              f"plain cost volume max_abs_err {e:.3e} (tol {E2E_FP32_TOL * scale:.3e}, "
+              f"max|plain| {scale:.3e})")
+        if not e <= E2E_FP32_TOL * scale:
+            failures.append(f"{name}: eager kernel vs plain cost volume {e}")
+    del out_eager
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -1455,6 +2044,9 @@ def main() -> int:
 
     # 10. the training system: loaders, fit, evaluate, a checkpoint restore
     launches.update(_fit_phase(card))
+
+    # 11. the file-backed data path and the serving and eval CLIs
+    launches.update(_files_phase(card, max_err))
 
     # per kernel: its source, the TPU kernel it replaces, and the path whose
     # calls its times sum (its "launches" are that path's count)

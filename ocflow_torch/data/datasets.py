@@ -1,27 +1,44 @@
-"""Procedural datasets (port of ``ocflow_tpu/data/datasets.py``'s
-``Dataset``, ``SyntheticFlow`` and ``SyntheticFlowWarp``).
+"""Datasets (port of ``ocflow_tpu/data/datasets.py``): the procedural
+``SyntheticFlow`` and ``SyntheticFlowWarp``, and the twelve file-backed
+flow datasets (Sintel, FlyingChairs, FlyingChairs2, KITTI 2015, folders).
 
-A sample is a dict of NHWC tensors on the dataset's device: ``images``
-[H, W, 6] (frames 1 | 2 on channels, in [-1, 1]), ``flow`` [H, W, 2] and,
-with ``with_occ``, ``occ`` [H, W, 1]. The random draws are the JAX
-package's numpy calls in the same order, from
+A procedural sample is a dict of NHWC tensors on the dataset's device:
+``images`` [H, W, 6] (frames 1 | 2 on channels, in [-1, 1]), ``flow`` [H,
+W, 2] and, with ``with_occ``, ``occ`` [H, W, 1]. The random draws are the
+JAX package's numpy calls in the same order, from
 ``np.random.default_rng((seed, index % size))``, so a sample equals its
 counterpart up to rounding; the Gaussian blur and the bilinear remap (OpenCV
 there) are torch code on the device (:func:`gaussian_blur`,
 :func:`remap_bilinear`).
 
-The file-backed datasets and ``SyntheticInpainting`` are not ported yet.
+A file-backed sample is decoded on the host and returned as numpy arrays
+with the JAX package's keys, shapes and dtypes (``images`` [H, W, 6],
+``flow`` [H, W, 2], ``occ`` [H, W, 1], KITTI's ``valid`` [H, W, 1], all
+float32), the same directory layouts, the centre crop to multiples of 64,
+the resize with flow rescale (OpenCV's bilinear, ``data.resize``) and the
+occlusion binarization; the loaders put them on the device. The decoding
+is ``data.native_io`` (no OpenCV, PIL or imageio).
+
+``SyntheticInpainting`` and the three inpainting datasets are not ported
+yet (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import math
+from glob import glob
+from os.path import isfile, join
+from typing import Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ocflow_torch import full_fp32_convs, resolve_device
+from ocflow_torch.data import native_io
+from ocflow_torch.data.flow_io import read_kitti_png_flow, resize_flow_np
+from ocflow_torch.data.frame_io import read_gen
+from ocflow_torch.data.resize import resize_linear
 
 
 def _reflect101(n: int, pad: int, device) -> torch.Tensor:
@@ -192,9 +209,304 @@ class SyntheticFlowWarp(Dataset):
         return sample
 
 
-# the datasets ported so far (the JAX package's DATASET_REGISTRY has the
-# file-backed ones and SyntheticInpainting too)
-DATASET_REGISTRY = {
-    "SyntheticFlow": SyntheticFlow,
-    "SyntheticFlowWarp": SyntheticFlowWarp,
+def normalize_image(img: np.ndarray) -> np.ndarray:
+    """uint8 [0, 255] -> float32 [-1, 1]: ``(x / 255 - 0.5) / 0.5``."""
+    return (img.astype(np.float32) / 255.0 - 0.5) / 0.5
+
+
+def center_crop(img: np.ndarray, th: int, tw: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    return img[(h - th) // 2:(h + th) // 2, (w - tw) // 2:(w + tw) // 2]
+
+
+class StaticRandomCrop:
+    """A crop offset drawn once and applied to every array, so a pair, its
+    flow and its occlusion stay aligned."""
+
+    def __init__(self, rng: np.random.Generator, image_size, crop_size):
+        self.th, self.tw = crop_size
+        h, w = image_size
+        self.h1 = int(rng.integers(0, max(h - self.th, 1)))
+        self.w1 = int(rng.integers(0, max(w - self.tw, 1)))
+
+    def __call__(self, img: np.ndarray) -> np.ndarray:
+        return img[self.h1:self.h1 + self.th, self.w1:self.w1 + self.tw]
+
+
+def rescale(images: np.ndarray, range_=(0.0, 1.0), old_range=(0.0, 255.0)) -> np.ndarray:
+    """Linear map of ``old_range`` onto ``range_``."""
+    lo, hi = range_
+    olo, ohi = old_range
+    return (images - olo) / (ohi - olo) * (hi - lo) + lo
+
+
+def floor64(size: Sequence[int]) -> tuple[int, int]:
+    """The crop of a frame: each side floored to a multiple of 64."""
+    h, w = size
+    if h % 64 or w % 64:
+        return (h // 64) * 64, (w // 64) * 64
+    return h, w
+
+
+def _resize_img(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    out = resize_linear(img, height, width)
+    return out[..., None] if out.ndim == 2 else out
+
+
+def binarize_occ(occ: np.ndarray) -> np.ndarray:
+    """1 where ``occ > 0.5``, else 0 (float32)."""
+    return (occ > 0.5).astype(np.float32)
+
+
+class _FlowPairDataset(Dataset):
+    """A frame pair, with a flow and an occlusion mask where the lists have
+    them. Frames, flows and masks are centre-cropped to the first frame's
+    size floored to multiples of 64, then resized to ``image_size`` if it
+    is given. Without ``image_size`` an 8-bit RGB pair takes the decoder's
+    fused decode, crop and ``x / 127.5 - 1`` pass; other frames are decoded,
+    cropped and mapped by ``(x / 255 - 0.5) / 0.5``, as in the JAX
+    package."""
+
+    def __init__(self, image_list, flow_list=None, occ_list=None, image_size=None,
+                 replicates=1):
+        self.image_list = image_list
+        self.flow_list = flow_list
+        self.occ_list = occ_list
+        self.image_size = image_size
+        self.replicates = replicates
+        self.size = len(image_list)
+        if self.size == 0:
+            raise FileNotFoundError("Empty dataset: no files matched")
+        self.render_size = floor64(read_gen(image_list[0][0]).shape[:2])
+
+    def __getitem__(self, index):
+        index = index % self.size
+        th, tw = self.render_size
+        images = None
+        if not self.image_size:
+            images = native_io.read_pair_norm(*self.image_list[index][:2], th, tw)
+        if images is None:
+            img1 = center_crop(read_gen(self.image_list[index][0]), th, tw)
+            img2 = center_crop(read_gen(self.image_list[index][1]), th, tw)
+            if self.image_size:
+                img1 = _resize_img(img1, *self.image_size)
+                img2 = _resize_img(img2, *self.image_size)
+            images = np.concatenate([normalize_image(img1), normalize_image(img2)], axis=-1)
+        sample = {"images": images}
+        if self.flow_list is not None:
+            flow = center_crop(read_gen(self.flow_list[index]).astype(np.float32), th, tw)
+            if self.image_size:
+                flow = resize_flow_np(flow, *self.image_size)
+            sample["flow"] = flow
+        if self.occ_list is not None:
+            occ = center_crop(read_gen(self.occ_list[index]).astype(np.float32), th, tw)
+            if occ.ndim == 2:
+                occ = occ[..., None]
+            occ = occ[..., :1]
+            if occ.max() > 1.5:  # stored as a 0/255 PNG
+                occ = occ / 255.0
+            if self.image_size:
+                occ = _resize_img(occ, *self.image_size)
+            sample["occ"] = binarize_occ(occ)
+        return sample
+
+
+def _sintel_frames(root: str, dstype: str, listed_root: str, pattern: str):
+    """For each file under ``root/listed_root`` matching ``pattern``
+    (``<scene>/frame_NNNN.<ext>``), the Sintel frames N and N + 1 of
+    ``root/dstype/<scene>``; returns ``(image pairs, files, prefixes and
+    frame numbers)``."""
+    listed = join(root, listed_root)
+    image_root = join(root, dstype)
+    pairs, files, frames = [], [], []
+    for file in sorted(glob(join(listed, pattern))):
+        fbase = file[len(listed) + 1:]
+        fprefix, fnum = fbase[:-8], int(fbase[-8:-4])
+        img1 = join(image_root, fprefix + f"{fnum:04d}.png")
+        img2 = join(image_root, fprefix + f"{fnum + 1:04d}.png")
+        if not (isfile(img1) and isfile(img2)):
+            raise FileNotFoundError(f"Cannot find the frames {img1}, {img2}")
+        pairs.append([img1, img2])
+        files.append(file)
+        frames.append((fprefix, fnum))
+    return pairs, files, frames
+
+
+class MpiSintel(_FlowPairDataset):
+    """Sintel pairs and their ``.flo`` flow: ``root/flow/<scene>/
+    frame_NNNN.flo`` with ``root/<dstype>/<scene>/frame_NNNN.png`` and the
+    next frame."""
+
+    def __init__(self, root="", dstype="clean", replicates=1, image_size=None):
+        pairs, flows, _ = _sintel_frames(root, dstype, "flow", "*/*.flo")
+        super().__init__(pairs, flows, None, image_size, replicates)
+
+
+class MpiSintelClean(MpiSintel):
+    def __init__(self, root="", replicates=1, image_size=None):
+        super().__init__(root, "clean", replicates, image_size)
+
+
+class MpiSintelFinal(MpiSintel):
+    def __init__(self, root="", replicates=1, image_size=None):
+        super().__init__(root, "final", replicates, image_size)
+
+
+class MpiSintelOcc(_FlowPairDataset):
+    """Sintel pairs and their occlusion masks (``root/occlusions/<scene>/
+    frame_NNNN.png``): ``{'images', 'occ'}``."""
+
+    def __init__(self, root="", dstype="clean", replicates=1, image_size=None):
+        pairs, occs, _ = _sintel_frames(root, dstype, "occlusions", "*/*.png")
+        super().__init__(pairs, None, occs, image_size, replicates)
+
+
+class MpiSintelOccClean(MpiSintelOcc):
+    def __init__(self, root="", replicates=1, image_size=None):
+        super().__init__(root, "clean", replicates, image_size)
+
+
+class MpiSintelOccFinal(MpiSintelOcc):
+    def __init__(self, root="", replicates=1, image_size=None):
+        super().__init__(root, "final", replicates, image_size)
+
+
+class MpiSintelFlowOcc(_FlowPairDataset):
+    """Sintel pairs with flow and occlusion mask: ``{'images', 'flow',
+    'occ'}``."""
+
+    def __init__(self, root="", dstype="clean", replicates=1, image_size=None):
+        pairs, flows, frames = _sintel_frames(root, dstype, "flow", "*/*.flo")
+        occs = [join(root, "occlusions", f"{p}{n:04d}.png") for p, n in frames]
+        missing = [o for o in occs if not isfile(o)]
+        if missing:
+            raise FileNotFoundError(f"Cannot find the occlusion masks {missing[:3]}")
+        super().__init__(pairs, flows, occs, image_size, replicates)
+
+
+class MpiSintelFlowOccClean(MpiSintelFlowOcc):
+    def __init__(self, root="", replicates=1, image_size=None):
+        super().__init__(root, "clean", replicates, image_size)
+
+
+class MpiSintelFlowOccFinal(MpiSintelFlowOcc):
+    def __init__(self, root="", replicates=1, image_size=None):
+        super().__init__(root, "final", replicates, image_size)
+
+
+def _consecutive_pairs(images: list, n: int) -> list:
+    if len(images) // 2 != n:
+        raise FileNotFoundError(f"{len(images)} frames for {n} flows")
+    return [[images[2 * i], images[2 * i + 1]] for i in range(n)]
+
+
+class FlyingChairs(_FlowPairDataset):
+    """FlyingChairs: ``*.ppm`` frame pairs in name order with ``*.flo``."""
+
+    def __init__(self, root="", replicates=1, image_size=None):
+        flows = sorted(glob(join(root, "*.flo")))
+        pairs = _consecutive_pairs(sorted(glob(join(root, "*.ppm"))), len(flows))
+        super().__init__(pairs, flows, None, image_size, replicates)
+
+
+class FlyingChairs2(_FlowPairDataset):
+    """FlyingChairs2: ``NNNNN-img_{1,2}.png`` with ``NNNNN-flow_01.flo`` and
+    ``NNNNN-occ_01.png``, the default unsupervised training set."""
+
+    def __init__(self, root="", replicates=1, image_size=None):
+        flows = sorted(glob(join(root, "*-flow_01.flo")))
+        occs = sorted(glob(join(root, "*-occ_01.png")))
+        pairs = _consecutive_pairs(sorted(glob(join(root, "*-img_*.png"))), len(flows))
+        super().__init__(pairs, flows, occs, image_size, replicates)
+
+
+class ImagesFromFolder(_FlowPairDataset):
+    """Consecutive frames of a folder (``*.<iext>`` in name order) as pairs,
+    images only."""
+
+    def __init__(self, root="", iext="png", replicates=1, image_size=None):
+        images = sorted(glob(join(root, "*." + iext)))
+        pairs = [[images[i], images[i + 1]] for i in range(len(images) - 1)]
+        super().__init__(pairs, None, None, image_size, replicates)
+
+
+class ImgFlowOccFromFolder(_FlowPairDataset):
+    """The folder layout ``img_1/``, ``img_2/``, ``flow/``, ``occlusion/``,
+    each in name order."""
+
+    def __init__(self, root="", iext="png", replicates=1, image_size=None):
+        first = sorted(glob(join(root, "img_1", "*." + iext)))
+        second = sorted(glob(join(root, "img_2", "*." + iext)))
+        flows = sorted(glob(join(root, "flow", "*.flo")))
+        occs = sorted(glob(join(root, "occlusion", "*." + iext)))
+        if not len(first) == len(second) == len(flows) == len(occs):
+            raise FileNotFoundError(
+                f"img_1 / img_2 / flow / occlusion: {len(first)} / {len(second)} / "
+                f"{len(flows)} / {len(occs)} files")
+        super().__init__([list(p) for p in zip(first, second)], flows, occs, image_size,
+                         replicates)
+
+
+class KITTI2015(_FlowPairDataset):
+    """KITTI 2015's training layout: ``root/image_2/NNNNNN_10.png`` and
+    ``NNNNNN_11.png`` with the 16-bit flow ``root/<flow_type>/NNNNNN_10.png``
+    (``flow_occ``: every valid pixel, ``flow_noc``: the non-occluded ones).
+
+    Returns ``{'images', 'flow' [H, W, 2], 'valid' [H, W, 1]}``; KITTI's
+    ground truth is sparse, so invalid pixels carry zero flow and valid 0
+    (with ``image_size``, ``valid`` is resized and thresholded at 0.5)."""
+
+    def __init__(self, root="", flow_type="flow_occ", replicates=1, image_size=None):
+        image_root = join(root, "image_2")
+        flow_root = join(root, flow_type)
+        pairs, flows = [], []
+        for file in sorted(glob(join(flow_root, "*_10.png"))):
+            frame = file[len(flow_root) + 1:-7]
+            img1 = join(image_root, f"{frame}_10.png")
+            img2 = join(image_root, f"{frame}_11.png")
+            if not (isfile(img1) and isfile(img2)):
+                raise FileNotFoundError(f"Cannot find the frames {img1}, {img2}")
+            pairs.append([img1, img2])
+            flows.append(file)
+        # the flow is read by the 16-bit reader below, not the base class
+        super().__init__(pairs, None, None, image_size, replicates)
+        self.kitti_flow_list = flows
+
+    def __getitem__(self, index):
+        sample = super().__getitem__(index)
+        index = index % self.size
+        th, tw = self.render_size
+        raw = read_kitti_png_flow(self.kitti_flow_list[index]).astype(np.float32)
+        raw = center_crop(raw, th, tw)
+        flow, valid = raw[..., :2], raw[..., 2:3]
+        if self.image_size:
+            flow = resize_flow_np(flow, *self.image_size)
+            valid = (_resize_img(valid, *self.image_size) > 0.5).astype(np.float32)
+        sample["flow"] = flow * valid
+        sample["valid"] = valid
+        return sample
+
+
+class KITTI2015Noc(KITTI2015):
+    def __init__(self, root="", replicates=1, image_size=None):
+        super().__init__(root, "flow_noc", replicates, image_size)
+
+
+FILE_DATASETS = {
+    "KITTI2015": KITTI2015,
+    "KITTI2015Noc": KITTI2015Noc,
+    "MpiSintelClean": MpiSintelClean,
+    "MpiSintelFinal": MpiSintelFinal,
+    "MpiSintelOccClean": MpiSintelOccClean,
+    "MpiSintelOccFinal": MpiSintelOccFinal,
+    "MpiSintelFlowOccClean": MpiSintelFlowOccClean,
+    "MpiSintelFlowOccFinal": MpiSintelFlowOccFinal,
+    "FlyingChairs": FlyingChairs,
+    "FlyingChairs2": FlyingChairs2,
+    "ImagesFromFolder": ImagesFromFolder,
+    "ImgFlowOccFromFolder": ImgFlowOccFromFolder,
 }
+# the JAX package's registry but for SyntheticInpainting and the three
+# inpainting datasets (ROADMAP A10)
+DATASET_REGISTRY = {**FILE_DATASETS, "SyntheticFlow": SyntheticFlow,
+                    "SyntheticFlowWarp": SyntheticFlowWarp}

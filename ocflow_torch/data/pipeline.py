@@ -77,7 +77,8 @@ class DataLoader:
     """Map-style loader: shuffling by ``default_rng((seed, epoch))``,
     batching, a worker thread pool, ``drop_last`` (train) or a kept ragged
     last batch (eval). Yields dicts of stacked tensors on the device the
-    dataset generates on."""
+    dataset generates on (the CPU for the file-backed datasets, whose
+    decoders release the GIL, so the threads decode in parallel)."""
 
     def __init__(self, dataset: Dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, num_workers: int = 6, drop_last: bool = True):
@@ -222,5 +223,5 @@ def build_dataset(name: str, **kwargs):
     except KeyError:
         raise ValueError(
             f"Unknown dataset {name!r}; the port has {sorted(DATASET_REGISTRY)} "
-            "(the file-backed datasets are ROADMAP A8, SyntheticInpainting A10)") from None
+            "(SyntheticInpainting and the inpainting datasets are ROADMAP A10)") from None
     return ctor(**kwargs)

@@ -6,10 +6,15 @@ normalization, an 81-channel cost volume and a DenseNet decoder
 (128/128/96/64/32, concat growth NEWEST first); a dilated context network;
 output ``(4x-upsampled flow2 * 20, flow2 * 5)``.
 
-The modules compute in NCHW with plain PyTorch ops (cuDNN convs, the plain
-cost volume): this is the yardstick the fused serving path
-(``models.pwc_fast.fast_apply``) is held against. ``forward`` takes
-``[B, H, W, 6]`` and returns NHWC flows, like the JAX module.
+The modules compute in NCHW with PyTorch ops (cuDNN convs) and the cost
+volume of ``ocflow_torch.kernels.cost_volume``, called through this
+module's name ``cost_volume``: the hand-written kernel for CUDA tensors
+(its backward kernel under autograd), the plain version for CPU tensors,
+as the JAX module takes ``cost_volume_fused``. This is the yardstick the
+fused serving path (``models.pwc_fast.fast_apply``) is held against; a
+check that must not depend on the kernel swaps the name for
+``cost_volume_plain``. ``forward`` takes ``[B, H, W, 6]`` and returns NHWC
+flows, like the JAX module.
 
 Parameter names are the reference torch network's (``conv1a.0``,
 ``conv6aa.0``, ``conv6_0.0``, ``predict_flow6``, ``deconv6``, ``upfeat6``,
@@ -26,8 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ocflow_torch.kernels.cost_volume import cost_volume
 from ocflow_torch.models.common import ConvBlock, Deconv, PredictFlow, init_weights
-from ocflow_torch.ops.cost_volume import cost_volume, normalize_features
+from ocflow_torch.ops.cost_volume import normalize_features
 from ocflow_torch.ops.resize import resize_bilinear
 from ocflow_torch.ops.warp import warp
 

@@ -115,12 +115,16 @@ def fetch(metrics: dict) -> dict:
 def make_loaders(cfg: Config, device=None):
     """Dataset -> seeded 80/10/10 split (``overfit``: train = val = test) ->
     loaders ``(train, val, test)``. The procedural datasets generate on
-    ``device`` (default ``cuda``); ``device_cache`` keeps each split there in
-    ``device_cache_dtype``. Train batches shuffle per epoch and drop the
-    ragged last batch; val and test keep it."""
-    kwargs = {"device": device}
-    if cfg.dataset_size:
-        kwargs["size"] = cfg.dataset_size
+    ``device`` (default ``cuda``), ``dataset_size`` samples; the file-backed
+    ones read ``cfg.root`` on the host. ``device_cache`` keeps each split on
+    ``device`` in ``device_cache_dtype``. Train batches shuffle per epoch
+    and drop the ragged last batch; val and test keep it."""
+    if cfg.dataset_name.startswith("Synthetic"):
+        kwargs = {"device": device}
+        if cfg.dataset_size:
+            kwargs["size"] = cfg.dataset_size
+    else:
+        kwargs = {"root": cfg.root}
     if cfg.image_size:
         kwargs["image_size"] = tuple(cfg.image_size)
     dataset = data_lib.build_dataset(cfg.dataset_name, **kwargs)

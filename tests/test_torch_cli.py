@@ -80,3 +80,33 @@ def test_cli_runs_on_cuda_unless_told(tmp_path):
         pytest.skip("a card is present: the default device exists")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["--config", _tiny_config(tmp_path)])
+
+
+def test_cli_trains_on_flying_chairs2_files(tmp_path):
+    """A config naming a file-backed dataset and its ``root`` (the JAX
+    package's unsupervised set-up, FlyingChairs2): ``make_loaders`` reads
+    the files, the device cache keeps them, ``fit`` trains, and the test
+    metrics carry the occlusion masks' BCE."""
+    import numpy as np
+
+    from ocflow_torch.data import write_flo
+    from ocflow_torch.utils.png import write_png
+
+    root = tmp_path / "chairs2"
+    root.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(10):
+        for k in (1, 2):
+            write_png(str(root / f"{i:05d}-img_{k}.png"),
+                      rng.integers(0, 256, (64, 128, 3), dtype=np.uint8))
+        write_flo(str(root / f"{i:05d}-flow_01.flo"),
+                  rng.standard_normal((64, 128, 2)).astype(np.float32))
+        write_png(str(root / f"{i:05d}-occ_01.png"),
+                  (rng.uniform(size=(64, 128)) > 0.5).astype(np.uint8) * 255)
+    config = _tiny_config(tmp_path, dataset_name="FlyingChairs2", root=str(root),
+                          dataset_size=0, image_size="null")
+    results = cli_main(["--config", config, "--device", "cpu"])
+    assert {"loss", "epe", "occ_error"} <= set(results)
+    rows = _read_csv(tmp_path / "run" / "metrics.csv")
+    # 8 / 1 / 1 pairs: 2 steps of 4, a train row every second step, 1 val row
+    assert [r["phase"] for r in rows] == ["train", "val"]

@@ -169,8 +169,9 @@ def test_make_loaders_splits_and_batches():
 
 
 def test_build_dataset_refuses_unported_names():
-    with pytest.raises(ValueError, match="A8"):
-        tdata.build_dataset("FlyingChairs2", root="")
+    for name in ("SyntheticInpainting", "MpiSintelCleanInpainting", "FlyingChairsInpainting"):
+        with pytest.raises(ValueError, match="A10"):
+            tdata.build_dataset(name, root="")
 
 
 CONFIGS = sorted((REPO / "configs").glob("*.yaml"))

@@ -14,6 +14,8 @@ version bit for bit, and so does the int8 GEMM probe. The training step's
 bounds are stated at its test.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,8 @@ from ocflow_torch.kernels.conv_chain_q8 import prepare_group_q8, quantize_q8
 from ocflow_torch.models import (FlowNetC, FlowNetCV, FlowOccNetC, OcclusionNetC,
                                  calibrate_q8, fast_apply, prepare)
 from ocflow_torch.models import flow_net_s as fns
+from ocflow_torch.models import pwc_fast
+from ocflow_torch.models import pwc_net
 from ocflow_torch.train import create_train_state, make_unsupervised_flow_step
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
@@ -39,6 +43,17 @@ def cuda_device():
     torch.backends.cudnn.allow_tf32 = False
     yield torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = tf32
+
+
+@contextlib.contextmanager
+def _plain_cost_volume():
+    """The eager FlowNetCV on the plain cost volume (a reference that does
+    not run the kernel under test)."""
+    saved, pwc_net.cost_volume = pwc_net.cost_volume, cv_mod.cost_volume_plain
+    try:
+        yield
+    finally:
+        pwc_net.cost_volume = saved
 
 
 def _close(got, ref, dtype):
@@ -198,7 +213,7 @@ def test_fast_apply_on_gpu_goes_through_the_kernels(cuda_device):
     fast = fast_apply(model, x)
     torch.cuda.synchronize()
     assert (cv_mod.cost_volume.launches, conv_chain.conv_group.launches) == (5, want_cg)
-    with torch.no_grad():
+    with torch.no_grad(), _plain_cost_volume():
         ref = model(x)
     for f, r in zip(fast, ref):
         assert (f - r).abs().max().item() <= 1e-4 * r.abs().max().item()
@@ -250,7 +265,7 @@ def test_fp32_fast_apply_holds_with_default_tf32_flags(cuda_device):
     model = FlowNetCV(generator=torch.Generator().manual_seed(0)).to(cuda_device)
     x = torch.rand((2, 448, 1024, 6), generator=torch.Generator().manual_seed(1))
     x = (x * 2 - 1).to(cuda_device)
-    with torch.no_grad():
+    with torch.no_grad(), _plain_cost_volume():
         ref = model(x)
     torch.backends.cudnn.allow_tf32 = True
     try:
@@ -450,7 +465,8 @@ def test_train_step_on_gpu_goes_through_the_kernels(cuda_device):
     torch.cuda.synchronize()
     assert [c.launches for c in counters] == [10, 5, 72, 31]
     m32, g32 = step(compute_dtype="float32")
-    me, ge = step(compute_dtype="float32", fast_forward="off")
+    with _plain_cost_volume():
+        me, ge = step(compute_dtype="float32", fast_forward="off")
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
     for k in me:
         assert abs(m32[k] - me[k]) <= 1e-4 * abs(me[k]), k
@@ -490,3 +506,74 @@ def test_device_cache_loader_serves_cuda_tensors(cuda_device):
         assert all(v.device.type == "cuda" and v.dtype == torch.float32 for v in b.values())
     assert torch.equal(batches[1]["flow"][1], cache["flow"][5])
     assert torch.equal(batches[1]["images"][1], cache["images"][5].float())
+
+
+def test_eager_flownetcv_on_gpu_runs_the_cost_volume_kernels(cuda_device):
+    """The eager fp32 FlowNetCV at 2x128x256 launches the cost-volume
+    kernel at each of its 5 levels, and its backward kernel 5 times under
+    autograd; its flows are within 1e-4 of max|flow| of the same forward on
+    the plain cost volume."""
+    model = FlowNetCV(generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    x = torch.rand((2, 128, 256, 6), generator=torch.Generator().manual_seed(1))
+    x = (x * 2 - 1).to(cuda_device)
+    cv_mod.cost_volume.launches = cv_mod.cost_volume_backward.launches = 0
+    with torch.no_grad():
+        got = model(x)
+    torch.cuda.synchronize()
+    assert (cv_mod.cost_volume.launches, cv_mod.cost_volume_backward.launches) == (5, 0)
+    with torch.no_grad(), _plain_cost_volume():
+        ref = model(x)
+    for g, r in zip(got, ref):
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+    cv_mod.cost_volume.launches = 0
+    model(x)[0].square().mean().backward()
+    torch.cuda.synchronize()
+    assert (cv_mod.cost_volume.launches, cv_mod.cost_volume_backward.launches) == (5, 5)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "w8a8"])
+def test_fast_apply_at_kitti_shape_replays_against_plain(cuda_device, mode):
+    """``fast_apply`` at 1x320x1216 (KITTI 375x1242 cropped; level 6 is 19
+    wide, not a multiple of 4, 8 or 16: the cost volume's non-vector paths,
+    the conv kernels' masked tile columns): every kernel call replayed
+    against its plain version, fp32 within 1e-4 and bf16 within 2^-6 of
+    max|plain|, int8 bit for bit."""
+    dtype = torch.float32 if mode == "fp32" else torch.bfloat16
+    model = FlowNetCV(generator=torch.Generator().manual_seed(0)).to(cuda_device, dtype)
+    x = torch.rand((1, 320, 1216, 6), generator=torch.Generator().manual_seed(1))
+    x = (x * 2 - 1).to(cuda_device, dtype)
+    q8 = calibrate_q8(model, x) if mode == "w8a8" else None
+    calls = []
+    names = ("cost_volume", "conv_group", "conv_group_q8")
+    saved = {n: getattr(pwc_fast, n) for n in names}
+
+    def recorder(n):
+        def rec(*args):
+            calls.append((n, args))
+            return saved[n](*args)
+        rec.__dict__ = saved[n].__dict__
+        return rec
+
+    for n in names:
+        setattr(pwc_fast, n, recorder(n))
+    try:
+        flow = fast_apply(model, x, q8=q8)[0]
+    finally:
+        for n in names:
+            setattr(pwc_fast, n, saved[n])
+    assert flow.shape == (1, 320, 1216, 2) and torch.isfinite(flow).all()
+    assert {n for n, _ in calls} == ({"cost_volume", "conv_group", "conv_group_q8"}
+                                     if q8 else {"cost_volume", "conv_group"})
+    widths = set()
+    for n, args in calls:
+        if n == "cost_volume":
+            widths.add(args[0].shape[-1])
+            _close(cv_mod.cost_volume(*args), cv_mod.cost_volume_plain(*args), dtype)
+        elif n == "conv_group":
+            for g, r in zip(conv_group(*args), conv_chain.conv_group_plain(*args)):
+                _close(g, r, dtype)
+        else:
+            for g, r in zip(conv_chain_q8.conv_group_q8(*args),
+                            conv_chain_q8.conv_group_q8_plain(*args)):
+                assert torch.equal(g, r)
+    assert widths == {19, 38, 76, 152, 304}

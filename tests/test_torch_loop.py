@@ -267,6 +267,10 @@ def test_port_imports_no_jax_opencv_yaml_imageio_or_pil():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
         "       'ocflow_tpu', 'cv2', 'yaml', 'imageio', 'PIL', 'orbax')]\n"
         "assert not bad, bad\n"
+        "new = ('ocflow_torch.data.native_io', 'ocflow_torch.data.flow_io',\n"
+        "       'ocflow_torch.data.frame_io', 'ocflow_torch.data.resize',\n"
+        "       'ocflow_torch.infer', 'ocflow_torch.evaluate')\n"
+        "assert all(m in sys.modules for m in new), new\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
