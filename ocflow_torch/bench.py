@@ -75,13 +75,28 @@ def make_inputs(batch: int, height: int, width: int, dtype, device,
     return model, x.to(device=device, dtype=dtype)
 
 
+def perturb_batchnorm(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """Give every BatchNorm of ``model`` seeded statistics (scale in [0.5,
+    1.5], bias and running mean in [-0.1, 0.1], running variance in [0.5,
+    2]), so that eval mode is not the identity the seeded init starts at;
+    one draw of ``generator`` per tensor, in module order."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                for t, lo, hi in ((m.weight, 0.5, 1.5), (m.bias, -0.1, 0.1),
+                                  (m.running_mean, -0.1, 0.1), (m.running_var, 0.5, 2.0)):
+                    t.copy_(torch.rand(t.shape, generator=generator) * (hi - lo) + lo)
+
+
 def make_flownetc_inputs(batch: int, height: int, width: int, device,
                          seed: int = 0, cls=FlowNetC):
     """Seeded random FlowNetC (or another net of its family, ``cls``;
-    BatchNorm statistics included) in eval mode, fp32, and a ``[B, H, W,
-    6]`` input in [-1, 1]."""
+    BatchNorm statistics perturbed from the seed, :func:`perturb_batchnorm`)
+    in eval mode, fp32, and a ``[B, H, W, 6]`` input in [-1, 1]."""
     gen = torch.Generator().manual_seed(seed)
-    model = cls(generator=gen).eval().to(device)
+    model = cls(generator=gen)
+    perturb_batchnorm(model, gen)
+    model = model.eval().to(device)
     x = torch.rand((batch, height, width, 6), generator=gen) * 2 - 1
     return model, x.to(device)
 

@@ -9,8 +9,12 @@
 //   df2[b,c,y,x] = (1/C) sum_{i,j} g[b,k,y-i+d,x-j+d]   * f1[b,c,y-i+d,x-j+d]
 //
 // with every tap outside the image zero; fp32 accumulation, stored in the
-// input dtype. Two displacements are compiled: d=4 (FlowNetCV's training
-// step) and d=10 (a gradient through the FlowNetC family).
+// input dtype. Every displacement from 1 to 10 is compiled, one
+// configuration line each: d=4 (FlowNetCV's training step and the d=4
+// nets) and d=10 (a gradient through the FlowNetC family) as tuned, the
+// others with the same configuration. d > 10 is not built (a thread keeps
+// the step's (2d+1) x 4 cotangent values in registers; at d=10 the fp32
+// kernel already spills).
 //
 // Bound on the H100. At d=4 bytes: it reads g (81 values per pixel) and
 // f1, f2 once and writes df1, df2 once, against 4*81 operations per
@@ -37,7 +41,8 @@
 //   df2: acc[c][x] += G[j][x] * F[c][x + 2d - j]
 // A thread owns P=4 adjacent columns of CH channels of one row: per step
 // it holds the step's N x 4 cotangent values in registers and, per channel,
-// reads its 4+2d feature window as float4s for 4*N FMAs. The staging reads
+// reads its 4+2d feature window (2d rounded up to whole float4s, as the
+// staged rows are) as float4s for 4*N FMAs. The staging reads
 // 16-byte vectors where a row is aligned, up to 8 in flight per thread, as
 // the forward does.
 //
@@ -64,10 +69,13 @@ namespace {
 
 constexpr int TW = 32;  // output columns per block
 
-// Configurations (R, CB, CH, P, min blocks per SM, vectors per thread in
-// flight while staging), one line per d:
-#define CV_BWD_D4 4, 32, 8, 4, 3, 8
-#define CV_BWD_D10 4, 32, 8, 4, 3, 8
+// Configuration (R, CB, CH, P, min blocks per SM, vectors per thread in
+// flight while staging), one line for every d (tuned at d=4 and d=10, where
+// the same values won):
+#define CV_BWD 4, 32, 8, 4, 3, 8
+
+// 2d rounded up to whole float4s: the staged feature rows are 32 + PAD wide
+template <int D> constexpr int kPad = (2 * D + 3) / 4 * 4;
 
 template <typename T, int D, int R, int CB, int CH, int P, int BATCH, bool DF2>
 __device__ __forceinline__ void bwd_body(const T* __restrict__ feat, const T* __restrict__ g,
@@ -76,8 +84,8 @@ __device__ __forceinline__ void bwd_body(const T* __restrict__ feat, const T* __
                                          bool vec) {
   constexpr int N = 2 * D + 1;
   constexpr int CG = TW / P, NS = CB / CH;
-  constexpr int WIN = TW + 2 * D;
-  constexpr int NW = P + 2 * D;
+  constexpr int WIN = TW + kPad<D>;
+  constexpr int NW = P + kPad<D>;
   constexpr int NT = CG * NS * R;  // threads
   const int cg = threadIdx.x % CG;
   const int s = (threadIdx.x / CG) % NS;
@@ -147,8 +155,8 @@ __global__ void __launch_bounds__((TW / P) * R * (CB / CH), MINB)
 cost_volume_bwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
                        const T* __restrict__ g, T* __restrict__ df1,
                        T* __restrict__ df2, int C, int H, int W, int strips, bool vec) {
-  static_assert((TW + 2 * D) % 4 == 0 && (2 * D) % P == 0 && CB % CH == 0, "layout");
-  __shared__ __align__(16) float sf[CB * R * (TW + 2 * D)];  // feature rows, a ring
+  static_assert((TW + kPad<D>) % 4 == 0 && kPad<D> % P == 0 && CB % CH == 0, "layout");
+  __shared__ __align__(16) float sf[CB * R * (TW + kPad<D>)];  // feature rows, a ring
   __shared__ __align__(16) float sg[(2 * D + 1) * R * TW];   // one step's cotangent
   const int c0 = blockIdx.x * CB;
   const int x0 = (blockIdx.y % strips) * TW;
@@ -188,14 +196,24 @@ int launch(int dtype, const void* f1, const void* f2, const void* g, void* df1,
 }  // namespace
 
 // f1, f2, df1, df2: [B, C, H, W] contiguous; g: [B, (2d+1)^2, H, W]
-// contiguous, all of one dtype; d is 4 or 10. Returns cudaGetLastError()
+// contiguous, all of one dtype; 1 <= d <= 10. Returns cudaGetLastError()
 // after the launch.
 extern "C" int ocf_cost_volume_bwd(int dtype, const void* f1, const void* f2,
                                    const void* g, void* df1, void* df2, int B,
                                    int C, int H, int W, int d, void* stream) {
   if (B <= 0 || C <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 4) return launch<4, CV_BWD_D4>(dtype, f1, f2, g, df1, df2, B, C, H, W, s);
-  if (d == 10) return launch<10, CV_BWD_D10>(dtype, f1, f2, g, df1, df2, B, C, H, W, s);
-  return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 1: return launch<1, CV_BWD>(dtype, f1, f2, g, df1, df2, B, C, H, W, s);
+    case 2: return launch<2, CV_BWD>(dtype, f1, f2, g, df1, df2, B, C, H, W, s);
+    case 3: return launch<3, CV_BWD>(dtype, f1, f2, g, df1, df2, B, C, H, W, s);
+    case 4: return launch<4, CV_BWD>(dtype, f1, f2, g, df1, df2, B, C, H, W, s);
+    case 5: return launch<5, CV_BWD>(dtype, f1, f2, g, df1, df2, B, C, H, W, s);
+    case 6: return launch<6, CV_BWD>(dtype, f1, f2, g, df1, df2, B, C, H, W, s);
+    case 7: return launch<7, CV_BWD>(dtype, f1, f2, g, df1, df2, B, C, H, W, s);
+    case 8: return launch<8, CV_BWD>(dtype, f1, f2, g, df1, df2, B, C, H, W, s);
+    case 9: return launch<9, CV_BWD>(dtype, f1, f2, g, df1, df2, B, C, H, W, s);
+    case 10: return launch<10, CV_BWD>(dtype, f1, f2, g, df1, df2, B, C, H, W, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

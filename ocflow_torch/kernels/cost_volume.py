@@ -8,9 +8,13 @@ Replaces ``ocflow_tpu/ops/pallas/cost_volume_kernel.py``: the forward
 -> ``_bwd_xla_mirror``). The wrapper takes ``[B, C, H, W]`` features and
 returns ``[B, (2d+1)^2, H, W]`` (the channel-major layout the decoders
 read). A CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises. Both kernels are compiled for d = 4 (81 shifts, the
-FlowNetCV path) and d = 10 (441 shifts, the FlowNetC family); any other d
-raises before a launch.
+kernel or raises. Both kernels are compiled for every d from 1 to
+``MAX_DISPLACEMENT`` = 10 (d = 4, 81 shifts, the FlowNetCV path and the d=4
+nets; d = 10, 441 shifts, the FlowNetC family; the others for a net built
+with another ``displacement``); a larger d raises before a launch, naming
+the limit (a thread of either kernel keeps (2d+1) x 4 fp32 values in
+registers, and at d = 10 the fp32 kernels already spill; the reference
+takes its XLA cost volume there).
 
 Under autograd (an input that requires grad, grad mode on) ``cost_volume``
 runs through ``_CostVolume``, whose backward is ``cost_volume_backward``:
@@ -18,8 +22,9 @@ the backward kernel on CUDA, ``cost_volume_backward_plain`` on the CPU.
 ``cost_volume.launches`` counts forward launches and
 ``cost_volume_backward.launches`` backward launches.
 
-What bounds each kernel on the card differs with d: bytes at d=4,
-fp32 operations at d=10 (see the source notes in ``csrc/``).
+What bounds each kernel on the card differs with d and C: bytes at d=4
+and small C, fp32 operations at d=10 and C=256 (see the source notes in
+``csrc/``).
 """
 
 from __future__ import annotations
@@ -33,8 +38,17 @@ from ocflow_torch.kernels import _build
 from ocflow_torch.ops.cost_volume import cost_volume as cost_volume_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FORWARD_DISPLACEMENTS = (4, 10)   # csrc/cost_volume.cu
-BACKWARD_DISPLACEMENTS = (4, 10)  # csrc/cost_volume_bwd.cu
+MAX_DISPLACEMENT = 10
+# one configuration line per d in csrc/cost_volume.cu and csrc/cost_volume_bwd.cu
+FORWARD_DISPLACEMENTS = BACKWARD_DISPLACEMENTS = tuple(range(1, MAX_DISPLACEMENT + 1))
+
+
+def _check_displacement(what: str, d: int, built: tuple[int, ...]) -> None:
+    if d not in built:
+        raise ValueError(
+            f"{what}: the kernel is built for d in 1..{MAX_DISPLACEMENT}, got d={d} (a "
+            f"thread keeps (2d+1) x 4 fp32 values in registers; d > {MAX_DISPLACEMENT} "
+            "is not built)")
 
 
 def _fn(name: str, symbol: str, n_ptr: int):
@@ -61,10 +75,7 @@ def _check_tensors(what: str, *ts: torch.Tensor) -> None:
 def _forward(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int) -> torch.Tensor:
     if f1.device.type == "cpu":
         return cost_volume_plain(f1, f2, max_displacement)
-    if max_displacement not in FORWARD_DISPLACEMENTS:
-        raise ValueError(
-            f"cost_volume: the forward kernel is built for d in "
-            f"{FORWARD_DISPLACEMENTS}, got d={max_displacement}")
+    _check_displacement("cost_volume: forward", max_displacement, FORWARD_DISPLACEMENTS)
     _check_tensors("cost_volume", f1, f2)
     b, c, h, w = f1.shape
     n = 2 * max_displacement + 1
@@ -108,10 +119,8 @@ def cost_volume_backward(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
     CUDA, plain version on the CPU."""
     if f1.device.type == "cpu":
         return cost_volume_backward_plain(f1, f2, g, max_displacement)
-    if max_displacement not in BACKWARD_DISPLACEMENTS:
-        raise ValueError(
-            f"cost_volume_backward: the backward kernel is built for d in "
-            f"{BACKWARD_DISPLACEMENTS}, got d={max_displacement}")
+    _check_displacement("cost_volume_backward: backward", max_displacement,
+                        BACKWARD_DISPLACEMENTS)
     _check_tensors("cost_volume_backward", f1, f2, g)
     b, c, h, w = f1.shape
     if g.shape != (b, (2 * max_displacement + 1) ** 2, h, w):

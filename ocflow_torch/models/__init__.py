@@ -1,19 +1,30 @@
 """The port's models: FlowNetCV / PWCNet (eager), their fused serving path
 and weight bridge; the FlowNetC family (FlowNetC, OcclusionNetC,
-FlowOccNetC; serve them in eval mode) and its weight bridges; the registry
-``build`` with ``load_model`` and ``predict``, as the CLIs serve a model."""
+FlowOccNetC); SimpleFlowNet; the FPN FlowNet and FlowOccNet; the PWC-style
+flow+occlusion nets FlowOccNetCV (``pwoc``) and FlowOccNetCV2 (``pwoc2``);
+their weight bridges from flax; the registry ``build`` with ``load_model``
+and ``predict``, as the CLIs serve a model. Serve the nets with BatchNorm
+in eval mode."""
 
-from ocflow_torch.models.convert import (flownetc_from_flax, flownetcv_from_flax,
-                                         flowoccnetc_from_flax, occnetc_from_flax,
-                                         q8_scales_from_numpy)
+from ocflow_torch.models.convert import (flownet_from_flax, flownetc_from_flax,
+                                         flownetcv_from_flax, flowoccnet_from_flax,
+                                         flowoccnetc_from_flax, flowoccnetcv2_from_flax,
+                                         flowoccnetcv_from_flax, occnetc_from_flax,
+                                         q8_scales_from_numpy, simpleflownet_from_flax)
+from ocflow_torch.models.flow_net import FlowNet
 from ocflow_torch.models.flow_net_s import FlowNetC, FlowNetCFamily
-from ocflow_torch.models.flow_occ_nets import FlowOccNetC
+from ocflow_torch.models.flow_occ_nets import (FlowOccNet, FlowOccNetC, FlowOccNetCV,
+                                               FlowOccNetCV2)
 from ocflow_torch.models.occlusion_nets import OcclusionNetC
 from ocflow_torch.models.pwc_fast import calibrate_q8, fast_apply, fast_apply_pair, prepare
 from ocflow_torch.models.pwc_net import FlowNetCV, PWCNet
 from ocflow_torch.models.registry import available, build, load_model, predict
+from ocflow_torch.models.simple_flow_net import SimpleFlowNet
 
-__all__ = ["FlowNetC", "FlowNetCFamily", "FlowNetCV", "FlowOccNetC", "OcclusionNetC",
-           "PWCNet", "available", "build", "calibrate_q8", "fast_apply", "fast_apply_pair",
-           "flownetc_from_flax", "flownetcv_from_flax", "flowoccnetc_from_flax",
-           "load_model", "occnetc_from_flax", "predict", "prepare", "q8_scales_from_numpy"]
+__all__ = ["FlowNet", "FlowNetC", "FlowNetCFamily", "FlowNetCV", "FlowOccNet", "FlowOccNetC",
+           "FlowOccNetCV", "FlowOccNetCV2", "OcclusionNetC", "PWCNet", "SimpleFlowNet",
+           "available", "build", "calibrate_q8", "fast_apply", "fast_apply_pair",
+           "flownet_from_flax", "flownetc_from_flax", "flownetcv_from_flax",
+           "flowoccnet_from_flax", "flowoccnetc_from_flax", "flowoccnetcv2_from_flax",
+           "flowoccnetcv_from_flax", "load_model", "occnetc_from_flax", "predict", "prepare",
+           "q8_scales_from_numpy", "simpleflownet_from_flax"]

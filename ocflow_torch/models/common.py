@@ -1,5 +1,6 @@
 """Shared building blocks (port of ``ocflow_tpu/models/common.py`` and of
-``PredictOcc`` in ``ocflow_tpu/models/occlusion_nets.py``), NCHW.
+``PredictOcc`` in ``ocflow_tpu/models/occlusion_nets.py``), NCHW, and the
+seeded init that draws from flax's default initializers.
 
 Parameter names follow the reference torch networks, so that a module's
 ``state_dict`` maps onto the JAX package's flax tree through the converters
@@ -13,7 +14,14 @@ in ``ocflow_tpu/models/torch_convert.py``:
   ``FeatureDeconv`` is ``Sequential(Deconv, LeakyReLU(0.1))`` (keys
   ``<name>.0``), the JAX ``Deconv(act=True)``;
 - ``PredictFlow`` is a bare 3x3 conv to 2 channels; ``PredictOcc`` is
-  ``Sequential(Conv2d(cin, 1, 3, p1), Sigmoid)`` (keys ``<name>.0``).
+  ``Sequential(Conv2d(cin, 1, 3, p1), Sigmoid)`` (keys ``<name>.0``);
+  ``PredictFlowStack`` is ``Sequential(ConvBlock(32), ConvBlock(16),
+  Sequential(Conv2d(16, 2)))`` (keys ``<name>.0.0``, ``.1.0``, ``.2.0``);
+- ``ProjDown`` / ``ProjUp`` are the projection-bottleneck blocks of
+  SimpleFlowNet: three ``conv<k>`` (no bias) / ``bn<k>`` pairs.
+
+Every BatchNorm is :class:`BatchNorm`: ``BatchNorm2d``'s buffers and names,
+flax's train-mode update of the running variance.
 """
 
 from __future__ import annotations
@@ -21,14 +29,50 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ocflow_torch.ops.resize import resize_bilinear
+
+# flax's lecun_normal is a truncated normal cut at +-2 std; dividing by the
+# std of the standard normal cut there gives the samples a std of
+# 1/sqrt(fan_in) (jax.nn.initializers.variance_scaling)
+TRUNC_STD = 0.87962566103423978
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """``BatchNorm2d`` (its buffers and ``state_dict`` names) with flax's
+    train-mode semantics (``flax.linen.BatchNorm``, ``momentum=0.9``): the
+    batch is normalized by its biased variance, and the running variance is
+    updated with that same biased variance, ``ra = 0.9 ra + 0.1 batch``.
+    ``F.batch_norm`` takes the statistics in its one pass over the batch and
+    updates the running variance with the unbiased variance, n / (n - 1)
+    times the biased one over n values a channel; the update's batch term is
+    scaled back by (n - 1) / n. Eval mode is ``BatchNorm2d``'s."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, device=None, dtype=None):
+        super().__init__(num_features, eps=eps, momentum=0.1, device=device, dtype=dtype)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        # a copy: autograd keeps the running variance the op was given
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            kept = (1.0 - self.momentum) * self.running_var
+            self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 class ConvBlock(nn.Sequential):
     """Conv, optional BatchNorm, LeakyReLU(0.1); torch padding
     ``(k - 1) // 2 * dilation`` unless given. With ``use_bn`` the conv has
-    no bias and BatchNorm follows (eps 1e-5, torch momentum 0.1 = flax
-    momentum 0.9)."""
+    no bias and :class:`BatchNorm` follows (eps 1e-5, torch momentum 0.1 =
+    flax momentum 0.9)."""
 
     def __init__(self, cin: int, cout: int, stride: int = 1,
                  dilation: int = 1, device=None, dtype=None, *,
@@ -41,7 +85,7 @@ class ConvBlock(nn.Sequential):
                             padding=padding, dilation=dilation,
                             bias=not use_bn, **kw)]
         if use_bn:
-            layers.append(nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1, **kw))
+            layers.append(BatchNorm(cout, **kw))
         super().__init__(*layers, nn.LeakyReLU(0.1))
 
 
@@ -76,31 +120,85 @@ class PredictOcc(nn.Sequential):
                                    dtype=dtype), nn.Sigmoid())
 
 
+class PredictFlowStack(nn.Sequential):
+    """conv(32) -> conv(16) -> conv(2) flow head of SimpleFlowNet, each 3x3,
+    the first two with LeakyReLU(0.1)."""
+
+    def __init__(self, cin: int, cout: int = 2):
+        super().__init__(ConvBlock(cin, 32), ConvBlock(32, 16),
+                         nn.Sequential(nn.Conv2d(16, cout, 3, padding=1)))
+
+
+class _ProjBlock(nn.Module):
+    """Three conv (no bias) + :class:`BatchNorm` + LeakyReLU(0.1) stages,
+    ``conv1..3`` / ``bn1..3``, the first of kernel ``k1``, stride ``s1``,
+    no padding (1x1 or 2x2), the second 3x3, the third 1x1."""
+
+    def __init__(self, cin: int, inter: int, cout: int, k1: int, s1: int):
+        super().__init__()
+        specs = ((cin, inter, k1, s1, 0), (inter, inter, 3, 1, 1), (inter, cout, 1, 1, 0))
+        for j, (ci, co, k, st, p) in enumerate(specs, 1):
+            self.add_module(f"conv{j}", nn.Conv2d(ci, co, k, stride=st, padding=p,
+                                                  bias=False))
+            self.add_module(f"bn{j}", BatchNorm(co))
+
+    def forward(self, x):
+        for j in (1, 2, 3):
+            x = F.leaky_relu(getattr(self, f"bn{j}")(getattr(self, f"conv{j}")(x)), 0.1)
+        return x
+
+
+class ProjDown(_ProjBlock):
+    """Projection-bottleneck 2x downsample: 2x2/s2 conv to ``cin //
+    proj_ratio`` channels (at least 1), 3x3 conv, 1x1 conv to ``cout``."""
+
+    def __init__(self, cin: int, cout: int, proj_ratio: int = 4):
+        super().__init__(cin, max(cin // proj_ratio, 1), cout, 2, 2)
+
+
+class ProjUp(_ProjBlock):
+    """Projection-bottleneck 2x upsample with a skip: ``x`` resized 2x
+    (bilinear, ``align_corners=False``), zero-padded to the skip's size
+    with the odd pixel after, ``cat([skip, x])`` (``cin`` channels in all),
+    then 1x1 conv to ``cin // proj_ratio``, 3x3 conv, 1x1 conv to
+    ``cout``."""
+
+    def __init__(self, cin: int, cout: int, proj_ratio: int = 4):
+        super().__init__(cin, max(cin // proj_ratio, 1), cout, 1, 1)
+
+    def forward(self, x, skip):
+        h, w = x.shape[2] * 2, x.shape[3] * 2
+        x = resize_bilinear(x, h, w, align_corners=False)
+        dy, dx = skip.shape[2] - h, skip.shape[3] - w
+        if dy or dx:
+            x = F.pad(x, (dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
+        return super().forward(torch.cat([skip, x], 1))
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded init, in module order: each conv / transposed conv gets
-    LeCun-normal weights (std 1/sqrt(fan_in), flax's default conv init) and,
-    where it has one, a uniform bias in +-1/sqrt(fan_in); each BatchNorm a
-    scale in [0.5, 1.5], a bias and running mean in [-0.1, 0.1] and a
-    running variance in [0.5, 2] (so that eval-mode BatchNorm is not the
-    identity). The fan-in of a conv is ``cin * kh * kw``; of a transposed
-    conv the taps that reach one output per input channel, ``cin * kh * kw
-    / (sh * sw)`` (4 for the 4x4 stride-2 upsampler)."""
+    """Seeded init drawing from flax's default initializers, as the JAX
+    package's ``init`` does: every conv and transposed conv, in the order
+    of ``module.modules()``, draws its weight from LeCun-normal truncated at
+    +-2 std (``trunc_normal_`` with std ``1/sqrt(fan_in)/0.8796``, one draw
+    of ``generator`` per weight, so the samples' std is 1/sqrt(fan_in));
+    biases are zero; every BatchNorm starts at the identity (scale 1, bias
+    0, running mean 0, running variance 1). The fan-in is ``cin * kh * kw``
+    for both: flax reads a ``ConvTranspose`` kernel ``(kh, kw, cin, cout)``
+    as it reads a conv's."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.BatchNorm2d):
-                m.weight.uniform_(0.5, 1.5, generator=generator)
-                m.bias.uniform_(-0.1, 0.1, generator=generator)
-                m.running_mean.uniform_(-0.1, 0.1, generator=generator)
-                m.running_var.uniform_(0.5, 2.0, generator=generator)
+                m.reset_parameters()
                 continue
             if isinstance(m, nn.ConvTranspose2d):
                 cin, _, kh, kw = m.weight.shape
-                fan_in = cin * kh * kw // (m.stride[0] * m.stride[1])
+                fan_in = cin * kh * kw
             elif isinstance(m, nn.Conv2d):
                 fan_in = math.prod(m.weight.shape[1:])
             else:
                 continue
-            bound = 1.0 / math.sqrt(fan_in)
-            nn.init.normal_(m.weight, 0.0, bound, generator=generator)
+            std = 1.0 / math.sqrt(fan_in) / TRUNC_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
             if m.bias is not None:
-                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+                m.bias.zero_()

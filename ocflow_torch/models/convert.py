@@ -6,8 +6,13 @@
 returns the port's ``state_dict``. ``flownetc_from_flax``,
 ``occnetc_from_flax`` and ``flowoccnetc_from_flax`` are the inverses of
 ``convert_flownetc``, ``convert_occlusion_net_c`` and
-``convert_flow_occ_net_c``: they take ``{"params", "batch_stats"}``.
-Conventions:
+``convert_flow_occ_net_c``: they take ``{"params", "batch_stats"}``; so do
+``simpleflownet_from_flax``, ``flownet_from_flax`` and
+``flowoccnet_from_flax`` (inverses of ``convert_simpleflownet``,
+``convert_flownet_fpn``, ``convert_flow_occ_net_fpn``), while
+``flowoccnetcv_from_flax`` and ``flowoccnetcv2_from_flax`` (inverses of
+``convert_flow_occ_net_cv`` and ``convert_flow_occ_net_cv2``) take
+``params``, as those nets have no BatchNorm. Conventions:
 
 - flax ``nn.Conv`` HWIO -> torch ``Conv2d`` OIHW;
 - flax ``nn.ConvTranspose`` HWIO -> torch ``ConvTranspose2d`` (I, O, kH, kW)
@@ -24,10 +29,12 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ocflow_torch.models.feature_pyramid import CONTEXT as FPN_CONTEXT
 from ocflow_torch.models.flow_net_s import LEVELS, TRUNK_CONVS, FlowNetC
 from ocflow_torch.models.flow_occ_nets import FlowOccNetC
 from ocflow_torch.models.occlusion_nets import OcclusionNetC
 from ocflow_torch.models.pwc_net import CONTEXT, DECODER_LEVELS, GROWTH, encoder_names
+from ocflow_torch.models.simple_flow_net import DOWN, UP
 
 
 def _arr(a) -> np.ndarray:
@@ -47,14 +54,41 @@ def _deconv(sd: dict, name: str, node: Mapping) -> None:
     sd[f"{name}.bias"] = torch.from_numpy(_arr(node["bias"]).copy())
 
 
+def _bn(sd: dict, name: str, params: Mapping, stats: Mapping) -> None:
+    for key, value in (("weight", params["scale"]), ("bias", params["bias"]),
+                       ("running_mean", stats["mean"]), ("running_var", stats["var"])):
+        sd[f"{name}.{key}"] = torch.from_numpy(_arr(value).copy())
+    sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _conv_bn(sd: dict, conv: str, bn: str, params: Mapping, stats: Mapping) -> None:
+    """A flax ``ConvBlock(use_bn=True)`` -> the conv ``conv`` and the
+    BatchNorm ``bn``."""
+    _conv(sd, conv, params["Conv_0"])
+    _bn(sd, bn, params["BatchNorm_0"], stats["BatchNorm_0"])
+
+
+def _encoder(sd: dict, p: Mapping) -> None:
+    """FlowNetCV's ``SiameseEncoder_0`` -> ``conv1a.0`` ... ``conv6b.0``."""
+    for i, name in enumerate(encoder_names()):
+        _conv(sd, f"{name}.0", p["SiameseEncoder_0"][f"ConvBlock_{i}"]["Conv_0"])
+
+
+def _context(sd: dict, node: Mapping, names: list[str]) -> None:
+    """A flax ``ContextNetwork`` (``ConvBlock_0..5``, then ``Conv_0`` or
+    ``PredictFlow_0``) -> the seven convs ``names``."""
+    for j, name in enumerate(names[:-1]):
+        _conv(sd, name, node[f"ConvBlock_{j}"]["Conv_0"])
+    head = node["Conv_0"] if "Conv_0" in node else node["PredictFlow_0"]["Conv_0"]
+    _conv(sd, names[-1], head)
+
+
 def flownetcv_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     """flax ``params`` (or ``{"params": ...}``) of FlowNetCV -> port
     ``state_dict`` (fp32 CPU tensors)."""
     p = params.get("params", params)
     sd: dict[str, torch.Tensor] = {}
-    enc = p["SiameseEncoder_0"]
-    for i, name in enumerate(encoder_names()):
-        _conv(sd, f"{name}.0", enc[f"ConvBlock_{i}"]["Conv_0"])
+    _encoder(sd, p)
     deconv_i = 0
     for dec_i, lvl in enumerate(DECODER_LEVELS):
         dec = p[f"DenseDecoder_{dec_i}"]
@@ -67,10 +101,8 @@ def flownetcv_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
             _deconv(sd, f"upfeat{lvl}",
                     p[f"Deconv_{deconv_i + 1}"]["ConvTranspose_0"])
             deconv_i += 2
-    ctx = p["ContextNetwork_0"]
-    for j in range(len(CONTEXT)):
-        _conv(sd, f"dc_conv{j + 1}.0", ctx[f"ConvBlock_{j}"]["Conv_0"])
-    _conv(sd, f"dc_conv{len(CONTEXT) + 1}", ctx["PredictFlow_0"]["Conv_0"])
+    _context(sd, p["ContextNetwork_0"],
+             [f"dc_conv{j + 1}.0" for j in range(len(CONTEXT))] + [f"dc_conv{len(CONTEXT) + 1}"])
     return sd
 
 
@@ -89,11 +121,7 @@ def _fnetc_family_from_flax(variables: Mapping, heads: tuple[str, ...]) -> dict:
         block = p[f"ConvBlock_{i}"]
         _conv(sd, f"{name}.0", block["Conv_0"])
         if "BatchNorm_0" in block:
-            bn, st = block["BatchNorm_0"], stats[f"ConvBlock_{i}"]["BatchNorm_0"]
-            for key, value in (("weight", bn["scale"]), ("bias", bn["bias"]),
-                               ("running_mean", st["mean"]), ("running_var", st["var"])):
-                sd[f"{name}.1.{key}"] = torch.from_numpy(_arr(value).copy())
-            sd[f"{name}.1.num_batches_tracked"] = torch.tensor(0)
+            _bn(sd, f"{name}.1", block["BatchNorm_0"], stats[f"ConvBlock_{i}"]["BatchNorm_0"])
     flax_head = {"flow": "PredictFlow", "occ": "PredictOcc"}
     for i, lvl in enumerate(LEVELS):
         for h in heads:
@@ -126,6 +154,117 @@ def flowoccnetc_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` of FlowOccNetC -> port
     ``state_dict``."""
     return _fnetc_family_from_flax(variables, FlowOccNetC.HEADS)
+
+
+def simpleflownet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of SimpleFlowNet -> port
+    ``state_dict``: ``ProjDown_i`` / ``ProjUp_i`` -> ``down<i+1>`` /
+    ``up<i+1>`` (``ConvBlock_j`` -> ``conv<j+1>``, ``bn<j+1>``),
+    ``PredictFlowStack_i`` -> ``predict_flow<5-i>``."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+    for flax_name, name, n in (("ProjDown", "down", len(DOWN)), ("ProjUp", "up", len(UP))):
+        for i in range(n):
+            for j in range(3):
+                node = f"{flax_name}_{i}"
+                _conv_bn(sd, f"{name}{i + 1}.conv{j + 1}", f"{name}{i + 1}.bn{j + 1}",
+                         p[node][f"ConvBlock_{j}"], st[node][f"ConvBlock_{j}"])
+    for i in range(len(UP) + 1):
+        node, name = p[f"PredictFlowStack_{i}"], f"predict_flow{len(UP) - i}"
+        _conv(sd, f"{name}.0.0", node["ConvBlock_0"]["Conv_0"])
+        _conv(sd, f"{name}.1.0", node["ConvBlock_1"]["Conv_0"])
+        _conv(sd, f"{name}.2.0", node["Conv_0"])
+    return sd
+
+
+def _fpn_from_flax(sd: dict, p: Mapping, st: Mapping) -> None:
+    """``FeaturePyramidNet_0`` -> ``feature_pyramid_network.*``."""
+    pre = "feature_pyramid_network"
+    for i in range(6):
+        node = f"DoubleConv_{i}"
+        for j, (ci, bi) in enumerate(((0, 1), (3, 4))):
+            _conv_bn(sd, f"{pre}.layer{i + 1}.double_conv.{ci}",
+                     f"{pre}.layer{i + 1}.double_conv.{bi}", p[node][f"ConvBlock_{j}"],
+                     st[node][f"ConvBlock_{j}"])
+    _conv_bn(sd, f"{pre}.pyr_top.0", f"{pre}.pyr_top.1", p["ConvBlock_0"], st["ConvBlock_0"])
+    for i, lvl in enumerate((5, 4, 3, 2)):
+        node = f"FPNUp_{i}"
+        _deconv(sd, f"{pre}.upsample{lvl}.deconv", p[node]["ConvTranspose_0"])
+        _bn(sd, f"{pre}.upsample{lvl}.batchnorm", p[node]["BatchNorm_0"],
+            st[node]["BatchNorm_0"])
+
+
+def _estimators_from_flax(sd: dict, p: Mapping, flax_name: str, prefix: str,
+                          names: list[str], head: str) -> None:
+    """``<flax_name>_0..4`` -> ``<prefix>.{0..4}``: the tower ``names``, the
+    head and, but for the finest level, ``upconv1`` / ``upconv2``."""
+    for i in range(5):
+        node, pre = p[f"{flax_name}_{i}"], f"{prefix}.{i}"
+        for j, name in enumerate(names):
+            _conv(sd, f"{pre}.{name}", node[f"ConvBlock_{j}"]["Conv_0"])
+        _conv(sd, f"{pre}.{head}", node["Conv_0"])
+        if i < 4:
+            _deconv(sd, f"{pre}.upconv1", node["ConvTranspose_0"])
+            _deconv(sd, f"{pre}.upconv2", node["ConvTranspose_1"])
+
+
+_FLOW_TOWER = ([f"conv{j}" for j in range(1, 6)], "conv6")
+_OCC_TOWER = (["conv1", "conv2", "conv3", "conv4", "feat_layer"], "mask_layer")
+_FPN_CONTEXT = [f"context_network.conv{j}" for j in range(1, len(FPN_CONTEXT) + 2)]
+
+
+def flownet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of the FPN FlowNet -> port
+    ``state_dict``."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+    _fpn_from_flax(sd, p["FeaturePyramidNet_0"], st["FeaturePyramidNet_0"])
+    _estimators_from_flax(sd, p, "OpticalFlowEstimator", "opticalflow_estimators",
+                          *_FLOW_TOWER)
+    _context(sd, p["ContextNetwork_0"], _FPN_CONTEXT)
+    return sd
+
+
+def flowoccnet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of the FPN FlowOccNet -> port
+    ``state_dict``."""
+    sd = flownet_from_flax(variables)
+    _estimators_from_flax(sd, variables["params"], "OcclusionEstimator",
+                          "occlusion_estimators", *_OCC_TOWER)
+    return sd
+
+
+def _flowoccnetcv_from_flax(params: Mapping, separate: bool) -> dict[str, torch.Tensor]:
+    p = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {}
+    _encoder(sd, p)
+    flax_dec = "_SeparateFlowOccDecoder" if separate else "_DenseFlowOccDecoder"
+    towers = (("fe", 0), ("oe", len(GROWTH))) if separate else (("conv", 0),)
+    for i, lvl in enumerate(DECODER_LEVELS):
+        dec = p[f"{flax_dec}_{i}"]
+        for prefix, base in towers:
+            for j in range(len(GROWTH)):
+                _conv(sd, f"{prefix}{lvl}_{j}.0", dec[f"ConvBlock_{base + j}"]["Conv_0"])
+        _conv(sd, f"predict_flow{lvl}", dec["PredictFlow_0"]["Conv_0"])
+        _conv(sd, f"predict_occ{lvl}.0", dec["PredictOcc_0"]["Conv_0"])
+        if lvl > DECODER_LEVELS[-1]:
+            for k, name in enumerate(("upflow", "upocc", "upfeat")):
+                _deconv(sd, f"{name}{lvl}", p[f"Deconv_{3 * i + k}"]["ConvTranspose_0"])
+    _context(sd, p["ContextNetwork_0"],
+             [f"dc_conv{j + 1}.0" for j in range(len(CONTEXT))] + [f"dc_conv{len(CONTEXT) + 1}"])
+    return sd
+
+
+def flowoccnetcv_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``params`` (or ``{"params": ...}``) of FlowOccNetCV (``pwoc``)
+    -> port ``state_dict``."""
+    return _flowoccnetcv_from_flax(params, separate=False)
+
+
+def flowoccnetcv2_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``params`` (or ``{"params": ...}``) of FlowOccNetCV2 (``pwoc2``)
+    -> port ``state_dict``."""
+    return _flowoccnetcv_from_flax(params, separate=True)
 
 
 def q8_scales_from_numpy(tree: Mapping) -> dict:

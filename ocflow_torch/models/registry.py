@@ -10,15 +10,20 @@ from __future__ import annotations
 import torch
 
 from ocflow_torch import full_fp32_convs
+from ocflow_torch.models.flow_net import FlowNet
 from ocflow_torch.models.flow_net_s import FlowNetC
-from ocflow_torch.models.flow_occ_nets import FlowOccNetC
+from ocflow_torch.models.flow_occ_nets import (FlowOccNet, FlowOccNetC, FlowOccNetCV,
+                                               FlowOccNetCV2)
 from ocflow_torch.models.occlusion_nets import OcclusionNetC
 from ocflow_torch.models.pwc_net import FlowNetCV, PWCNet
+from ocflow_torch.models.simple_flow_net import SimpleFlowNet
 
 _REGISTRY = {
-    "flow": {"pwc": FlowNetCV, "pwcnet": PWCNet, "flownetc": FlowNetC},
+    "flow": {"simple": SimpleFlowNet, "pwc": FlowNetCV, "pwcnet": PWCNet,
+             "flownetc": FlowNetC, "flownet": FlowNet},
     "occ": {"occnetc": OcclusionNetC},
-    "flow_occ": {"flowoccnetc": FlowOccNetC},
+    "flow_occ": {"flowoccnetc": FlowOccNetC, "pwoc": FlowOccNetCV,
+                 "pwoc2": FlowOccNetCV2, "flowoccnet": FlowOccNet},
 }
 
 
@@ -59,8 +64,8 @@ def load_model(family: str, key: str, checkpoint: str = "", device=None) -> torc
 def predict(model: torch.nn.Module, x: torch.Tensor) -> tuple:
     """The eager fp32 forward of ``[B, H, W, 6]`` frames, full fp32 cuDNN
     convolutions, as a tuple whose first entry is the flow (NHWC): the
-    net's tuple (FlowOccNetC: flow, occlusion; FlowNetCV: full, quarter
-    flow), or ``(flow, None)``."""
+    net's tuple (the flow+occlusion nets: flow, occlusion; FlowNetCV: full,
+    quarter flow), or ``(flow, None)``."""
     with torch.no_grad(), full_fp32_convs(torch.float32):
         out = model(x.float())
     return out if isinstance(out, tuple) else (out, None)

@@ -15,7 +15,8 @@ Variants, each built aside with nvcc under ``build/``:
   for is reported as refused;
 - ``--config NAME=MACRO:VALUES[;MACRO:VALUES]``: the sources with a
   configuration line replaced, e.g. ``rows=CV_FWD_D10:4,7,16,1,1`` (the
-  ``#define`` lines name the template arguments each d is built with).
+  ``#define`` lines name the template arguments: the forward's one line per
+  d, the backward's ``CV_BWD`` one line for every d).
 
 ``--order`` lists the variants in the order they are timed, names may
 repeat (``parent,kernel,kernel,parent``). Each call is timed with CUDA

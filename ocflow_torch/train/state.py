@@ -2,8 +2,10 @@
 fp32 master weights, an Adam optimizer and the step counter.
 
 ``torch.optim.Adam`` and ``optax.adam`` share their defaults (0.9, 0.999,
-1e-8) and their update ``m_hat / (sqrt(v_hat) + eps)``. FlowNetCV has no
-BatchNorm, so there are no batch statistics to thread.
+1e-8) and their update ``m_hat / (sqrt(v_hat) + eps)``. A net's BatchNorm
+statistics (the JAX state's ``batch_stats``) live in the module's buffers:
+a train step in train mode updates them in place, and a checkpoint of the
+model's ``state_dict`` carries them.
 """
 
 from __future__ import annotations

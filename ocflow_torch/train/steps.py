@@ -1,5 +1,6 @@
-"""The occlusion-aware unsupervised flow step (port of
-``ocflow_tpu/train/steps.py`` ``make_unsupervised_flow_step``).
+"""The training steps (port of ``ocflow_tpu/train/steps.py``): the
+supervised flow, occlusion and flow+occlusion steps and the
+occlusion-aware unsupervised flow step.
 
 Batches are dicts of NHWC tensors, as in the JAX package:
   ``images`` [B, H, W, 6]  (frames 1 | 2 on channels, in [-1, 1])
@@ -7,6 +8,12 @@ Batches are dicts of NHWC tensors, as in the JAX package:
   ``occ``    [B, H, W, 1]  (optional ground-truth occlusion, 1 = occluded)
 Inside, the step computes NCHW. The state (``train.state.TrainState``) is
 updated in place; ``train_step`` returns it with the metrics.
+
+BatchNorm (the ``_apply_flow_net`` contract of the JAX package):
+``train_step`` puts the model in train mode, so BatchNorm normalizes by the
+batch's statistics and updates the running ones (flax's update,
+``models.common.BatchNorm``); ``eval_step`` puts it in eval mode (the
+running statistics, no update), as the JAX eval step runs ``train=False``.
 
 Mixed precision (``compute_dtype='bfloat16'``): the fused forward casts the
 images, and the weights inside the graph, to bf16; Adam updates the fp32
@@ -47,6 +54,92 @@ def _apply_flow_net(model, x: torch.Tensor):
     flow_l2 or None)`` NHWC, normalizing the net's output signature."""
     out = model(x)
     return out if isinstance(out, tuple) else (out, None)
+
+
+def _build_steps(loss_fn, compute_dtype: torch.dtype | None = None):
+    """``(train_step, eval_step)`` around ``loss_fn(state, images, batch) ->
+    (loss, metrics)``: one Adam step in train mode, or the metrics in eval
+    mode without gradients. The fp32 cuDNN convolutions run without TF32;
+    with ``compute_dtype`` the forward runs under autocast to it (bf16
+    compute over the fp32 parameters, what flax's ``dtype=`` means)."""
+
+    def run(state, batch):
+        dev = state.device
+        images = batch["images"].to(dev)
+        with full_fp32_convs(torch.float32):
+            if compute_dtype is None:
+                return loss_fn(state, images, batch)
+            with torch.autocast(dev.type, dtype=compute_dtype):
+                return loss_fn(state, images, batch)
+
+    def train_step(state, batch):
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = run(state, batch)
+        with full_fp32_convs(torch.float32):
+            loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    def eval_step(state, batch):
+        state.model.eval()
+        with torch.no_grad():
+            return run(state, batch)[1]
+
+    return train_step, eval_step
+
+
+def _gt(batch, key: str, like: torch.Tensor) -> torch.Tensor:
+    return batch[key].to(device=like.device, dtype=torch.float32)
+
+
+def _supervised_dtype(hparams: dict | None) -> torch.dtype | None:
+    """The compute dtype of a supervised step: the config's
+    ``compute_dtype`` for FlowNetCV (``model: pwc``, which the JAX CLI
+    builds with ``dtype=``), fp32 for every other net."""
+    hparams = hparams or {}
+    if hparams.get("model") != "pwc":
+        return None
+    return resolve_dtype(hparams.get("compute_dtype"))
+
+
+def make_supervised_flow_step(hparams: dict | None = None):
+    """MSE of the full-resolution flow against the batch's ``flow``.
+    Metrics: ``loss``."""
+
+    def loss_fn(state, images, batch):
+        flow = _apply_flow_net(state.model, images)[0].float()
+        loss = ((flow - _gt(batch, "flow", flow)) ** 2).mean()
+        return loss, {"loss": loss}
+
+    return _build_steps(loss_fn, _supervised_dtype(hparams))
+
+
+def make_supervised_occ_step(hparams: dict | None = None):
+    """Focal BCE (gamma 2) of the occlusion against the batch's ``occ``.
+    Metrics: ``loss``."""
+
+    def loss_fn(state, images, batch):
+        occ = _apply_flow_net(state.model, images)[0].float()
+        loss = losses.focal_bce_loss(occ, _gt(batch, "occ", occ))
+        return loss, {"loss": loss}
+
+    return _build_steps(loss_fn, _supervised_dtype(hparams))
+
+
+def make_supervised_flow_occ_step(hparams: dict | None = None):
+    """L1 of the flow plus BCE of the occlusion, against the batch's
+    ``flow`` and ``occ``. Metrics: ``loss``, ``flow_loss``, ``occ_loss``."""
+
+    def loss_fn(state, images, batch):
+        flow, occ = (t.float() for t in state.model(images))
+        flow_loss = (flow - _gt(batch, "flow", flow)).abs().mean()
+        occ_loss = losses.binary_cross_entropy(occ, _gt(batch, "occ", occ))
+        loss = flow_loss + occ_loss
+        return loss, {"loss": loss, "flow_loss": flow_loss, "occ_loss": occ_loss}
+
+    return _build_steps(loss_fn, _supervised_dtype(hparams))
 
 
 def make_unsupervised_flow_step(hparams: dict):
@@ -198,6 +291,7 @@ def make_unsupervised_flow_step(hparams: dict):
     step_dtype = cdt or torch.float32
 
     def train_step(state, batch):
+        state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         with full_fp32_convs(step_dtype):
             loss, metrics = loss_fn(state, batch)
@@ -209,6 +303,7 @@ def make_unsupervised_flow_step(hparams: dict):
         return state, {k: v.detach() for k, v in metrics.items()}
 
     def eval_step(state, batch):
+        state.model.eval()
         with torch.no_grad(), full_fp32_convs(step_dtype):
             return loss_fn(state, batch)[1]
 

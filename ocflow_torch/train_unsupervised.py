@@ -38,9 +38,10 @@ def check_supported(cfg: config_lib.Config) -> None:
             "inpainting and two-stage regimes are ROADMAP A10")
     if cfg.model != "pwc":
         raise NotImplementedError(
-            f"model {cfg.model!r}: the port trains only FlowNetCV ('pwc'); the other "
-            "flow networks (BatchNorm nets need eval-mode handling in eval_step) are "
-            "ROADMAP A9")
+            f"model {cfg.model!r}: the port's unsupervised step trains only FlowNetCV "
+            "('pwc'); on the other networks (the backward-flow pass in train mode under "
+            "a stop-gradient, its BatchNorm updates kept) it is ROADMAP A9.5; "
+            "supervised training of them is python -m ocflow_torch.train")
 
 
 def viz_fn(state, batch) -> dict:

@@ -7,10 +7,12 @@ columns each block stages (``stage_rows`` in ``csrc/cv_stage.cuh``, its
 16-byte vector path and its element path), which shared-memory cells each
 thread reads, the forward's shift-row groups, and the backward's ring of
 feature rows and its shifted cotangent for df2. Each emulation is held
-against the plain PyTorch version at shapes whose rows are fewer than
-2d+1, whose width is not a multiple of the 32-column strip and whose
-channels are not a multiple of the chunk. Tolerance 1e-12 (float64,
-summation order only).
+against the plain PyTorch version, at every d the kernels are built for
+(1..10: the staged rows 32 + 2d rounded up to whole float4s, the forward's
+last shift-row group with surplus rows where IS does not divide 2d+1), at
+shapes whose rows are fewer than 2d+1, whose width is not a multiple of
+the 32-column strip and whose channels are not a multiple of the chunk.
+Tolerance 1e-12 (float64, summation order only).
 """
 
 import re
@@ -20,11 +22,17 @@ import numpy as np
 import pytest
 import torch
 
-from ocflow_torch.kernels.cost_volume import cost_volume_backward_plain, cost_volume_plain
+from ocflow_torch.kernels.cost_volume import (BACKWARD_DISPLACEMENTS, FORWARD_DISPLACEMENTS,
+                                              cost_volume_backward_plain, cost_volume_plain)
 from test_torch_ops import share_cores  # noqa: F401  (autouse)
 
 CSRC = Path(__file__).resolve().parents[1] / "ocflow_torch" / "csrc"
 TW = 32  # output columns per block, both kernels
+
+
+def _pad(d: int) -> int:
+    """2d rounded up to whole float4s (``PAD`` / ``kPad`` in the sources)."""
+    return (2 * d + 3) // 4 * 4
 
 
 def _config(source: str, macro: str) -> tuple[int, ...]:
@@ -70,7 +78,7 @@ def stage_vectors(src, nch, nch_pad, nrows, win, y0, xs, ve):
 
 
 @pytest.mark.parametrize("ve", [4, 8])
-@pytest.mark.parametrize("win, xstep", [(32, 0), (40, 0), (52, 0), (32, -1)])
+@pytest.mark.parametrize("win, xstep", [(32, 0), (36, 0), (40, 0), (52, 0), (32, -1)])
 def test_stage_vector_path_fills_the_window_as_the_element_path(ve, win, xstep):
     """Every cell of the window is written once, with the element path's
     value: starts left of the image, unaligned, and past its right edge;
@@ -88,11 +96,13 @@ def test_stage_vector_path_fills_the_window_as_the_element_path(ve, win, xstep):
 def fwd_emulated(f1, f2, d, cfg):
     """``cost_volume_fwd_kernel``'s blocks: (image, 32-column strip, band of
     R rows, group of IS shift rows), channel chunks of CC, each thread P
-    columns of one (row, shift row)."""
+    columns of one (row, shift row); the surplus rows of the last group are
+    computed and not stored."""
     r_, is_, cc_, p_, *_ = cfg
     b_, c_, h, w = f1.shape
     n = 2 * d + 1
-    win, r2, cgs = TW + 2 * d, r_ + is_ - 1, TW // p_
+    assert is_ <= n and _pad(d) % p_ == 0
+    win, r2, cgs = TW + _pad(d), r_ + is_ - 1, TW // p_
     out = np.zeros((b_, n * n, h, w))
     rr = np.arange(r_)[:, None, None, None]
     ii = np.arange(is_)[None, :, None, None]
@@ -115,7 +125,7 @@ def fwd_emulated(f1, f2, d, cfg):
                             y = y0 + r
                             ks = (i0 + i) * n + np.arange(n)
                             xs = slice(x0, min(x0 + TW, w))
-                            if y < h:
+                            if y < h and i0 + i < n:
                                 out[b, ks, y, xs] = acc[:, r, i].reshape(n, TW)[:, :w - x0] / c_
     return out
 
@@ -129,7 +139,8 @@ def bwd_emulated(f1, f2, g, d, cfg):
     r_, cb, _, p_, *_ = cfg
     b_, c_, h, w = f1.shape
     n = 2 * d + 1
-    win, cgs = TW + 2 * d, TW // p_
+    assert _pad(d) % p_ == 0
+    win, cgs = TW + _pad(d), TW // p_
     outs = [np.zeros_like(f1), np.zeros_like(f1)]
     rr = np.arange(r_)[:, None, None]
     col = (np.arange(cgs)[:, None] * p_ + np.arange(p_))[None]
@@ -177,8 +188,20 @@ def bwd_emulated(f1, f2, g, d, cfg):
 SHAPES = [(1, 20, 9, 40), (2, 13, 5, 70)]
 
 
+def test_every_built_displacement_has_its_configuration_line():
+    for d in FORWARD_DISPLACEMENTS:
+        r_, is_, *_ = _config("cost_volume.cu", f"CV_FWD_D{d}")
+        assert 1 <= is_ <= 2 * d + 1 and r_ * is_ * TW // 4 <= 1024
+    # the backward: one configuration line, instantiated for every d
+    assert len(_config("cost_volume_bwd.cu", "CV_BWD")) == 6
+    bwd = (CSRC / "cost_volume_bwd.cu").read_text()
+    for d in BACKWARD_DISPLACEMENTS:
+        assert f"case {d}: return launch<{d}, CV_BWD>" in bwd, d
+    assert FORWARD_DISPLACEMENTS == BACKWARD_DISPLACEMENTS == tuple(range(1, 11))
+
+
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("d", [4, 10])
+@pytest.mark.parametrize("d", FORWARD_DISPLACEMENTS)
 def test_forward_tiling_matches_plain(d, shape):
     rng = np.random.default_rng(d)
     f1, f2 = rng.standard_normal(shape), rng.standard_normal(shape)
@@ -188,13 +211,13 @@ def test_forward_tiling_matches_plain(d, shape):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("d", [4, 10])
+@pytest.mark.parametrize("d", BACKWARD_DISPLACEMENTS)
 def test_backward_tiling_matches_plain(d, shape):
     rng = np.random.default_rng(d + 1)
     f1, f2 = rng.standard_normal(shape), rng.standard_normal(shape)
     b, _, h, w = shape
     g = rng.standard_normal((b, (2 * d + 1) ** 2, h, w))
-    got = bwd_emulated(f1, f2, g, d, _config("cost_volume_bwd.cu", f"CV_BWD_D{d}"))
+    got = bwd_emulated(f1, f2, g, d, _config("cost_volume_bwd.cu", "CV_BWD"))
     want = cost_volume_backward_plain(*(torch.from_numpy(a) for a in (f1, f2, g)), d)
     for gt, wt in zip(got, want):
         np.testing.assert_allclose(gt, wt.numpy(), rtol=0, atol=1e-12)

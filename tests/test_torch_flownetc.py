@@ -1,7 +1,8 @@
 """The port's FlowNetC family (FlowNetC, OcclusionNetC, FlowOccNetC) and its
 d=10 cost volume == the JAX modules and kernel.
 
-Seeded port weights (BatchNorm statistics included) are mapped to flax
+Seeded port weights (BatchNorm statistics perturbed from a seed, as the
+seeded init starts BatchNorm at the identity) are mapped to flax
 variables through the JAX package's ``convert_flownetc`` /
 ``convert_occlusion_net_c`` / ``convert_flow_occ_net_c``; both packages run
 the same seeded fp32 input on the CPU in eval mode (``train=False``).
@@ -20,9 +21,11 @@ import numpy as np
 import pytest
 import torch
 
+from ocflow_torch.bench import perturb_batchnorm
 from ocflow_torch.kernels import cost_volume as cv_mod
-from ocflow_torch.models import (FlowNetC, FlowNetCV, FlowOccNetC, OcclusionNetC,
-                                 PWCNet, available, build, flownetc_from_flax,
+from ocflow_torch.models import (FlowNet, FlowNetC, FlowNetCV, FlowOccNet, FlowOccNetC,
+                                 FlowOccNetCV, FlowOccNetCV2, OcclusionNetC, PWCNet,
+                                 SimpleFlowNet, available, build, flownetc_from_flax,
                                  flowoccnetc_from_flax, occnetc_from_flax)
 from ocflow_torch.ops.cost_volume import cost_volume as plain_cost_volume
 from ocflow_tpu.models import flow_net_s as jfns
@@ -43,8 +46,9 @@ NETS = {
                     flowoccnetc_from_flax),
 }
 # sha256 over (key, fp32 bytes) of FlowNetCV(generator seed 0)'s state_dict,
-# as the init drew it before it learned BatchNorm and other kernel sizes
-FLOWNETCV_SEED0_SHA256 = "a87014c866c71a6d5f1539e80f89bdb809c1449aad32ee254f10b961e35b7fac"
+# as the init draws it from flax's distribution (truncated LeCun-normal
+# weights, fan-in cin*kh*kw for transposed convs too, zero biases)
+FLOWNETCV_SEED0_SHA256 = "8c46587034c2778d9b219a42a8629f1817d452f20561c74d6f1865e23fcb15fa"
 
 
 def _t(a):
@@ -86,6 +90,7 @@ def test_cost_volume_d10_matches_jax_and_plain(shape, reference):
 def test_forward_matches_jax(key):
     port_cls, jax_cls, convert, _ = NETS[key]
     model = port_cls(generator=torch.Generator().manual_seed(0)).eval()
+    perturb_batchnorm(model, torch.Generator().manual_seed(1))
     variables = convert(model.state_dict())
     assert set(variables) == {"params", "batch_stats"}
     x = np.random.default_rng(1).uniform(-1, 1, (2, 128, 128, 6)).astype(np.float32)
@@ -130,8 +135,9 @@ def test_from_flax_round_trip(key):
 
 
 def test_flownetcv_seeded_weights_unchanged():
-    """The init learned BatchNorm and kernels other than 3x3; FlowNetCV
-    (3x3 convs with biases, no BatchNorm) draws exactly what it drew."""
+    """FlowNetCV's seeded draws (3x3 convs with biases and 4x4 transposed
+    convs, no BatchNorm) are pinned: the init's draw order and
+    distribution do not move unnoticed."""
     sd = FlowNetCV(generator=torch.Generator().manual_seed(0)).state_dict()
     h = hashlib.sha256()
     for k, v in sd.items():
@@ -141,22 +147,36 @@ def test_flownetcv_seeded_weights_unchanged():
 
 
 def test_seeded_batchnorm_is_not_the_identity():
+    """The contract since the init draws from flax's distribution: seeded
+    BatchNorm starts at the identity (scale 1, bias 0, running mean 0,
+    variance 1, as flax's ``init``); a check that needs eval-mode
+    BatchNorm that is not the identity perturbs it from a seed
+    (``bench.perturb_batchnorm``), and then it is not."""
     model = FlowNetC(generator=torch.Generator().manual_seed(0)).requires_grad_(False)
     bn = model.conv3_1[1]
     assert model.conv3_1[0].bias is None and model.conv3_1[0].in_channels == 473
+    for t, v in ((bn.weight, 1.0), (bn.bias, 0.0), (bn.running_mean, 0.0),
+                 (bn.running_var, 1.0)):
+        assert torch.equal(t, torch.full_like(t, v))
+    conv1 = model.conv1[0].weight  # 7x7: fan-in 3 * 49
+    assert abs(float(conv1.std()) * np.sqrt(3 * 49) - 1) < 0.05
+    perturb_batchnorm(model, torch.Generator().manual_seed(0))
     for t, lo, hi in ((bn.weight, 0.5, 1.5), (bn.bias, -0.1, 0.1),
                       (bn.running_mean, -0.1, 0.1), (bn.running_var, 0.5, 2.0)):
         assert lo <= float(t.min()) < float(t.max()) <= hi
-    conv1 = model.conv1[0].weight  # 7x7: fan-in 3 * 49
-    assert abs(float(conv1.std()) * np.sqrt(3 * 49) - 1) < 0.05
+    x = torch.randn(2, 256, 4, 5, generator=torch.Generator().manual_seed(1))
+    assert (bn.eval()(x) - x).abs().max() > 0.1
 
 
 def test_registry_builds_each_key_and_raises_on_unknown():
     want = {("flow", "pwc"): FlowNetCV, ("flow", "pwcnet"): PWCNet,
             ("flow", "flownetc"): FlowNetC, ("occ", "occnetc"): OcclusionNetC,
-            ("flow_occ", "flowoccnetc"): FlowOccNetC}
-    assert available() == {"flow": ["flownetc", "pwc", "pwcnet"], "occ": ["occnetc"],
-                           "flow_occ": ["flowoccnetc"]}
+            ("flow_occ", "flowoccnetc"): FlowOccNetC, ("flow", "simple"): SimpleFlowNet,
+            ("flow", "flownet"): FlowNet, ("flow_occ", "pwoc"): FlowOccNetCV,
+            ("flow_occ", "pwoc2"): FlowOccNetCV2, ("flow_occ", "flowoccnet"): FlowOccNet}
+    assert available() == {"flow": ["flownet", "flownetc", "pwc", "pwcnet", "simple"],
+                           "occ": ["occnetc"],
+                           "flow_occ": ["flowoccnet", "flowoccnetc", "pwoc", "pwoc2"]}
     for (family, key), cls in want.items():
         assert type(build(family, key)) is cls
     a = build("flow", "flownetc", generator=torch.Generator().manual_seed(3))
@@ -167,6 +187,8 @@ def test_registry_builds_each_key_and_raises_on_unknown():
         build("flow", "flownets")
     with pytest.raises(ValueError, match="inpainting"):
         build("inpainting", "simple")
+    with pytest.raises(ValueError, match="'simple'"):
+        build("occ", "simple")
 
 
 def test_fp32_forward_pins_cudnn_convolutions_to_fp32(monkeypatch):
@@ -199,15 +221,21 @@ def test_fp32_forward_pins_cudnn_convolutions_to_fp32(monkeypatch):
 
 
 def test_kernel_wrappers_check_the_displacement_before_launching():
-    """Off the CPU the forward and the backward take d = 4 or 10, each
-    refusing another d with its own message (meta tensors reach the checks
-    without a card; they then fail the device check)."""
+    """Off the CPU the forward and the backward take every d from 1 to 10
+    (``MAX_DISPLACEMENT``) and refuse a larger one (or 0), each with its
+    own message naming the limit (meta tensors reach the checks without a
+    card; a built d then fails the device check)."""
     f = torch.empty(1, 8, 5, 6, device="meta")
-    with pytest.raises(ValueError, match=r"forward kernel is built for d in \(4, 10\), got d=7"):
-        cv_mod.cost_volume(f, f, 7)
-    with pytest.raises(ValueError, match=r"backward kernel is built for d in \(4, 10\), got d=7"):
-        cv_mod.cost_volume_backward(f, f, torch.empty(1, 225, 5, 6, device="meta"), 7)
-    for d in (4, 10):
+    assert cv_mod.MAX_DISPLACEMENT == 10
+    for d in (0, 11):
+        g = torch.empty(1, (2 * d + 1) ** 2, 5, 6, device="meta")
+        with pytest.raises(ValueError, match=rf"forward: the kernel is built for d in "
+                                             rf"1\.\.10, got d={d} .*d > 10 is not built"):
+            cv_mod.cost_volume(f, f, d)
+        with pytest.raises(ValueError, match=rf"backward: the kernel is built for d in "
+                                             rf"1\.\.10, got d={d}"):
+            cv_mod.cost_volume_backward(f, f, g, d)
+    for d in range(1, 11):
         g = torch.empty(1, (2 * d + 1) ** 2, 5, 6, device="meta")
         with pytest.raises(ValueError, match="unsupported devices"):
             cv_mod.cost_volume(f, f, d)

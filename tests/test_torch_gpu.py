@@ -25,12 +25,15 @@ from ocflow_torch.kernels import conv_chain, conv_chain_q8, cost_volume as cv_mo
 from ocflow_torch.kernels import gemm as gemm_mod
 from ocflow_torch.kernels.conv_chain import ConvSpec, conv_group, prepare_group
 from ocflow_torch.kernels.conv_chain_q8 import prepare_group_q8, quantize_q8
-from ocflow_torch.models import (FlowNetC, FlowNetCV, FlowOccNetC, OcclusionNetC,
-                                 calibrate_q8, fast_apply, prepare)
+from ocflow_torch.models import (FlowNetC, FlowNetCV, FlowOccNetC, FlowOccNetCV,
+                                 OcclusionNetC, calibrate_q8, fast_apply, prepare)
+from ocflow_torch.models import flow_occ_nets as fon
+from ocflow_torch.models.common import BatchNorm
 from ocflow_torch.models import flow_net_s as fns
 from ocflow_torch.models import pwc_fast
 from ocflow_torch.models import pwc_net
-from ocflow_torch.train import create_train_state, make_unsupervised_flow_step
+from ocflow_torch.train import (create_train_state, make_supervised_flow_occ_step,
+                                make_unsupervised_flow_step)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 
@@ -146,12 +149,37 @@ def test_cost_volume_d10_kernel_matches_plain(cuda_device, shape, dtype):
 
 
 def test_cost_volume_kernel_rejects_other_displacements(cuda_device):
+    """d = 7 now runs on both kernels (C2); d = 11, past the kernels'
+    limit, raises naming it, and so does d = 0."""
     f = torch.randn(1, 8, 9, 70, device=cuda_device)
-    g = torch.randn(1, 441, 9, 70, device=cuda_device)
-    with pytest.raises(ValueError, match="d=7"):
-        cv_mod.cost_volume(f, f, 7)
-    with pytest.raises(ValueError, match="d=7"):
-        cv_mod.cost_volume_backward(f, f, torch.randn(1, 225, 9, 70, device=cuda_device), 7)
+    for d in (0, 11):
+        g = torch.randn(1, (2 * d + 1) ** 2, 9, 70, device=cuda_device)
+        with pytest.raises(ValueError, match=rf"built for d in 1\.\.10, got d={d}"):
+            cv_mod.cost_volume(f, f, d)
+        with pytest.raises(ValueError, match=rf"built for d in 1\.\.10, got d={d}"):
+            cv_mod.cost_volume_backward(f, f, g, d)
+    g = torch.randn(1, 225, 9, 70, device=cuda_device)
+    _close(cv_mod.cost_volume(f, f, 7), cv_mod.cost_volume_plain(f, f, 7), torch.float32)
+    for got, ref in zip(cv_mod.cost_volume_backward(f, f, g, 7),
+                        cv_mod.cost_volume_backward_plain(f, f, g, 7)):
+        _close(got, ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 6, 7, 8, 9])
+def test_cost_volume_kernels_at_every_displacement_match_plain(cuda_device, d, dtype):
+    """C2: the forward and backward kernels at every d but the tuned 4 and
+    10 (those have their own tests), at a FlowNetCV level-2 width with H
+    under 2d+1 rows and W not a multiple of the 32-column strip."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    shape = (2, 40, 13, 70)
+    f1, f2 = (torch.randn(*shape, device=cuda_device, generator=gen).to(dtype)
+              for _ in range(2))
+    g = torch.randn(2, (2 * d + 1) ** 2, 13, 70, device=cuda_device, generator=gen).to(dtype)
+    _close(cv_mod.cost_volume(f1, f2, d), cv_mod.cost_volume_plain(f1, f2, d), dtype)
+    for got, ref in zip(cv_mod.cost_volume_backward(f1, f2, g, d),
+                        cv_mod.cost_volume_backward_plain(f1, f2, g, d)):
+        _close(got, ref, dtype)
 
 
 @pytest.mark.parametrize("cls", [FlowNetC, OcclusionNetC, FlowOccNetC])
@@ -577,3 +605,86 @@ def test_fast_apply_at_kitti_shape_replays_against_plain(cuda_device, mode):
                             conv_chain_q8.conv_group_q8_plain(*args)):
                 assert torch.equal(g, r)
     assert widths == {19, 38, 76, 152, 304}
+
+
+class _PlainBackward(torch.autograd.Function):
+    """The cost-volume kernel's forward with the plain backward."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, d):
+        ctx.save_for_backward(f1, f2)
+        ctx.d = d
+        return cv_mod.cost_volume(f1, f2, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*cv_mod.cost_volume_backward_plain(*ctx.saved_tensors, g.contiguous(), ctx.d),
+                None)
+
+
+def test_supervised_pwoc_step_on_gpu_matches_the_plain_cost_volume(cuda_device):
+    """One supervised flow+occlusion step of FlowOccNetCV (pwoc) at 2x128x256
+    fp32, deterministic algorithms: 5 cost-volume and 5 backward launches,
+    nothing else; the loss within 1e-5 relative of the same step on the
+    plain cost volume, and each parameter's gradient within 1e-4 of its
+    max|grad| of the same step with the plain backward on the kernel's
+    forward (only the backward's summation order differs; with the plain
+    forward too, its summation order flips LeakyReLU slopes)."""
+    gen = torch.Generator().manual_seed(0)
+    model = FlowOccNetCV(generator=gen)
+    x = torch.rand((2, 128, 256, 6), generator=gen) * 2 - 1
+    batch = {"images": x.to(cuda_device),
+             "flow": (torch.randn((2, 128, 256, 2), generator=gen) * 3).to(cuda_device),
+             "occ": (torch.rand((2, 128, 256, 1), generator=gen) > 0.8).float().to(cuda_device)}
+    train_step, _ = make_supervised_flow_occ_step({"model": "pwoc"})
+    states = {}
+    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    counters = (cv_mod.cost_volume, cv_mod.cost_volume_backward, conv_chain.conv_group,
+                conv_chain.conv_group_diff, conv_chain_q8.conv_group_q8)
+    saved = fon.cost_volume
+    try:
+        for name, fn in (("kernel", saved), ("plain backward", _PlainBackward.apply),
+                         ("plain", cv_mod.cost_volume_plain)):
+            net = FlowOccNetCV()
+            net.load_state_dict(model.state_dict())
+            state = create_train_state(net, 1e-4, device=cuda_device)
+            for c in counters:
+                c.launches = 0
+            fon.cost_volume = fn
+            _, metrics = train_step(state, batch)
+            torch.cuda.synchronize()
+            states[name] = (state, metrics, [c.launches for c in counters])
+    finally:
+        fon.cost_volume = saved
+        torch.backends.cudnn.deterministic = det[0]
+        torch.use_deterministic_algorithms(det[1], warn_only=det[2])
+    state, metrics, launches = states["kernel"]
+    assert launches == [5, 5, 0, 0, 0]
+    for k, v in states["plain"][1].items():
+        assert abs(metrics[k].item() - v.item()) <= 1e-5 * abs(v.item()), k
+    ref_grads = dict(states["plain backward"][0].model.named_parameters())
+    for name, p in state.model.named_parameters():
+        r = ref_grads[name].grad
+        assert (p.grad - r).abs().max() <= 1e-4 * r.abs().max(), name
+
+
+def test_flax_batchnorm_on_gpu_matches_the_cpu(cuda_device):
+    """``models.common.BatchNorm`` in train mode on the card: the output and
+    the updated running statistics (flax's biased-variance update) equal
+    the CPU's within 1e-5."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 16, 24, 40), generator=gen) * 2 + 0.5
+    bns = [BatchNorm(16), BatchNorm(16).to(cuda_device)]
+    for bn in bns:
+        bn.weight.data.copy_(torch.linspace(0.5, 1.5, 16))
+        bn.bias.data.copy_(torch.linspace(-0.1, 0.1, 16))
+    outs = [bn.train()(x.to(bn.weight.device)) for bn in bns]
+    assert (outs[1].cpu() - outs[0]).abs().max() <= 1e-5 * outs[0].abs().max()
+    var = x.var(dim=(0, 2, 3), correction=0)
+    torch.testing.assert_close(bns[0].running_var, 0.9 + 0.1 * var, rtol=1e-5, atol=1e-6)
+    for name in ("running_mean", "running_var"):
+        torch.testing.assert_close(getattr(bns[1], name).cpu(), getattr(bns[0], name),
+                                   rtol=1e-5, atol=1e-6)

@@ -178,16 +178,26 @@ FIT = {"network_type": "flow", "model": "pwc", "dataset_name": "SyntheticFlowWar
 # Every CSV metric of the port's fit against the JAX fit's, relative, per
 # learning rate. The two run the same data, splits, shuffles and weights.
 # At lr 0 only the loop's own arithmetic differs (the steps' forward sums):
-# measured <= 7.7e-6 over the 6 train and 2 val rows. With updates the
+# measured <= 1.48e-5 over the 6 train and 2 val rows (train smooth2, step 0;
+# 7.7e-6 on the init's earlier draws). With updates the
 # trajectories part: Adam moves every weight by about lr whatever |grad|,
 # so a near-zero gradient whose sign the summation order decides moves a
 # weight by 2 lr the other way, and the early, chaotic training amplifies
-# that step by step. Measured at lr 1e-6: 1.2e-4 (val, step 6); at 1e-5:
-# 7.0e-3; at the config's 1e-4: 0.58 (flow_error, step 6), where the port
-# against itself with its weights scaled by 1 + 1e-7 N(0, 1) drifts to 0.16
-# by the same step: the dynamics, not a difference of the two systems. The
-# bounds are 2.6x and 4x the measured drift.
-FIT_REL = {0.0: 2e-5, 1e-6: 5e-4}
+# that step by step. Measured at lr 1e-5 on the init's earlier draws: 7.0e-3;
+# at the config's 1e-4: 0.58 (flow_error, step 6), where the port against
+# itself with its weights scaled by 1 + 1e-7 N(0, 1) drifts to 0.16 by the
+# same step: the dynamics, not a difference of the two systems.
+# At lr 1e-6 on the seeded init (flax's draws) the drift is 2.93e-3 (val
+# smooth1, step 6; one thread and four alike); 1.2e-4 on the earlier draws.
+# It is the JAX package's fp32 rounding: from the second update on, the port
+# in fp32 stays within 1.3e-5 of the same fit in fp64 (eager), and within
+# 6.2e-6 of itself with its weights scaled by 1 + 1e-7 N(0, 1), while the
+# JAX fit reads 2.95e-3 from the fp64 fit. On the fit's first batch the JAX
+# step's gradients lie a median 5.3e-4 from the fp64 step's per tensor, the
+# port's 1.35e-5; with jax_enable_x64 the JAX step follows the fp64 port
+# within 1.2e-6 in every metric over the fit's first three steps. The
+# bounds are 1.35x the measured drift at lr 0 and 1.36x at lr 1e-6.
+FIT_REL = {0.0: 2e-5, 1e-6: 4e-3}
 
 
 def _outputs(tmp_path, name):
