@@ -130,6 +130,26 @@ Phases (any failure raises and exits non-zero):
    ``evaluate`` (launches per batch, every cost-volume call replayed, the
    metrics against the plain cost volume).
 
+13. the unsupervised zoo, at 448x1024, B=8, seeded, on
+   ``SyntheticFlowWarp``: one occlusion-aware unsupervised train step of
+   ``flownetc``, ``flownet`` and ``pwcnet`` with
+   ``configs/longrun_synthetic.yaml``'s hparams (``compute_dtype:
+   bfloat16`` casts the loss tail only): its launches (2 cost volumes and 1
+   backward at d=10; 10 and 5 at d=4), every cost-volume call forward and
+   backward replayed against its plain version, the loss, metrics and
+   BatchNorm statistics after both train-mode passes against the same step
+   on the plain cost volume, the gradients against the plain backward on
+   the kernel forward (deterministic algorithms, biases printed both ways),
+   ``cudnn.allow_tf32`` read inside the step (off), the warm step's ms;
+   ``python -m ocflow_torch.train_unsupervised`` on the longrun config with
+   ``model: flownetc`` cut to 44 samples and 2 epochs (exit 0, CSV rows,
+   BatchNorm statistics moved in the best checkpoint, a finite test EPE,
+   its wall time); the eval forward of the seven nets that launch no kernel
+   of this repository (``flownets``, ``eflownet``, ``eflownet2``,
+   ``occ/simple``, ``occnets``, ``flow_occ/simple``, ``flowoccnets``):
+   no launches, the card against the CPU at 2x64x128 (1e-4 of max|out|),
+   ms per forward.
+
 Phases 6 and 8 hold their references (the eager fp32 forward, the eager
 step) on the plain cost volume; phase 6 also holds the eager forward on the
 cost-volume kernel (5 launches) against it.
@@ -1926,7 +1946,7 @@ def _net_module(key):
     from ocflow_torch.models import flow_net, flow_net_s, flow_occ_nets, pwc_net
 
     return {"pwoc": flow_occ_nets, "pwoc2": flow_occ_nets, "flowoccnet": flow_occ_nets,
-            "flownet": flow_net, "pwc": pwc_net}.get(key, flow_net_s)
+            "flownet": flow_net, "pwc": pwc_net, "pwcnet": pwc_net}.get(key, flow_net_s)
 
 
 def _bias_term_sums(model, sums):
@@ -1946,12 +1966,209 @@ def _bias_term_sums(model, sums):
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and m.bias is not None]
 
 
+def _grad_scales(model, ref_grads, terms):
+    """``(scale, bn_fed)``: ``scale(name, ref)`` is what a parameter's
+    gradient error against ``ref`` is held over (see the phase-12 constants
+    above): a bias fed to a train-mode BatchNorm (FPNUp's deconv; ``bn_fed``,
+    its names) over the net's largest max|grad|, a bias over the larger of
+    its max|grad| and SUP_BIAS_TERMS / SUP_GRAD_REL of its terms' absolute
+    sum (``terms``, from :func:`_bias_term_sums`), any other tensor over its
+    max|grad|."""
+    from ocflow_torch.models.feature_pyramid import FPNUp
+
+    top = max(g.abs().max() for g in ref_grads.values())
+    bn_fed = {f"{m}.deconv.bias" for m, mod in model.named_modules()
+              if isinstance(mod, FPNUp)}
+
+    def scale(n, ref):
+        if n in bn_fed:
+            return top
+        cond = terms.get(n[:-len(".bias")], 0.0) if n.endswith(".bias") else 0.0
+        return torch.maximum(ref[n].abs().max(), torch.as_tensor(
+            SUP_BIAS_TERMS / SUP_GRAD_REL * cond, device=ref[n].device)).clamp_min(1e-30)
+
+    return scale, bn_fed
+
+
+def _print_bias_terms(label, grads, ref_grads, gerr, scale, bn_fed):
+    """Print each bias whose scale the term-sum rule raised above its own
+    max|grad|: its error over its own max|grad|, over the term-sum scale,
+    and the bound that amounts to over its own max|grad|."""
+    held = []
+    for n, r in ref_grads.items():
+        own = r.abs().max().clamp_min(1e-30)
+        ratio = (scale(n, ref_grads) / own).item()
+        if n.endswith(".bias") and n not in bn_fed and ratio > 1:
+            held.append((n, ((grads[n] - r).abs().max() / own).item(), gerr[n],
+                         SUP_GRAD_REL * ratio))
+    held.sort(key=lambda t: -t[1])
+    print(f"e2e {label}: {len(held)} biases held by their terms' sum (name: error over "
+          f"its own max|grad|, over the term-sum scale, effective bound over its own "
+          f"max|grad|): " + ", ".join(f"{n} {e_own:.3e} {e_scaled:.3e} {bound:.3e}"
+                                      for n, e_own, e_scaled, bound in held))
+
+
+def _hold_train_step(card, max_err, label, desc, model, train_step, batch, module,
+                     expect_cv, det, lr=1e-4, dev="cuda", around=contextlib.nullcontext,
+                     witness=False):
+    """One train step of ``model`` (``train_step`` from one of the step
+    factories) on ``batch``, held as the phase-12 constants above say: the
+    kernel step inside ``around()``, its launches against ``expect_cv``
+    (cost-volume forward and backward; nothing else), every cost-volume call
+    forward and backward replayed against its plain version, the loss,
+    metrics and BatchNorm statistics against the same step on the plain cost
+    volume, the gradients against the same step with the plain backward on
+    the kernel forward (each bias by its terms' sum too, printed both ways),
+    with ``witness`` an fp64 step on the plain cost volume printed; then the
+    warm step's ms (median of 5) with the algorithms ``det`` names (the
+    caller's deterministic ones are on until then). ``module`` is the module
+    whose name ``cost_volume`` the net calls. Returns the launch counts, the
+    step ms and the failures."""
+    import math
+
+    from ocflow_torch.bench import BATCH, HEIGHT, WIDTH
+    from ocflow_torch.kernels import cost_volume as cv_mod
+    from ocflow_torch.train import TrainState, create_train_state
+
+    failures = []
+    ref_model = copy.deepcopy(model)
+    state = create_train_state(model, lr, device=dev)
+    box = {}
+    with around():
+        _zero_counts()
+        calls = _record([(module, "cost_volume"), (cv_mod, "cost_volume_backward")],
+                        lambda: box.update(out=train_step(state, batch)))
+        counts = _read_counts()
+    metrics = box.pop("out")[1]
+    grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+    stats = {n: b.detach().clone() for n, b in state.model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+
+    # the references: the same step with the kernel forward and the plain
+    # backward (gradients held), and with the plain cost volume forward and
+    # backward (metrics and statistics held; its gradients printed: the
+    # forward's summation order flips LeakyReLU slopes)
+    refs, terms = {}, {}
+    for name, fn in (("plain backward", lambda f1, f2, d: _PlainBackward.apply(
+                         f1, f2, d, cv_mod.cost_volume)),
+                     ("plain", cv_mod.cost_volume_plain)):
+        ref_state = create_train_state(copy.deepcopy(ref_model), lr, device=dev)
+        saved = module.cost_volume
+        module.cost_volume = fn
+        hooks = _bias_term_sums(ref_state.model, terms) if name != "plain" else []
+        try:
+            _, ref_metrics = train_step(ref_state, batch)
+        finally:
+            module.cost_volume = saved
+            for h in hooks:
+                h.remove()
+        refs[name] = (ref_metrics,
+                      {n: p.grad for n, p in ref_state.model.named_parameters()},
+                      {n: b for n, b in ref_state.model.named_buffers() if n in stats})
+        del ref_state
+    ref_grads = refs["plain backward"][1]
+    ref_metrics, plain_grads, ref_stats = refs["plain"]
+    exact_grads = None
+    if witness:
+        # the same step in fp64 on the plain cost volume
+        exact = copy.deepcopy(ref_model).to(dev, torch.float64)
+        exact_state = TrainState(exact, torch.optim.Adam(exact.parameters(), lr=lr))
+        saved = module.cost_volume
+        module.cost_volume = cv_mod.cost_volume_plain
+        try:
+            train_step(exact_state, {k: v.double() if v.is_floating_point() else v
+                                     for k, v in batch.items()})
+        finally:
+            module.cost_volume = saved
+        exact_grads = {n: p.grad for n, p in exact.named_parameters()}
+        del exact_state, exact
+
+    n_fwd, n_bwd = expect_cv
+    expect = {k: 0 for k in counts}
+    expect.update(cost_volume=n_fwd, cost_volume_bwd=n_bwd)
+    n_rec = sum(k == "cost_volume" for k, _ in calls)
+    print(f"main path {label} ({desc}, B={BATCH} {HEIGHT}x{WIDTH}) launches: {counts} "
+          f"(expected {expect})")
+    if counts != expect or (n_rec, len(calls) - n_rec) != (n_fwd, n_bwd):
+        failures.append(f"{label} launches {counts}")
+    for k, (kind, args) in enumerate(calls):
+        _check_float("cost_volume_bwd" if kind == "cost_volume_backward" else kind,
+                     args, torch.float32, max_err, f"{label} d={args[-1]} call {k} ")
+    del calls
+    merr = {k: abs(metrics[k].item() - v.item()) / max(abs(v.item()), 1e-30)
+            for k, v in ref_metrics.items()}
+    scale, bn_fed = _grad_scales(ref_model, ref_grads, terms)
+
+    def grad_errors(ref):
+        return {n: ((g - ref[n]).abs().max() / scale(n, ref)).item()
+                for n, g in grads.items()}
+
+    gerr, gplain = grad_errors(ref_grads), grad_errors(plain_grads)
+    _print_bias_terms(label, grads, ref_grads, gerr, scale, bn_fed)
+    if exact_grads is not None:
+        # each tensor over its own max|grad| (a bias fed to a train-mode
+        # BatchNorm over the net's largest), not held
+        top64 = max(g.abs().max() for g in exact_grads.values())
+        wit = {}
+        for what, got in (("kernel step", grads), ("plain cost volume step", plain_grads)):
+            wit[what] = {n: ((got[n].double() - g).abs().max() / (
+                top64 if n in bn_fed else g.abs().max().clamp_min(1e-300))).item()
+                for n, g in exact_grads.items()}
+        print(f"e2e {label}: gradients against the fp64 step on the plain cost volume "
+              f"(not held), worst / median over {len(exact_grads)} tensors: "
+              + "; ".join(f"{what} {_worst(e)} / {sorted(e.values())[len(e) // 2]:.3e}"
+                          for what, e in wit.items()))
+        del exact_grads
+    serr = {n: ((b - ref_stats[n]).abs().max()
+                / ref_stats[n].abs().max().clamp_min(1e-30)).item()
+            for n, b in stats.items()}
+    print(f"e2e {label}: loss {metrics['loss'].item():.6e}, on the plain cost volume "
+          f"{ref_metrics['loss'].item():.6e}, metrics relative {_worst(merr)} (tol "
+          f"{SUP_LOSS_REL}); gradients against the plain backward on the same forward, "
+          f"worst max-abs over max|grad| (a bias: over the term-sum scale where that is "
+          f"larger, listed above) {_worst(gerr)} over {len(gerr)} tensors (tol "
+          f"{SUP_GRAD_REL}); against the plain forward and backward {_worst(gplain)} (not "
+          f"held: the forward's summation order flips LeakyReLU slopes); BatchNorm "
+          f"statistics worst {_worst(serr) if serr else 'none'} over {len(serr)} buffers "
+          f"(tol {SUP_STATS_REL})")
+    if max(merr.values()) > SUP_LOSS_REL or max(gerr.values()) > SUP_GRAD_REL or (
+            serr and max(serr.values()) > SUP_STATS_REL) or not all(
+            math.isfinite(v.item()) for v in metrics.values()):
+        failures.append(f"{label}: metrics {_worst(merr)}, gradients {_worst(gerr)}, "
+                        f"statistics {_worst(serr) if serr else None}")
+    if serr:
+        moved = max((b - 1.0 if n.endswith("var") else b).abs().max().item()
+                    for n, b in stats.items())
+        print(f"e2e {label}: BatchNorm statistics moved from the identity by up to "
+              f"{moved:.3e}")
+        if not moved > 0:
+            failures.append(f"{label}: BatchNorm statistics did not move")
+    del refs, ref_grads, plain_grads, ref_stats, grads, stats, ref_model
+
+    # the warm step's time, median of 5, with the algorithms ``det`` names
+    # (PyTorch's defaults: what a run of the CLI takes)
+    torch.backends.cudnn.deterministic = det[0]
+    torch.use_deterministic_algorithms(det[1], warn_only=det[2])
+    train_step(state, batch)
+    each = []
+    for _ in range(5):
+        _, ms = _timed_once(lambda: train_step(state, batch))
+        each.append(ms)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    step_ms = sorted(each)[2]
+    print(f"time {label} train step B={BATCH} {HEIGHT}x{WIDTH} ({desc}): {step_ms:.3f} ms "
+          f"(median of 5 warm steps, CUDA events, default algorithms; runs "
+          f"{[round(e, 3) for e in each]}), {BATCH * 1e3 / step_ms:.2f} pairs/s [{card}]")
+    del state
+    torch.cuda.empty_cache()
+    return counts, step_ms, failures
+
+
 def _supervised_step_phase(card, max_err, sintel_root, dev="cuda"):
     """One supervised train step of each net of ``SUP_NETS`` (see the
-    constants above): launches, every cost-volume call forward and backward
-    replayed against its plain version, the step against the plain-cost-volume
-    step, pwoc's gradient into its occlusion gate through ``warped * occ``,
-    the warm step's ms (median of 5); then FlowNetCV's step under
+    constants above, :func:`_hold_train_step`), pwoc's gradient into its
+    occlusion gate through ``warped * occ``; then FlowNetCV's step under
     ``compute_dtype: bfloat16``. Returns the launch counts per net and the
     step ms per net."""
     import math
@@ -1960,12 +2177,10 @@ def _supervised_step_phase(card, max_err, sintel_root, dev="cuda"):
 
     from ocflow_torch.bench import BATCH, HEIGHT, SEED, WIDTH
     from ocflow_torch.data import DataLoader, build_dataset
-    from ocflow_torch.kernels import cost_volume as cv_mod
     from ocflow_torch.models import flow_occ_nets as fon
     from ocflow_torch.models import registry
-    from ocflow_torch.models.feature_pyramid import FPNUp
     from ocflow_torch.models.pwc_net import FlowNetCV
-    from ocflow_torch.train import TrainState, create_train_state
+    from ocflow_torch.train import create_train_state
     from ocflow_torch.train.__main__ import REGIMES
 
     data = {"sintel": build_dataset("MpiSintelFlowOccClean", root=sintel_root,
@@ -1987,191 +2202,42 @@ def _supervised_step_phase(card, max_err, sintel_root, dev="cuda"):
             gen = torch.Generator().manual_seed(SEED)
             model = FlowNetCV(generator=gen) if key == "pwc" else registry.build(
                 family, key, generator=gen)
-            ref_model = copy.deepcopy(model)
-            hp = {"model": key, "compute_dtype": "float32"}
-            train_step, _ = REGIMES[network_type][1](hp)
-            batch = batches[source]
-            module = _net_module(key)
+            train_step, _ = REGIMES[network_type][1]({"model": key,
+                                                      "compute_dtype": "float32"})
+            gate = []
 
-            # the kernel step: launches counted, calls recorded, pwoc's gate
-            state = create_train_state(model, 1e-4, device=dev)
-            gate, box = [], {}
-            saved_gate = fon.occlusion_gated_cost_volume
+            @contextlib.contextmanager
+            def gated_cost_volume():
+                """pwoc's gradient into its occlusion gate, recorded."""
+                saved_gate = fon.occlusion_gated_cost_volume
 
-            def gated(f1, warped, occ, d):
-                prod = warped * occ
-                if prod.requires_grad:
-                    prod.register_hook(lambda g, w=warped: gate.append(  # noqa: B023
-                        (g * w).sum(1).abs().max().item()))
-                return F.leaky_relu(fon.cost_volume(f1, prod, d), 0.1)
+                def gated(f1, warped, occ, d):
+                    prod = warped * occ
+                    if prod.requires_grad:
+                        prod.register_hook(lambda g, w=warped: gate.append(  # noqa: B023
+                            (g * w).sum(1).abs().max().item()))
+                    return F.leaky_relu(fon.cost_volume(f1, prod, d), 0.1)
 
-            fon.occlusion_gated_cost_volume = gated
-            try:
-                _zero_counts()
-                calls = _record([(module, "cost_volume"), (cv_mod, "cost_volume_backward")],
-                                lambda: box.update(out=train_step(state, batch)))  # noqa: B023
-                counts = _read_counts()
-            finally:
-                fon.occlusion_gated_cost_volume = saved_gate
-            metrics = box.pop("out")[1]
-            grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
-            stats = {n: b.detach().clone() for n, b in state.model.named_buffers()
-                     if n.endswith(("running_mean", "running_var"))}
-
-            # the references: the same step with the kernel forward and the
-            # plain backward (gradients held), and with the plain cost volume
-            # forward and backward (loss and statistics held; its gradients
-            # printed: the forward's summation order flips LeakyReLU slopes)
-            refs, terms = {}, {}
-            for name, fn in (("plain backward", lambda f1, f2, d: _PlainBackward.apply(
-                                 f1, f2, d, cv_mod.cost_volume)),
-                             ("plain", cv_mod.cost_volume_plain)):
-                ref_state = create_train_state(copy.deepcopy(ref_model), 1e-4, device=dev)
-                saved = module.cost_volume
-                module.cost_volume = fn
-                hooks = _bias_term_sums(ref_state.model, terms) if name != "plain" else []
+                fon.occlusion_gated_cost_volume = gated
                 try:
-                    _, ref_metrics = train_step(ref_state, batch)
+                    yield
                 finally:
-                    module.cost_volume = saved
-                    for h in hooks:
-                        h.remove()
-                refs[name] = (ref_metrics,
-                              {n: p.grad for n, p in ref_state.model.named_parameters()},
-                              {n: b for n, b in ref_state.model.named_buffers() if n in stats})
-                del ref_state
-            ref_grads = refs["plain backward"][1]
-            ref_metrics, plain_grads, ref_stats = refs["plain"]
-            # the witness: the same step in fp64 on the plain cost volume
-            exact = copy.deepcopy(ref_model).to(dev, torch.float64)
-            exact_state = TrainState(exact, torch.optim.Adam(exact.parameters(), lr=1e-4))
-            saved = module.cost_volume
-            module.cost_volume = cv_mod.cost_volume_plain
-            try:
-                train_step(exact_state, {k: v.double() if v.is_floating_point() else v
-                                         for k, v in batch.items()})
-            finally:
-                module.cost_volume = saved
-            exact_grads = {n: p.grad for n, p in exact.named_parameters()}
-            del exact_state, exact
+                    fon.occlusion_gated_cost_volume = saved_gate
 
-            d = calls[0][1][2]
-            n_fwd = sum(k == "cost_volume" for k, _ in calls)
-            expect = {k: 0 for k in counts}
-            expect.update(cost_volume=1 if d == 10 else 5, cost_volume_bwd=1 if d == 10 else 5)
-            print(f"main path supervised_{key} (one {network_type} train step, B={BATCH} "
-                  f"{HEIGHT}x{WIDTH} fp32) launches: {counts} (expected {expect})")
-            if counts != expect or (n_fwd, len(calls) - n_fwd) != (
-                    expect["cost_volume"], expect["cost_volume_bwd"]):
-                failures.append(f"supervised {key} launches {counts}")
-            for k, (kind, args) in enumerate(calls):
-                _check_float("cost_volume_bwd" if kind == "cost_volume_backward" else kind,
-                             args, torch.float32, max_err, f"supervised {key} d={d} call {k} ")
-            del calls
-            launches[f"supervised_{key}"] = counts
-            merr = {k: abs(metrics[k].item() - v.item()) / max(abs(v.item()), 1e-30)
-                    for k, v in ref_metrics.items()}
-            # a bias that feeds a train-mode BatchNorm directly (FPNUp's
-            # deconv) has a zero gradient in exact arithmetic: rounding
-            # noise, held to the net's largest gradient instead
-            top = max(g.abs().max() for g in ref_grads.values())
-            bn_fed = {f"{m}.deconv.bias" for m, mod in ref_model.named_modules()
-                      if isinstance(mod, FPNUp)}
-
-            def scale(n, ref):
-                if n in bn_fed:
-                    return top
-                # a bias's gradient sums its output's gradient over B*H*W
-                # pixels: where those terms cancel, fp32 summation order
-                # moves it by a few eps of their absolute sum
-                cond = terms.get(n[:-len(".bias")], 0.0) if n.endswith(".bias") else 0.0
-                return torch.maximum(ref[n].abs().max(), torch.as_tensor(
-                    SUP_BIAS_TERMS / SUP_GRAD_REL * cond, device=ref[n].device)
-                ).clamp_min(1e-30)
-
-            def grad_errors(ref):
-                return {n: ((g - ref[n]).abs().max() / scale(n, ref)).item()
-                        for n, g in grads.items()}
-
-            gerr, gplain = grad_errors(ref_grads), grad_errors(plain_grads)
-            # the biases whose scale the term-sum rule raised above their own
-            # max|grad|: both readings, and the bound that amounts to
-            held_by_terms = []
-            for n, r in ref_grads.items():
-                own = r.abs().max().clamp_min(1e-30)
-                ratio = (scale(n, ref_grads) / own).item()
-                if n.endswith(".bias") and n not in bn_fed and ratio > 1:
-                    held_by_terms.append((n, ((grads[n] - r).abs().max() / own).item(),
-                                          gerr[n], SUP_GRAD_REL * ratio))
-            held_by_terms.sort(key=lambda t: -t[1])
-            print(f"e2e supervised_{key}: {len(held_by_terms)} biases held by their terms' "
-                  f"sum (name: error over its own max|grad|, over the term-sum scale, "
-                  f"effective bound over its own max|grad|): " + ", ".join(
-                      f"{n} {e_own:.3e} {e_scaled:.3e} {bound:.3e}"
-                      for n, e_own, e_scaled, bound in held_by_terms))
-            # fp64 witness, each tensor over its own max|grad| (a bias fed to
-            # a train-mode BatchNorm over the net's largest), not held
-            top64 = max(g.abs().max() for g in exact_grads.values())
-            wit = {}
-            for what, got in (("kernel step", grads), ("plain cost volume step", plain_grads)):
-                wit[what] = {n: ((got[n].double() - g).abs().max() / (
-                    top64 if n in bn_fed else g.abs().max().clamp_min(1e-300))).item()
-                    for n, g in exact_grads.items()}
-            print(f"e2e supervised_{key}: gradients against the fp64 step on the plain cost "
-                  f"volume (not held), worst / median over {len(exact_grads)} tensors: "
-                  + "; ".join(f"{what} {_worst(e)} / {sorted(e.values())[len(e) // 2]:.3e}"
-                              for what, e in wit.items()))
-            del exact_grads
-            serr = {n: ((b - ref_stats[n]).abs().max()
-                        / ref_stats[n].abs().max().clamp_min(1e-30)).item()
-                    for n, b in stats.items()}
-            print(f"e2e supervised_{key}: loss {metrics['loss'].item():.6e}, on the plain "
-                  f"cost volume {ref_metrics['loss'].item():.6e}, metrics relative "
-                  f"{_worst(merr)} (tol {SUP_LOSS_REL}); gradients against the plain "
-                  f"backward on the same forward, worst max-abs over max|grad| (a bias: "
-                  f"over the term-sum scale where that is larger, listed above) "
-                  f"{_worst(gerr)} over {len(gerr)} tensors (tol {SUP_GRAD_REL}); against "
-                  f"the plain forward and backward {_worst(gplain)} (not held: the "
-                  f"forward's summation order flips LeakyReLU slopes); BatchNorm "
-                  f"statistics worst {_worst(serr) if serr else 'none'} over {len(serr)} "
-                  f"buffers (tol {SUP_STATS_REL})")
-            if max(merr.values()) > SUP_LOSS_REL or max(gerr.values()) > SUP_GRAD_REL or (
-                    serr and max(serr.values()) > SUP_STATS_REL):
-                failures.append(f"supervised {key}: metrics {_worst(merr)}, gradients "
-                                f"{_worst(gerr)}, statistics {_worst(serr) if serr else None}")
-            if serr:
-                moved = max((b - 1.0 if n.endswith("var") else b).abs().max().item()
-                            for n, b in stats.items())
-                print(f"e2e supervised_{key}: BatchNorm statistics moved from the identity "
-                      f"by up to {moved:.3e}")
-                if not moved > 0:
-                    failures.append(f"supervised {key}: BatchNorm statistics did not move")
+            label = f"supervised_{key}"
+            d10 = key in ("flowoccnetc", "occnetc")
+            launches[label], step_ms[key], found = _hold_train_step(
+                card, max_err, label, f"one {network_type} train step, fp32", model,
+                train_step, batches[source], _net_module(key), (1, 1) if d10 else (5, 5),
+                det, dev=dev, around=gated_cost_volume, witness=True)
+            failures += found
             if key == "pwoc":
                 print(f"e2e supervised_pwoc: gradient into the occlusion gate through "
                       f"warped * occ, max over the four gated levels "
                       f"{max(gate) if gate else 0.0:.3e} ({len(gate)} levels)")
                 if len(gate) != 4 or not max(gate) > 0:
                     failures.append(f"pwoc gate gradient {gate}")
-
-            # the warm step's time, median of 5, with PyTorch's default
-            # algorithms (what a run of the CLI takes)
-            torch.backends.cudnn.deterministic = det[0]
-            torch.use_deterministic_algorithms(det[1], warn_only=det[2])
-            train_step(state, batch)
-            each = []
-            for _ in range(5):
-                _, ms = _timed_once(lambda: train_step(state, batch))  # noqa: B023
-                each.append(ms)
-            torch.backends.cudnn.deterministic = True
-            torch.use_deterministic_algorithms(True, warn_only=True)
-            step_ms[key] = sorted(each)[2]
-            print(f"time supervised_{key} train step B={BATCH} {HEIGHT}x{WIDTH} fp32: "
-                  f"{step_ms[key]:.3f} ms (median of 5 warm steps, CUDA events, default "
-                  f"algorithms; runs "
-                  f"{[round(e, 3) for e in each]}), {BATCH * 1e3 / step_ms[key]:.2f} pairs/s "
-                  f"[{card}]")
-            del state, model, refs, ref_grads, plain_grads, ref_stats, grads, stats, ref_model
-            torch.cuda.empty_cache()
+            del model
     finally:
         torch.backends.cudnn.deterministic = det[0]
         torch.use_deterministic_algorithms(det[1], warn_only=det[2])
@@ -2311,6 +2377,229 @@ def _phase12(card, max_err, trees):
         launches[run[0]], _ = _eval_path(card, max_err, *run)
     print(f"supervised: phase 12 took {time.perf_counter() - t0:.1f} s wall")
     return launches, per_d, step_ms
+
+
+# phase 13: the unsupervised zoo. One occlusion-aware unsupervised train
+# step of each flow net that launches a kernel of this repository, with
+# configs/longrun_synthetic.yaml's hparams (range-map occlusion, photo 4.0,
+# smooth1 0.5, compute_dtype bfloat16: the loss tail's images only, the net
+# in fp32), at 448x1024, B=8, seeded weights, on SyntheticFlowWarp. Held as
+# phase 12 holds the supervised steps (its constants): the metrics and every
+# BatchNorm running statistic after the step (two train-mode passes: the
+# forward and the stop-gradient backward-flow pass) within 1e-5 of the same
+# step on the plain cost volume, each gradient within 1e-4 of its max|grad|
+# of the same step with the plain backward on the kernel forward (a bias by
+# its terms' sum too, printed both ways), deterministic algorithms; TF32 is
+# switched on around the kernel step and read inside it (the forward, the
+# backward-flow pass, the backward): it must read off. (registry key:
+# cost-volume launches of one step, forward and backward)
+UNSUP_NETS = {"flownetc": (2, 1), "flownet": (10, 5), "pwcnet": (10, 5)}
+# the CLI run: configs/longrun_synthetic.yaml with these, its outputs in a
+# temporary directory (44 samples: 35 / 4 / 5, 4 steps an epoch)
+UNSUP_CLI_CUTS = {"model": "flownetc", "dataset_size": 44, "max_epochs": 2,
+                  "log_every_n_steps": 1, "log_image_every_epoch": 1}
+# the nets that launch no kernel of this repository, served (eval, fp32);
+# each held against the same net on the CPU at ZOO_SMALL within ZOO_REL of
+# max|out| (summation order; TF32 or a cuDNN algorithm would show)
+ZOO_SERVED = (("flow", "flownets"), ("flow", "eflownet"), ("flow", "eflownet2"),
+              ("occ", "simple"), ("occ", "occnets"), ("flow_occ", "simple"),
+              ("flow_occ", "flowoccnets"))
+ZOO_SMALL = (2, 64, 128)
+ZOO_REL = 1e-4
+
+
+def _unsup_step_phase(card, max_err, batch, dev="cuda"):
+    """One unsupervised train step of each net of ``UNSUP_NETS`` (see the
+    constants above, :func:`_hold_train_step`), PyTorch's default TF32 flag
+    on around the kernel step and read inside it. Returns the launch counts
+    by path and the step ms by net."""
+    from torch import nn
+
+    from ocflow_torch.bench import SEED
+    from ocflow_torch.models import registry
+    from ocflow_torch.train import config as config_lib
+    from ocflow_torch.train import make_unsupervised_flow_step
+
+    hp = config_lib.load_config("configs/longrun_synthetic.yaml").as_hparams()
+    launches, failures, step_ms = {}, [], {}
+    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for key, expect_cv in UNSUP_NETS.items():
+            label = f"unsupervised_{key}"
+            model = registry.build("flow", key, generator=torch.Generator().manual_seed(SEED))
+            train_step, _ = make_unsupervised_flow_step({**hp, "model": key})
+            first = next(m for m in model.modules() if isinstance(m, nn.Conv2d))
+            tf32 = []
+
+            @contextlib.contextmanager
+            def tf32_read():
+                """TF32 allowed around the step, the flag read inside it: in
+                the forward, the backward-flow pass and the backward."""
+                flag = lambda *a: tf32.append(torch.backends.cudnn.allow_tf32)  # noqa: E731,B023
+                hooks = (first.register_forward_pre_hook(flag),  # noqa: B023
+                         first.weight.register_hook(flag))  # noqa: B023
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    yield
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+                    for h in hooks:
+                        h.remove()
+
+            launches[label], step_ms[key], found = _hold_train_step(
+                card, max_err, label,
+                f"one occlusion-aware unsupervised train step, longrun_synthetic.yaml "
+                f"hparams, the net fp32, the loss tail {hp['compute_dtype']}", model,
+                train_step, batch, _net_module(key), expect_cv, det,
+                lr=hp["learning_rate"], dev=dev, around=tf32_read)
+            failures += found
+            print(f"e2e {label}: cudnn.allow_tf32 read inside the step {sorted(set(tf32))} "
+                  f"over {len(tf32)} reads (PyTorch's default flag on around it; must read "
+                  f"False)")
+            if len(tf32) < 3 or any(tf32):
+                failures.append(f"{label}: allow_tf32 inside the step {tf32}")
+            del model
+    finally:
+        torch.backends.cudnn.deterministic = det[0]
+        torch.use_deterministic_algorithms(det[1], warn_only=det[2])
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, step_ms
+
+
+def _unsup_cli_phase(card, dev="cuda"):
+    """``python -m ocflow_torch.train_unsupervised`` on
+    ``configs/longrun_synthetic.yaml`` with ``UNSUP_CLI_CUTS`` (FlowNetC)
+    and its outputs in a temporary directory, as a process of its own: exit
+    0, the CSV's rows (one a train step, one a validation), the best
+    checkpoint's BatchNorm running statistics moved from the identity, a
+    ``test:`` line with a finite EPE; its wall time."""
+    import ast
+    import csv
+    import math
+    import os
+    import subprocess
+    import tempfile
+
+    from ocflow_torch.train import config as config_lib
+    from ocflow_torch.utils.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        with open("configs/longrun_synthetic.yaml") as f:
+            raw = config_lib.parse_flat_yaml(f.read())
+        raw.update(UNSUP_CLI_CUTS)
+        raw.update({k: os.path.join(out, v) for k, v in (
+            ("metrics_csv", "metrics.csv"), ("log_dir", "tb"), ("checkpoint_dir", "ckpt"),
+            ("result_dir", "."))})
+        path = os.path.join(out, "unsup.yaml")
+        with open(path, "w") as f:
+            f.write("".join(f"{k}: {_yaml_value(v)}\n" for k, v in raw.items()))
+        proc = subprocess.run([sys.executable, "-m", "ocflow_torch.train_unsupervised",
+                               "--config", path, "--device", dev],
+                              capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        test_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("test:")]
+        results = ast.literal_eval(test_line[0][len("test:"):].strip()) if test_line else {}
+        with open(raw["metrics_csv"]) as f:
+            rows = list(csv.DictReader(f))
+        tree = CheckpointManager(raw["checkpoint_dir"]).restore()
+        stats = [(k, v) for k, v in tree["params"].items()
+                 if k.endswith(("running_mean", "running_var"))]
+        moved = max(((v - 1.0) if k.endswith("var") else v).abs().max().item()
+                    for k, v in stats) if stats else 0.0
+        phases = [r["phase"] for r in rows]
+        print(f"unsupervised CLI (python -m ocflow_torch.train_unsupervised, "
+              f"longrun_synthetic.yaml with {UNSUP_CLI_CUTS}, {raw['image_size']}, B="
+              f"{raw['batch_size']}): exit {proc.returncode}, {test_line}, CSV "
+              f"{phases.count('train')} train and {phases.count('val')} val rows, best "
+              f"checkpoint at step {tree['step']}, BatchNorm running statistics moved from "
+              f"the identity by up to {moved:.3e} over {len(stats)} buffers; {wall:.1f} s "
+              f"wall (the process's start and TensorBoard included) [{card}]")
+        if proc.returncode != 0 or phases.count("val") != raw["max_epochs"] \
+                or phases.count("train") != 8 or not moved > 0 \
+                or not math.isfinite(results.get("epe", math.nan)):
+            raise AssertionError(f"unsupervised CLI: {proc.returncode} {results} {phases} "
+                                 f"{proc.stderr[-2000:]}")
+    return wall
+
+
+def _zoo_serving_phase(card, x, dev="cuda"):
+    """The eval forward of each net of ``ZOO_SERVED`` through
+    ``registry.load_model`` (seeded, its BatchNorm statistics perturbed from
+    the seed: the seeded init starts BatchNorm at the identity) and
+    ``predict``, fp32, on ``x`` (B=8, 448x1024): launches (none: these nets
+    run no kernel of this repository), finite outputs of the input's size,
+    the card's forward against the same net on the CPU at ``ZOO_SMALL``
+    (SimpleFlowOccNet's occlusion before its straight-through hardening,
+    which is checked to give 0 or 1), ms per forward. Returns the launch
+    counts by path."""
+    from ocflow_torch.bench import SEED, cuda_ms, perturb_batchnorm
+    from ocflow_torch.models import flow_occ_nets, load_model, predict
+
+    launches, failures = {}, []
+    b, h, w = ZOO_SMALL
+    small = x[:b, :h, :w].contiguous()
+    for family, key in ZOO_SERVED:
+        label = f"serve_{family}_{key}"
+        model = load_model(family, key, device=dev)
+        perturb_batchnorm(model, torch.Generator().manual_seed(SEED + 1))
+        cpu = copy.deepcopy(model).cpu()
+        saved = flow_occ_nets.hard_threshold_ste
+        flow_occ_nets.hard_threshold_ste = lambda t: t
+        try:
+            got = [t for t in predict(model, small) if t is not None]
+            ref = [t for t in predict(cpu, small.cpu()) if t is not None]
+        finally:
+            flow_occ_nets.hard_threshold_ste = saved
+        errs = [((g.cpu() - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+                for g, r in zip(got, ref)]
+        counts, out = _count_launches(lambda: predict(model, x))  # noqa: B023
+        out = [t for t in out if t is not None]
+        ms = cuda_ms(lambda: predict(model, x), 5)  # noqa: B023
+        shapes = [tuple(t.shape) for t in out]
+        hard = key == "simple" and family == "flow_occ"
+        binary = not hard or bool(((out[1] == 0) | (out[1] == 1)).all())
+        print(f"main path {label} (eval forward, fp32, B={x.shape[0]} "
+              f"{x.shape[1]}x{x.shape[2]}) launches: {counts} (none expected: no kernel "
+              f"of this repository); outputs {shapes}; card vs CPU at {b}x{h}x{w}: "
+              f"{', '.join(f'{e:.3e}' for e in errs)} of max|CPU| (tol {ZOO_REL})"
+              + (f"; occlusion in {{0, 1}}: {binary}" if hard else ""))
+        print(f"time {label} forward B={x.shape[0]} {x.shape[1]}x{x.shape[2]} fp32 eval: "
+              f"{ms:.3f} ms ({x.shape[0] * 1e3 / ms:.2f} pairs/s, CUDA events, mean of 5) "
+              f"[{card}]")
+        if any(counts.values()) or max(errs) > ZOO_REL or not binary or not all(
+                torch.isfinite(t).all() for t in out) or any(
+                s[:3] != tuple(x.shape[:3]) for s in shapes):
+            failures.append(f"{label}: {counts} {errs} {shapes} {binary}")
+        launches[label] = counts
+        del model, cpu, out
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def _phase13(card, max_err, dev="cuda"):
+    """Phase 13 (module docstring): the unsupervised step of the zoo, the
+    unsupervised CLI on FlowNetC, the nets without a kernel served. Returns
+    the launch counts by path."""
+    from ocflow_torch.bench import BATCH, HEIGHT, WIDTH
+    from ocflow_torch.data import DataLoader, build_dataset
+
+    t0 = time.perf_counter()
+    ds = build_dataset("SyntheticFlowWarp", size=BATCH, image_size=(HEIGHT, WIDTH),
+                       device=dev)
+    batch = {k: t.to(dev) for k, t in next(iter(DataLoader(ds, BATCH))).items()}
+    launches, step_ms = _unsup_step_phase(card, max_err, batch, dev)
+    wall = _unsup_cli_phase(card, dev)
+    launches.update(_zoo_serving_phase(card, batch["images"], dev))
+    print(f"unsupervised zoo: step ms {step_ms}, CLI {wall:.1f} s wall; phase 13 took "
+          f"{time.perf_counter() - t0:.1f} s wall [{card}]")
+    return launches
 
 
 def main() -> int:
@@ -2595,6 +2884,10 @@ def main() -> int:
         return found
 
     launches.update(_files_phase(card, max_err, then=phase12))
+
+    # 13. the unsupervised zoo: the step on the nets with a cost volume, the
+    # CLI on FlowNetC, the nets without a kernel served
+    launches.update(_phase13(card, max_err))
 
     # per kernel: its source, the TPU kernel it replaces, and the path whose
     # calls its times sum (its "launches" are that path's count)

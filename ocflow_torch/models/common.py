@@ -129,6 +129,18 @@ class PredictFlowStack(nn.Sequential):
                          nn.Sequential(nn.Conv2d(16, cout, 3, padding=1)))
 
 
+class PredictOccStack(nn.Sequential):
+    """conv(32) -> conv(16) -> conv(1) occlusion head of SimpleOcclusionNet
+    and SimpleFlowOccNet (``ocflow_tpu/models/occlusion_nets.py:
+    PredictOccStack``), each 3x3, the first two with LeakyReLU(0.1), then a
+    sigmoid unless ``sigmoid`` is false (the logit). Keys as
+    :class:`PredictFlowStack`'s."""
+
+    def __init__(self, cin: int, sigmoid: bool = True):
+        last = [nn.Conv2d(16, 1, 3, padding=1)] + ([nn.Sigmoid()] if sigmoid else [])
+        super().__init__(ConvBlock(cin, 32), ConvBlock(32, 16), nn.Sequential(*last))
+
+
 class _ProjBlock(nn.Module):
     """Three conv (no bias) + :class:`BatchNorm` + LeakyReLU(0.1) stages,
     ``conv1..3`` / ``bn1..3``, the first of kernel ``k1``, stride ``s1``,

@@ -9,7 +9,14 @@ returns the port's ``state_dict``. ``flownetc_from_flax``,
 ``convert_flow_occ_net_c``: they take ``{"params", "batch_stats"}``; so do
 ``simpleflownet_from_flax``, ``flownet_from_flax`` and
 ``flowoccnet_from_flax`` (inverses of ``convert_simpleflownet``,
-``convert_flownet_fpn``, ``convert_flow_occ_net_fpn``), while
+``convert_flownet_fpn``, ``convert_flow_occ_net_fpn``),
+``flownets_from_flax``, ``occnets_from_flax``, ``flowoccnets_from_flax``
+(inverses of ``convert_flownets``, ``convert_occlusion_net_s``,
+``convert_flow_occ_net_s``, which give the up-deconvs a zero bias where
+these carry flax's), ``simpleoccnet_from_flax``,
+``simpleflowoccnet_from_flax`` and ``eflownet_from_flax`` (inverses of
+``convert_simple_occlusion_net``, ``convert_simple_flow_occ_net``,
+``convert_eflownet`` and ``convert_eflownet2``), while
 ``flowoccnetcv_from_flax`` and ``flowoccnetcv2_from_flax`` (inverses of
 ``convert_flow_occ_net_cv`` and ``convert_flow_occ_net_cv2``) take
 ``params``, as those nets have no BatchNorm. Conventions:
@@ -30,9 +37,9 @@ import numpy as np
 import torch
 
 from ocflow_torch.models.feature_pyramid import CONTEXT as FPN_CONTEXT
-from ocflow_torch.models.flow_net_s import LEVELS, TRUNK_CONVS, FlowNetC
-from ocflow_torch.models.flow_occ_nets import FlowOccNetC
-from ocflow_torch.models.occlusion_nets import OcclusionNetC
+from ocflow_torch.models.flow_net_s import LEVELS, S_TRUNK_CONVS, TRUNK_CONVS, FlowNetC, FlowNetS
+from ocflow_torch.models.flow_occ_nets import FlowOccNetC, FlowOccNetS
+from ocflow_torch.models.occlusion_nets import OcclusionNetC, OcclusionNetS
 from ocflow_torch.models.pwc_net import CONTEXT, DECODER_LEVELS, GROWTH, encoder_names
 from ocflow_torch.models.simple_flow_net import DOWN, UP
 
@@ -106,22 +113,28 @@ def flownetcv_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
-def _fnetc_family_from_flax(variables: Mapping, heads: tuple[str, ...]) -> dict:
+def _fnetc_family_from_flax(variables: Mapping, heads: tuple[str, ...],
+                            trunk: str = "C", encoder: str | None = None) -> dict:
     """The FlowNetC family (``models.flow_net_s.FlowNetCFamily`` with
     ``heads``) from flax ``{"params", "batch_stats"}``, in the flax creation
     order: ``ConvBlock_0..10`` (conv1, conv2, conv3, conv_redir, conv3_1,
     conv4 ... conv6_1); per level 6..2 ``PredictFlow_i`` / ``PredictOcc_i``;
     per level 6..3 the heads' up-deconvs, then the feature deconv, as
-    ``Deconv_k`` in that order."""
+    ``Deconv_k`` in that order. ``trunk="S"`` reads the FlowNetS family's
+    ``ConvBlock_0..9`` (conv1, conv2, conv3, conv3_1 ... conv6_1), under the
+    node ``encoder`` when given (``_FNetSEncoder_0``)."""
     p = variables["params"]
     stats = variables.get("batch_stats", {})
-    names = ["conv1", "conv2", "conv3"] + [n for n, *_ in TRUNK_CONVS]
+    enc_p = p[encoder] if encoder else p
+    enc_s = stats.get(encoder, {}) if encoder else stats
+    rest = TRUNK_CONVS if trunk == "C" else S_TRUNK_CONVS
+    names = ["conv1", "conv2", "conv3"] + [n for n, *_ in rest]
     sd: dict[str, torch.Tensor] = {}
     for i, name in enumerate(names):
-        block = p[f"ConvBlock_{i}"]
+        block = enc_p[f"ConvBlock_{i}"]
         _conv(sd, f"{name}.0", block["Conv_0"])
         if "BatchNorm_0" in block:
-            _bn(sd, f"{name}.1", block["BatchNorm_0"], stats[f"ConvBlock_{i}"]["BatchNorm_0"])
+            _bn(sd, f"{name}.1", block["BatchNorm_0"], enc_s[f"ConvBlock_{i}"]["BatchNorm_0"])
     flax_head = {"flow": "PredictFlow", "occ": "PredictOcc"}
     for i, lvl in enumerate(LEVELS):
         for h in heads:
@@ -156,24 +169,160 @@ def flowoccnetc_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     return _fnetc_family_from_flax(variables, FlowOccNetC.HEADS)
 
 
-def simpleflownet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
-    """flax ``{"params", "batch_stats"}`` of SimpleFlowNet -> port
-    ``state_dict``: ``ProjDown_i`` / ``ProjUp_i`` -> ``down<i+1>`` /
-    ``up<i+1>`` (``ConvBlock_j`` -> ``conv<j+1>``, ``bn<j+1>``),
-    ``PredictFlowStack_i`` -> ``predict_flow<5-i>``."""
-    p, st = variables["params"], variables["batch_stats"]
-    sd: dict[str, torch.Tensor] = {}
-    for flax_name, name, n in (("ProjDown", "down", len(DOWN)), ("ProjUp", "up", len(UP))):
+def flownets_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of FlowNetS -> port
+    ``state_dict`` (the up-deconvs' biases included)."""
+    return _fnetc_family_from_flax(variables, FlowNetS.HEADS, trunk="S")
+
+
+def occnets_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of OcclusionNetS -> port
+    ``state_dict``."""
+    return _fnetc_family_from_flax(variables, OcclusionNetS.HEADS, trunk="S",
+                                   encoder="_FNetSEncoder_0")
+
+
+def flowoccnets_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of FlowOccNetS -> port
+    ``state_dict``."""
+    return _fnetc_family_from_flax(variables, FlowOccNetS.HEADS, trunk="S",
+                                   encoder="_FNetSEncoder_0")
+
+
+def _stack(sd: dict, name: str, node: Mapping) -> None:
+    """A flax ``PredictFlowStack`` / ``PredictOccStack`` -> ``<name>.0.0``,
+    ``.1.0``, ``.2.0``."""
+    _conv(sd, f"{name}.0.0", node["ConvBlock_0"]["Conv_0"])
+    _conv(sd, f"{name}.1.0", node["ConvBlock_1"]["Conv_0"])
+    _conv(sd, f"{name}.2.0", node["Conv_0"])
+
+
+def _proj_blocks(sd: dict, p: Mapping, st: Mapping, n_up: int) -> None:
+    """``ProjDown_i`` / ``ProjUp_i`` -> ``down<i+1>`` / ``up<i+1>``
+    (``ConvBlock_j`` -> ``conv<j+1>``, ``bn<j+1>``)."""
+    for flax_name, name, n in (("ProjDown", "down", len(DOWN)), ("ProjUp", "up", n_up)):
         for i in range(n):
             for j in range(3):
                 node = f"{flax_name}_{i}"
                 _conv_bn(sd, f"{name}{i + 1}.conv{j + 1}", f"{name}{i + 1}.bn{j + 1}",
                          p[node][f"ConvBlock_{j}"], st[node][f"ConvBlock_{j}"])
+
+
+def simpleflownet_from_flax(variables: Mapping, head: str = "flow") -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of SimpleFlowNet -> port
+    ``state_dict``: ``ProjDown_i`` / ``ProjUp_i`` -> ``down<i+1>`` /
+    ``up<i+1>`` (``ConvBlock_j`` -> ``conv<j+1>``, ``bn<j+1>``),
+    ``PredictFlowStack_i`` -> ``predict_flow<5-i>`` (``head="occ"``:
+    SimpleOcclusionNet's ``PredictOccStack_i`` -> ``predict_occ<5-i>``)."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+    _proj_blocks(sd, p, st, len(UP))
+    flax_head = "PredictFlowStack" if head == "flow" else "PredictOccStack"
     for i in range(len(UP) + 1):
-        node, name = p[f"PredictFlowStack_{i}"], f"predict_flow{len(UP) - i}"
-        _conv(sd, f"{name}.0.0", node["ConvBlock_0"]["Conv_0"])
-        _conv(sd, f"{name}.1.0", node["ConvBlock_1"]["Conv_0"])
-        _conv(sd, f"{name}.2.0", node["Conv_0"])
+        _stack(sd, f"predict_{head}{len(UP) - i}", p[f"{flax_head}_{i}"])
+    return sd
+
+
+def simpleoccnet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of SimpleOcclusionNet -> port
+    ``state_dict``."""
+    return simpleflownet_from_flax(variables, head="occ")
+
+
+def simpleflowoccnet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of SimpleFlowOccNet -> port
+    ``state_dict``: four up blocks; ``PredictFlowStack_i`` /
+    ``PredictOccStack_i`` -> ``predict_flow<5-i>`` / ``predict_occ<5-i>``."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+    _proj_blocks(sd, p, st, len(UP) - 1)
+    for i in range(len(UP)):
+        _stack(sd, f"predict_flow{len(UP) - i}", p[f"PredictFlowStack_{i}"])
+        _stack(sd, f"predict_occ{len(UP) - i}", p[f"PredictOccStack_{i}"])
+    return sd
+
+
+def _prelu(sd: dict, name: str, node: Mapping) -> None:
+    sd[f"{name}.weight"] = torch.from_numpy(_arr(node["negative_slope"]).reshape(-1).copy())
+
+
+def _enet_bottleneck(sd: dict, prefix: str, p: Mapping, st: Mapping) -> None:
+    """A flax ``BottleNeck`` -> the port's ``<prefix>.*``, its variant read
+    off the tree: ``ConvTranspose_0`` (upsample), ``Conv_3`` (asymmetric),
+    ``PReLU_*`` (PReLU activations)."""
+    def bn(i, name):
+        _bn(sd, f"{prefix}.{name}", p[f"BatchNorm_{i}"], st[f"BatchNorm_{i}"])
+
+    def prelu(i, name):
+        if f"PReLU_{i}" in p:
+            _prelu(sd, f"{prefix}.{name}", p[f"PReLU_{i}"])
+
+    if "ConvTranspose_0" in p:
+        _conv(sd, f"{prefix}.spatil_conv", p["Conv_0"])
+        bn(0, "bn_up")
+        _conv(sd, f"{prefix}.conv1", p["Conv_1"])
+        bn(1, "bn1")
+        k = _arr(p["ConvTranspose_0"]["kernel"]).transpose(2, 3, 0, 1)
+        sd[f"{prefix}.conv2.weight"] = torch.from_numpy(np.flip(k, (2, 3)).copy())
+        bn(2, "bn2")
+        _conv(sd, f"{prefix}.conv3", p["Conv_2"])
+        bn(3, "bn3")
+        return
+    _conv(sd, f"{prefix}.conv1", p["Conv_0"])
+    bn(0, "bn1")
+    prelu(0, "prelu1")
+    if "Conv_3" in p:
+        _conv(sd, f"{prefix}.conv2.0", p["Conv_1"])
+        bn(1, "conv2.1")
+        prelu(1, "conv2.2")
+        _conv(sd, f"{prefix}.conv2.3", p["Conv_2"])
+        bn(2, "bn2")
+        prelu(2, "prelu2")
+        _conv(sd, f"{prefix}.conv3", p["Conv_3"])
+        bn(3, "bn3")
+        prelu(3, "prelu3")
+        prelu(4, "prelu_out")
+        return
+    _conv(sd, f"{prefix}.conv2", p["Conv_1"])
+    bn(1, "bn2")
+    prelu(1, "prelu2")
+    _conv(sd, f"{prefix}.conv3", p["Conv_2"])
+    bn(2, "bn3")
+    prelu(2, "prelu3")
+    prelu(3, "prelu_out")
+
+
+# the port's bottleneck names in the flax creation order (BottleNeck_i)
+_ENET_ENCODER = (["bottleneck10"] + [f"bottleneck1{i}" for i in range(1, 5)]
+                 + ["bottleneck20"] + [f"bottleneck{s}{i}" for s in (2, 3) for i in range(1, 9)])
+_ENET_DECODER = ("bottleneck40", "bottleneck41", "bottleneck42", "bottleneck50",
+                 "bottleneck51")
+
+
+def eflownet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of EFlowNet or EFlowNet2 -> port
+    ``state_dict``: ``_ENetEncoder_0`` (``InitialBlock_0`` -> ``initial``,
+    ``BottleNeck_i`` -> ``bottleneck10`` ... ``bottleneck38``), the
+    decoder's ``BottleNeck_i`` -> ``bottleneck40`` ... ``bottleneck51``,
+    ``PredictFlow_0`` -> ``predict_flow`` (EFlowNet) or ``PredictFlow_0..2``
+    -> ``predict_flow3..5`` (EFlowNet2)."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+    enc_p, enc_s = p["_ENetEncoder_0"], st["_ENetEncoder_0"]
+    init = enc_p["InitialBlock_0"]
+    _conv(sd, "initial.conv", init["Conv_0"])
+    _bn(sd, "initial.bn", init["BatchNorm_0"], enc_s["InitialBlock_0"]["BatchNorm_0"])
+    sd["initial.prelu.weight"] = torch.from_numpy(
+        _arr(init["ChannelPReLU_0"]["negative_slope"]).copy())
+    for i, name in enumerate(_ENET_ENCODER):
+        _enet_bottleneck(sd, name, enc_p[f"BottleNeck_{i}"], enc_s[f"BottleNeck_{i}"])
+    for i, name in enumerate(_ENET_DECODER):
+        _enet_bottleneck(sd, name, p[f"BottleNeck_{i}"], st[f"BottleNeck_{i}"])
+    if "PredictFlow_1" in p:
+        for i in range(3):
+            _conv(sd, f"predict_flow{3 + i}", p[f"PredictFlow_{i}"]["Conv_0"])
+    else:
+        _conv(sd, "predict_flow", p["PredictFlow_0"]["Conv_0"])
     return sd
 
 

@@ -1,5 +1,8 @@
-"""FlowNetC, eager (port of ``ocflow_tpu/models/flow_net_s.py:FlowNetC``),
-and the trunk it shares with OcclusionNetC and FlowOccNetC.
+"""FlowNetC and FlowNetS, eager (port of ``ocflow_tpu/models/flow_net_s.py``),
+the trunk FlowNetC shares with OcclusionNetC and FlowOccNetC, and the
+FlowNetS trunk of FlowNetS, OcclusionNetS and FlowOccNetS
+(:class:`FlowNetSFamily`: one encoder over the stacked frames, no cost
+volume, the same decoder).
 
 The trunk: a siamese encoder (conv1 7x7/s2, conv2 5x5/s2, conv3 5x5/s2, the
 weights shared between the two frames), the cost volume of the two conv3
@@ -71,7 +74,8 @@ class FlowNetCFamily(nn.Module):
     the batch's statistics, which is not the function the JAX package
     serves. ``generator`` seeds the init, BatchNorm statistics included
     (:func:`models.common.init_weights`); without it the layers keep
-    PyTorch's default init.
+    PyTorch's default init. A family on another trunk overrides
+    ``_build_trunk`` and ``trunk`` (:class:`FlowNetSFamily`).
     """
 
     HEADS: tuple[str, ...] = ()
@@ -79,13 +83,7 @@ class FlowNetCFamily(nn.Module):
 
     def __init__(self, generator: torch.Generator | None = None):
         super().__init__()
-        self.conv1 = ConvBlock(3, 64, 2, kernel_size=7, use_bn=True)
-        self.conv2 = ConvBlock(64, 128, 2, kernel_size=5, use_bn=True)
-        self.conv3 = ConvBlock(128, 256, 2, kernel_size=5, use_bn=True)
-        nk = (2 * self.DISPLACEMENT + 1) ** 2
-        for name, cin, cout, k, s in TRUNK_CONVS:
-            cin += nk if name == "conv3_1" else 0
-            self.add_module(name, ConvBlock(cin, cout, s, kernel_size=k, use_bn=True))
+        self._build_trunk()
         n_up = sum(HEAD_CHANNELS[h] for h in self.HEADS)
         cin = SKIP_CHANNELS[6]
         for lvl in LEVELS:
@@ -102,6 +100,15 @@ class FlowNetCFamily(nn.Module):
             cin = SKIP_CHANNELS[lvl - 1] + dfeat + n_up
         if generator is not None:
             init_weights(self, generator)
+
+    def _build_trunk(self) -> None:
+        self.conv1 = ConvBlock(3, 64, 2, kernel_size=7, use_bn=True)
+        self.conv2 = ConvBlock(64, 128, 2, kernel_size=5, use_bn=True)
+        self.conv3 = ConvBlock(128, 256, 2, kernel_size=5, use_bn=True)
+        nk = (2 * self.DISPLACEMENT + 1) ** 2
+        for name, cin, cout, k, s in TRUNK_CONVS:
+            cin += nk if name == "conv3_1" else 0
+            self.add_module(name, ConvBlock(cin, cout, s, kernel_size=k, use_bn=True))
 
     def trunk(self, x: torch.Tensor) -> dict[int, torch.Tensor]:
         """NHWC ``[B, H, W, 6]`` -> the NCHW skips by level."""
@@ -138,5 +145,51 @@ class FlowNetCFamily(nn.Module):
 class FlowNetC(FlowNetCFamily):
     """FlowNetC (``ocflow_tpu/models/flow_net_s.py:FlowNetC``): the flow
     ``[B, H, W, 2]``. Serve it in eval mode (see :class:`FlowNetCFamily`)."""
+
+    HEADS = ("flow",)
+
+
+# FlowNetS's trunk after conv1 .. conv3 (name, cin, cout, stride), 3x3 each
+S_TRUNK_CONVS = (("conv3_1", 256, 256, 1), ("conv4", 256, 512, 2), ("conv4_1", 512, 512, 1),
+                 ("conv5", 512, 512, 2), ("conv5_1", 512, 512, 1), ("conv6", 512, 1024, 2),
+                 ("conv6_1", 1024, 1024, 1))
+
+
+class FlowNetSFamily(FlowNetCFamily):
+    """The FlowNetS family (FlowNetS, OcclusionNetS, FlowOccNetS): the
+    FlowNetC family's decoder and heads on the FlowNetS trunk, one encoder
+    over the stacked frames (``ocflow_tpu/models/occlusion_nets.py:
+    _FNetSEncoder``): conv1 7x7/s2, conv2 5x5/s2, conv3 5x5/s2 on the 6
+    channels, then conv3_1 .. conv6_1 (stride 2 at conv4, conv5, conv6), a
+    ``ConvBlock`` with BatchNorm each. No cost volume: these nets launch no
+    kernel of this repository.
+
+    The heads' up-deconvs (``upsampled_<head><k>_to_<k-1>``) have a bias,
+    as the JAX modules' ``Deconv(act=False)`` has and trains; the reference
+    torch networks build them without one, so the JAX package's converters
+    (``convert_flownets``, ``convert_occlusion_net_s``,
+    ``convert_flow_occ_net_s``) read a ``state_dict`` without those biases
+    and give them zeros."""
+
+    def _build_trunk(self) -> None:
+        self.conv1 = ConvBlock(6, 64, 2, kernel_size=7, use_bn=True)
+        self.conv2 = ConvBlock(64, 128, 2, kernel_size=5, use_bn=True)
+        self.conv3 = ConvBlock(128, 256, 2, kernel_size=5, use_bn=True)
+        for name, cin, cout, s in S_TRUNK_CONVS:
+            self.add_module(name, ConvBlock(cin, cout, s, use_bn=True))
+
+    def trunk(self, x: torch.Tensor) -> dict[int, torch.Tensor]:
+        """NHWC ``[B, H, W, 6]`` -> the NCHW skips by level."""
+        c2 = self.conv2(self.conv1(x.permute(0, 3, 1, 2).contiguous()))
+        c3 = self.conv3_1(self.conv3(c2))
+        c4 = self.conv4_1(self.conv4(c3))
+        c5 = self.conv5_1(self.conv5(c4))
+        return {2: c2, 3: c3, 4: c4, 5: c5, 6: self.conv6_1(self.conv6(c5))}
+
+
+class FlowNetS(FlowNetSFamily):
+    """FlowNetS (``ocflow_tpu/models/flow_net_s.py:FlowNetS``): the flow
+    ``[B, H, W, 2]`` from ``[B, H, W, 6]`` (H and W divisible by 64). Serve
+    it in eval mode (see :class:`FlowNetCFamily`)."""
 
     HEADS = ("flow",)

@@ -1,8 +1,12 @@
 """Joint flow + occlusion nets, eager (port of
-``ocflow_tpu/models/flow_occ_nets.py``): ``FlowOccNetC`` (the FlowNetC
-trunk, d=10), ``FlowOccNetCV`` (``pwoc``), ``FlowOccNetCV2`` (``pwoc2``)
-and ``FlowOccNet`` (``flowoccnet``), each ``[B, H, W, 6]`` -> ``(flow [B,
-H, W, 2], occ [B, H, W, 1])`` with occlusion probabilities in [0, 1].
+``ocflow_tpu/models/flow_occ_nets.py``): ``SimpleFlowOccNet`` (``simple``),
+``FlowOccNetS`` (``flowoccnets``, the FlowNetS trunk), ``FlowOccNetC``
+(``flowoccnetc``, the FlowNetC trunk, d=10), ``FlowOccNetCV`` (``pwoc``),
+``FlowOccNetCV2`` (``pwoc2``) and ``FlowOccNet`` (``flowoccnet``), each
+``[B, H, W, 6]`` -> ``(flow [B, H, W, 2], occ [B, H, W, 1])`` with
+occlusion probabilities in [0, 1] (SimpleFlowOccNet's hardened to 0 or 1
+by a straight-through estimator). ``simple`` and ``flowoccnets`` have no
+cost volume and launch no kernel of this repository.
 
 ``pwoc`` and ``pwoc2`` are FlowNetCV's structure (its ``SiameseEncoder``,
 ``Deconv`` upsamplers, dilated ``ContextNetwork``) with a flow and an
@@ -21,13 +25,17 @@ name ``cost_volume`` (pwoc, pwoc2, flowoccnet) or ``flow_net_s``'s
 for CPU tensors. Serve ``flowoccnet`` and FlowOccNetC in eval mode (they
 have BatchNorm).
 
-Parameter names are the reference torch networks' (``conv1a.0``,
+Parameter names are the reference torch networks' (``down1.conv1``,
+``predict_flow5.0.0``, ``predict_occ5.0.0``, ``up1.conv1`` in ``simple``;
+``conv1a.0``,
 ``conv6_0.0``, ``predict_flow6``, ``predict_occ6.0``, ``upflow6``,
 ``upocc6``, ``upfeat6``, ``dc_conv1.0`` ... ``dc_conv7``; ``fe6_0.0``,
 ``oe6_0.0`` in pwoc2; FlowOccNetC's ``conv1.0`` ..., ``upsampled_occ6_to_5``
 ...), which ``convert_flow_occ_net_cv``, ``convert_flow_occ_net_cv2``,
-``convert_flow_occ_net_fpn`` and ``convert_flow_occ_net_c`` of the JAX
-package map onto its flax trees.
+``convert_flow_occ_net_fpn``, ``convert_flow_occ_net_c``,
+``convert_simple_flow_occ_net`` and ``convert_flow_occ_net_s`` of the JAX
+package map onto its flax trees (FlowOccNetS's up-deconv biases aside:
+:class:`~ocflow_torch.models.flow_net_s.FlowNetSFamily`).
 """
 
 from __future__ import annotations
@@ -40,15 +48,19 @@ from torch import nn
 
 from ocflow_torch import full_fp32_convs
 from ocflow_torch.kernels.cost_volume import cost_volume
-from ocflow_torch.models.common import (ConvBlock, Deconv, PredictFlow, PredictOcc,
+from ocflow_torch.models.common import (ConvBlock, Deconv, PredictFlow, PredictFlowStack,
+                                        PredictOcc, PredictOccStack, ProjDown, ProjUp,
                                         init_weights)
 from ocflow_torch.models.feature_pyramid import (ContextNetwork as FPNContextNetwork,
                                                  FeaturePyramidNet, OcclusionEstimator,
                                                  OpticalFlowEstimator)
 from ocflow_torch.models.flow_net import PYRAMID, frames, upsample4
-from ocflow_torch.models.flow_net_s import FlowNetCFamily
+from ocflow_torch.models.flow_net_s import FlowNetCFamily, FlowNetSFamily
 from ocflow_torch.models.pwc_net import (DECODER_LEVELS, GROWTH, LEVEL_FEATURES,
                                          ContextNetwork, SiameseEncoder)
+from ocflow_torch.models.simple_flow_net import DOWN, UP
+from ocflow_torch.ops.resize import resize_bilinear
+from ocflow_torch.ops.ste import hard_threshold_ste
 from ocflow_torch.ops.warp import warp
 
 
@@ -63,6 +75,61 @@ class FlowOccNetC(FlowNetCFamily):
     :class:`~ocflow_torch.models.flow_net_s.FlowNetCFamily`)."""
 
     HEADS = ("flow", "occ")
+
+
+class FlowOccNetS(FlowNetSFamily):
+    """The FlowNetS trunk with dual heads (port of ``ocflow_tpu/models/
+    flow_occ_nets.py:FlowOccNetS``), the decoder order of
+    :class:`FlowOccNetC`."""
+
+    HEADS = ("flow", "occ")
+
+
+class SimpleFlowOccNet(nn.Module):
+    """SimpleFlowNet's U-Net with a flow and an occlusion head per decoder
+    level (port of ``ocflow_tpu/models/flow_occ_nets.py:SimpleFlowOccNet``):
+    ``down1..down5``; per level 5..2 ``predict_flow<k>`` and
+    ``predict_occ<k>`` on the features, then ``up<i>`` on ``cat([x, flow,
+    occ])`` with the skip (``up1..up4``: 96, 64, 32, 16 channels); at the
+    1/2 level ``predict_flow1`` and the logit head ``predict_occ1``. The
+    flow and the logit are resized to the input (bilinear,
+    ``align_corners=False``); the occlusion is ``sigmoid(10 logit)``
+    hardened by :func:`~ocflow_torch.ops.ste.hard_threshold_ste`. H and W
+    divisible by 32. ``generator`` seeds the init."""
+
+    def __init__(self, generator: torch.Generator | None = None):
+        super().__init__()
+        skips, cin = [6], 6
+        for i, (c, ratio) in enumerate(DOWN, 1):
+            self.add_module(f"down{i}", ProjDown(cin, c, ratio))
+            skips.append(c)
+            cin = c
+        for i, c in enumerate(UP[:-1], 1):
+            self.add_module(f"predict_flow{6 - i}", PredictFlowStack(cin))
+            self.add_module(f"predict_occ{6 - i}", PredictOccStack(cin))
+            self.add_module(f"up{i}", ProjUp(skips[-1 - i] + cin + 3, c))
+            cin = c
+        self.predict_flow1 = PredictFlowStack(cin)
+        self.predict_occ1 = PredictOccStack(cin, sigmoid=False)
+        if generator is not None:
+            init_weights(self, generator)
+
+    def forward(self, x):
+        with full_fp32_convs(x.dtype):
+            skips = [x.permute(0, 3, 1, 2).contiguous()]
+            for i in range(1, len(DOWN) + 1):
+                skips.append(getattr(self, f"down{i}")(skips[-1]))
+            h = skips[-1]
+            for i in range(1, len(UP)):
+                flow = getattr(self, f"predict_flow{6 - i}")(h)
+                occ = getattr(self, f"predict_occ{6 - i}")(h)
+                h = getattr(self, f"up{i}")(torch.cat([h, flow, occ], 1), skips[-1 - i])
+            flow, logit = self.predict_flow1(h), self.predict_occ1(h)
+        hh, ww = x.shape[1], x.shape[2]
+        flow = resize_bilinear(flow, hh, ww, align_corners=False)
+        occ = hard_threshold_ste(torch.sigmoid(
+            10.0 * resize_bilinear(logit, hh, ww, align_corners=False)))
+        return flow.permute(0, 2, 3, 1).contiguous(), occ.permute(0, 2, 3, 1).contiguous()
 
 
 def occlusion_gated_cost_volume(f1: torch.Tensor, warped: torch.Tensor, occ: torch.Tensor,

@@ -10,20 +10,25 @@ from __future__ import annotations
 import torch
 
 from ocflow_torch import full_fp32_convs
+from ocflow_torch.models.efficient_flow_net import EFlowNet, EFlowNet2
 from ocflow_torch.models.flow_net import FlowNet
-from ocflow_torch.models.flow_net_s import FlowNetC
+from ocflow_torch.models.flow_net_s import FlowNetC, FlowNetS
 from ocflow_torch.models.flow_occ_nets import (FlowOccNet, FlowOccNetC, FlowOccNetCV,
-                                               FlowOccNetCV2)
-from ocflow_torch.models.occlusion_nets import OcclusionNetC
+                                               FlowOccNetCV2, FlowOccNetS, SimpleFlowOccNet)
+from ocflow_torch.models.occlusion_nets import OcclusionNetC, OcclusionNetS, SimpleOcclusionNet
 from ocflow_torch.models.pwc_net import FlowNetCV, PWCNet
 from ocflow_torch.models.simple_flow_net import SimpleFlowNet
 
+# the JAX registry's flow, occlusion and flow+occlusion families, key for
+# key; its inpainting, discriminator and pipeline families are ROADMAP A10
 _REGISTRY = {
     "flow": {"simple": SimpleFlowNet, "pwc": FlowNetCV, "pwcnet": PWCNet,
-             "flownetc": FlowNetC, "flownet": FlowNet},
-    "occ": {"occnetc": OcclusionNetC},
-    "flow_occ": {"flowoccnetc": FlowOccNetC, "pwoc": FlowOccNetCV,
-                 "pwoc2": FlowOccNetCV2, "flowoccnet": FlowOccNet},
+             "flownets": FlowNetS, "flownetc": FlowNetC, "flownet": FlowNet,
+             "eflownet": EFlowNet, "eflownet2": EFlowNet2},
+    "occ": {"simple": SimpleOcclusionNet, "occnets": OcclusionNetS, "occnetc": OcclusionNetC},
+    "flow_occ": {"simple": SimpleFlowOccNet, "flowoccnets": FlowOccNetS,
+                 "flowoccnetc": FlowOccNetC, "pwoc": FlowOccNetCV, "pwoc2": FlowOccNetCV2,
+                 "flowoccnet": FlowOccNet},
 }
 
 
@@ -46,7 +51,8 @@ def build(family: str, key: str, **kwargs):
 def load_model(family: str, key: str, checkpoint: str = "", device=None) -> torch.nn.Module:
     """The network ``build(family, key)`` on ``device`` in eval mode:
     seeded from 0, or with the ``params`` of a port checkpoint. Keys the
-    port does not have raise ``NotImplementedError`` naming ROADMAP A9."""
+    port does not have raise ``NotImplementedError`` naming ROADMAP A10
+    (the inpainting, discriminator and pipeline families)."""
     # imported here: utils.checkpoint imports the train package, which
     # imports the models
     from ocflow_torch.utils.checkpoint import load_subtree
@@ -55,7 +61,8 @@ def load_model(family: str, key: str, checkpoint: str = "", device=None) -> torc
         model = build(family, key, generator=torch.Generator().manual_seed(0))
     except ValueError as e:
         raise NotImplementedError(
-            f"{e}; the rest of the flow and occlusion zoo is ROADMAP A9") from None
+            f"{e}; the inpainting, discriminator and pipeline families are "
+            "ROADMAP A10") from None
     if checkpoint:
         model.load_state_dict(load_subtree(checkpoint, "params"))
     return model.to(device).eval()

@@ -33,7 +33,11 @@ UP = (96, 64, 32, 16, 16)
 class SimpleFlowNet(nn.Module):
     """``[B, H, W, in_channels]`` (two frames on channels) -> the flow
     ``[B, H, W, 2]`` (NHWC; H and W divisible by 32). ``generator`` seeds
-    the init (:func:`models.common.init_weights`)."""
+    the init (:func:`models.common.init_weights`). The heads are
+    ``predict_<HEAD><k>``, built by :meth:`_head` (SimpleOcclusionNet puts
+    occlusion heads on the same U-Net)."""
+
+    HEAD = "flow"
 
     def __init__(self, in_channels: int = 6, out_channels: int = 2,
                  generator: torch.Generator | None = None):
@@ -45,12 +49,15 @@ class SimpleFlowNet(nn.Module):
             skips.append(c)
             cin = c
         for i, c in enumerate(UP, 1):
-            self.add_module(f"predict_flow{6 - i}", PredictFlowStack(cin, out_channels))
+            self.add_module(f"predict_{self.HEAD}{6 - i}", self._head(cin, out_channels))
             self.add_module(f"up{i}", ProjUp(skips[-1 - i] + cin + out_channels, c))
             cin = c
-        self.predict_flow0 = PredictFlowStack(cin, out_channels)
+        self.add_module(f"predict_{self.HEAD}0", self._head(cin, out_channels))
         if generator is not None:
             init_weights(self, generator)
+
+    def _head(self, cin: int, cout: int) -> nn.Module:
+        return PredictFlowStack(cin, cout)
 
     def forward(self, x):
         with full_fp32_convs(x.dtype):
@@ -59,7 +66,7 @@ class SimpleFlowNet(nn.Module):
                 skips.append(getattr(self, f"down{i}")(skips[-1]))
             h = skips[-1]
             for i in range(1, len(UP) + 1):
-                flow = getattr(self, f"predict_flow{6 - i}")(h)
-                h = getattr(self, f"up{i}")(torch.cat([h, flow], 1), skips[-1 - i])
-            flow = self.predict_flow0(h)
-        return flow.permute(0, 2, 3, 1).contiguous()
+                head = getattr(self, f"predict_{self.HEAD}{6 - i}")(h)
+                h = getattr(self, f"up{i}")(torch.cat([h, head], 1), skips[-1 - i])
+            out = getattr(self, f"predict_{self.HEAD}0")(h)
+        return out.permute(0, 2, 3, 1).contiguous()

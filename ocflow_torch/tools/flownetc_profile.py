@@ -1,22 +1,29 @@
-"""Where the FlowNetC family's serving forward spends its time on the card.
+"""Where the FlowNetC family's serving forward, or an unsupervised train
+step of a flow net, spends its time on the card.
 
 Runs the fp32 eval forward of a seeded net of the family
-(``bench.make_flownetc_inputs``: B=8, 448x1024, seed 0) and prints one JSON
-line with:
+(``bench.make_flownetc_inputs``: B=8, 448x1024, seed 0) or, with
+``--unsupervised``, one occlusion-aware unsupervised train step of the
+seeded registry net ``--model`` (``flownetc``, ``flownet`` or ``pwcnet``;
+``configs/longrun_synthetic.yaml``'s hparams, a B=8 448x1024
+``SyntheticFlowWarp`` batch) and prints one JSON line with:
 
-- ``ms_per_batch``: device ms per forward (CUDA events over ``--iters``
-  forwards after 3 warm-up forwards), and ``host_ms_per_batch``, the
+- ``ms_per_batch``: device ms per forward or step (CUDA events over
+  ``--iters`` calls after 3 warm-up calls), and ``host_ms_per_batch``, the
   host's time to issue one (a host time near the device time means the
   host paces the card);
 - ``kernel_ms_per_batch`` and ``busy_share``: the device time of every
   kernel in a ``torch.profiler`` trace of the same forwards, per forward
   and as a share of their device time;
-- ``by_kind``: that kernel time summed by kind (cost volume, convolution,
-  BatchNorm, LeakyReLU, concatenation, copies, the rest), the kind read
-  from the kernel's name; ``top``: the kernels with the most device time.
+- ``by_kind``: that kernel time summed by kind (cost volume, convolution
+  forward and backward, BatchNorm, LeakyReLU, concatenation, copies,
+  gathers and scatters (warps, the range map), the optimizer, the rest),
+  the kind read from the kernel's name; ``top``: the kernels with the most
+  device time.
 
 Usage: ``python -m ocflow_torch.tools.flownetc_profile [--model flownetc]
-[--iters 10]``.
+[--iters 10]``, ``python -m ocflow_torch.tools.flownetc_profile
+--unsupervised --model flownetc|flownet|pwcnet``.
 """
 
 from __future__ import annotations
@@ -33,13 +40,17 @@ from ocflow_torch.models import FlowNetC, FlowOccNetC, OcclusionNetC
 from ocflow_torch.tools.train_profile import _device_us
 
 MODELS = {"flownetc": FlowNetC, "occnetc": OcclusionNetC, "flowoccnetc": FlowOccNetC}
+# the registry's flow nets whose unsupervised step launches a kernel
+UNSUPERVISED = ("flownetc", "flownet", "pwcnet")
 # kernel-name fragments of each kind, tried in this order
 KINDS = (("cost_volume", ("cost_volume",)),
-         ("batchnorm", ("batch_norm", "batchnorm", "bn_fw")),
+         ("batchnorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
          ("leaky_relu", ("leaky",)),
          ("concat", ("CatArray", "cat_")),
-         ("conv", ("conv", "xmma", "cudnn", "gemm", "fprop", "dgrad", "winograd",
+         ("conv", ("conv", "xmma", "cudnn", "gemm", "fprop", "dgrad", "wgrad", "winograd",
                    "fft", "region_transform", "implicit", "sm90")),
+         ("optimizer", ("multi_tensor", "adam")),
+         ("gather_scatter", ("index", "gather", "scatter")),
          ("copy", ("copy", "nchwToNhwc", "nhwcToNchw", "transpose")))
 
 
@@ -56,6 +67,31 @@ def profile_forward(model, x, iters: int) -> dict:
         with torch.no_grad():
             model(x)
 
+    return profile_fn(forward, x.shape[0], iters)
+
+
+def unsupervised_step(key: str):
+    """One occlusion-aware unsupervised train step of the seeded registry
+    net ``key`` on a B=8 448x1024 ``SyntheticFlowWarp`` batch, as a
+    callable (each call is a step: Adam moves the weights)."""
+    from ocflow_torch.data import DataLoader, build_dataset
+    from ocflow_torch.models import registry
+    from ocflow_torch.train import config as config_lib
+    from ocflow_torch.train import create_train_state, make_unsupervised_flow_step
+
+    hp = {**config_lib.load_config("configs/longrun_synthetic.yaml").as_hparams(),
+          "model": key}
+    model = registry.build("flow", key, generator=torch.Generator().manual_seed(SEED))
+    state = create_train_state(model, hp["learning_rate"], device="cuda")
+    ds = build_dataset("SyntheticFlowWarp", size=BATCH, image_size=(HEIGHT, WIDTH),
+                       device="cuda")
+    batch = {k: t.cuda() for k, t in next(iter(DataLoader(ds, BATCH))).items()}
+    train_step, _ = make_unsupervised_flow_step(hp)
+    return lambda: train_step(state, batch)
+
+
+def profile_fn(forward, batch: int, iters: int) -> dict:
+    """``forward()`` timed and traced as the module docstring says."""
     for _ in range(3):
         forward()
     ms = cuda_ms(forward, iters)
@@ -85,7 +121,7 @@ def profile_forward(model, x, iters: int) -> dict:
         by_kind[k] = by_kind.get(k, 0.0) + _device_us(e) / 1e3 / iters
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
     return {
-        "ms_per_batch": ms, "pairs_per_sec": x.shape[0] * 1e3 / ms,
+        "ms_per_batch": ms, "pairs_per_sec": batch * 1e3 / ms,
         "host_ms_per_batch": host_ms, "traced_ms_per_batch": traced_ms,
         "kernel_ms_per_batch": kernel_ms,
         "busy_share": kernel_ms / traced_ms if traced_ms else None,
@@ -98,13 +134,24 @@ def profile_forward(model, x, iters: int) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=tuple(MODELS), default="flownetc")
+    ap.add_argument("--model", choices=sorted({*MODELS, *UNSUPERVISED}), default="flownetc")
+    ap.add_argument("--unsupervised", action="store_true",
+                    help="profile one unsupervised train step of --model (flownetc, "
+                    "flownet or pwcnet) instead of the FlowNetC family's forward")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
-    model, x = make_flownetc_inputs(BATCH, HEIGHT, WIDTH, "cuda", SEED,
-                                    MODELS[args.model])
+    if args.unsupervised:
+        if args.model not in UNSUPERVISED:
+            ap.error(f"--unsupervised takes --model {' | '.join(UNSUPERVISED)}")
+        prof = profile_fn(unsupervised_step(args.model), BATCH, args.iters)
+    elif args.model not in MODELS:
+        ap.error(f"the forward takes --model {' | '.join(MODELS)}")
+    else:
+        model, x = make_flownetc_inputs(BATCH, HEIGHT, WIDTH, "cuda", SEED,
+                                        MODELS[args.model])
+        prof = profile_forward(model, x, args.iters)
     name, _, limit = gpu_info().partition(", ")
-    result = {"model": args.model, **profile_forward(model, x, args.iters),
+    result = {"model": args.model, "unsupervised_step": args.unsupervised, **prof,
               "batch": BATCH, "device": {"name": name, "power_limit": limit}}
     print(json.dumps(result))
     return result

@@ -13,7 +13,9 @@ seeded from ``cfg.seed`` with Adam at ``cfg.learning_rate`` (with
 suggestion it prints and then trains at, from fresh weights), runs
 ``train.loop.fit`` (CSV, TensorBoard, the best checkpoint, early stopping)
 and ``train.loop.evaluate`` on the test split, printing ``test: {...}``.
-``inpainting`` raises ``NotImplementedError`` (ROADMAP A10). Runs on
+``inpainting`` raises ``NotImplementedError`` (ROADMAP A10), and so do
+``eflownet`` and ``eflownet2``: the JAX steps pass no dropout rng, so the
+reference cannot train them either (``train.steps.check_trainable``). Runs on
 ``cuda`` unless ``--device`` says otherwise.
 """
 
@@ -30,6 +32,7 @@ from ocflow_torch.train import config as config_lib
 from ocflow_torch.train import loop, steps
 from ocflow_torch.train.lr_finder import lr_find
 from ocflow_torch.train.state import create_train_state
+from ocflow_torch.train.steps import check_trainable
 
 # network_type -> (registry family, step factory)
 REGIMES = {
@@ -64,6 +67,7 @@ def main(argv=None) -> dict:
     if cfg.network_type not in REGIMES:
         raise ValueError(f"network_type {cfg.network_type!r}: want one of "
                          f"{sorted(REGIMES)} or 'inpainting'")
+    check_trainable(cfg.model)
     device = resolve_device(args.device)
 
     train_loader, val_loader, test_loader = loop.make_loaders(cfg, device)

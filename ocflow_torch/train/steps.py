@@ -18,7 +18,11 @@ running statistics, no update), as the JAX eval step runs ``train=False``.
 Mixed precision (``compute_dtype='bfloat16'``): the fused forward casts the
 images, and the weights inside the graph, to bf16; Adam updates the fp32
 master weights. Loss reductions accumulate in fp32 and warp and range-map
-coordinates stay fp32. The loss tail works on bf16 images.
+coordinates stay fp32. The loss tail works on bf16 images. In the
+unsupervised step every net but FlowNetCV (``model: pwc``) runs in fp32
+with full fp32 cuDNN convolutions (no TF32) whatever ``compute_dtype``
+says, as the JAX step runs them: there ``compute_dtype`` only casts the
+loss tail's images.
 """
 
 from __future__ import annotations
@@ -47,6 +51,21 @@ def resolve_dtype(name) -> torch.dtype | None:
     if name is None or name == "float32" or name == torch.float32:
         return None
     return getattr(torch, name) if isinstance(name, str) else name
+
+
+# flow keys the JAX package cannot train: EFlowNet's bottlenecks apply
+# dropout in train mode, and the JAX steps pass no dropout rng
+UNTRAINABLE = ("eflownet", "eflownet2")
+
+
+def check_trainable(model: str) -> None:
+    """Refuse to train a net that the JAX package cannot train either."""
+    if model in UNTRAINABLE:
+        raise NotImplementedError(
+            f"model {model!r}: its bottlenecks apply dropout in train mode, and the JAX "
+            "package's training steps pass no dropout rng (flax raises InvalidRngError), "
+            "so the reference cannot train this net either; the port serves it "
+            "(evaluate, infer) and does not train it")
 
 
 def _apply_flow_net(model, x: torch.Tensor):
@@ -287,8 +306,9 @@ def make_unsupervised_flow_step(hparams: dict):
         mark("losses")
         return loss, metrics
 
-    # an fp32 step's cuDNN convolutions, forward and backward, without TF32
-    step_dtype = cdt or torch.float32
+    # the step's cuDNN convolutions, forward and backward, without TF32 in
+    # fp32: the fused FlowNetCV computes in ``cdt``, every other net in fp32
+    step_dtype = (cdt or torch.float32) if is_pwc else torch.float32
 
     def train_step(state, batch):
         state.model.train()

@@ -66,7 +66,7 @@ def test_cli_trains_on_the_cpu(tmp_path):
     FlowNetCV().load_state_dict(tree["params"])
 
 
-@pytest.mark.parametrize("over,match", [({"model": "flownetc"}, "A9"),
+@pytest.mark.parametrize("over,match", [({"model": "eflownet"}, "dropout rng"),
                                         ({"network_type": "twostage"}, "A10")])
 def test_cli_refuses_what_the_port_cannot_train(tmp_path, over, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -23,10 +23,12 @@ import torch
 
 from ocflow_torch.bench import perturb_batchnorm
 from ocflow_torch.kernels import cost_volume as cv_mod
-from ocflow_torch.models import (FlowNet, FlowNetC, FlowNetCV, FlowOccNet, FlowOccNetC,
-                                 FlowOccNetCV, FlowOccNetCV2, OcclusionNetC, PWCNet,
-                                 SimpleFlowNet, available, build, flownetc_from_flax,
-                                 flowoccnetc_from_flax, occnetc_from_flax)
+from ocflow_torch.models import (EFlowNet, EFlowNet2, FlowNet, FlowNetC, FlowNetCV,
+                                 FlowNetS, FlowOccNet, FlowOccNetC, FlowOccNetCV,
+                                 FlowOccNetCV2, FlowOccNetS, OcclusionNetC, OcclusionNetS,
+                                 PWCNet, SimpleFlowNet, SimpleFlowOccNet, SimpleOcclusionNet,
+                                 available, build, flownetc_from_flax, flowoccnetc_from_flax,
+                                 occnetc_from_flax)
 from ocflow_torch.ops.cost_volume import cost_volume as plain_cost_volume
 from ocflow_tpu.models import flow_net_s as jfns
 from ocflow_tpu.models import flow_occ_nets as jfon
@@ -173,22 +175,28 @@ def test_registry_builds_each_key_and_raises_on_unknown():
             ("flow", "flownetc"): FlowNetC, ("occ", "occnetc"): OcclusionNetC,
             ("flow_occ", "flowoccnetc"): FlowOccNetC, ("flow", "simple"): SimpleFlowNet,
             ("flow", "flownet"): FlowNet, ("flow_occ", "pwoc"): FlowOccNetCV,
-            ("flow_occ", "pwoc2"): FlowOccNetCV2, ("flow_occ", "flowoccnet"): FlowOccNet}
-    assert available() == {"flow": ["flownet", "flownetc", "pwc", "pwcnet", "simple"],
-                           "occ": ["occnetc"],
-                           "flow_occ": ["flowoccnet", "flowoccnetc", "pwoc", "pwoc2"]}
+            ("flow_occ", "pwoc2"): FlowOccNetCV2, ("flow_occ", "flowoccnet"): FlowOccNet,
+            ("flow", "flownets"): FlowNetS, ("flow", "eflownet"): EFlowNet,
+            ("flow", "eflownet2"): EFlowNet2, ("occ", "simple"): SimpleOcclusionNet,
+            ("occ", "occnets"): OcclusionNetS, ("flow_occ", "simple"): SimpleFlowOccNet,
+            ("flow_occ", "flowoccnets"): FlowOccNetS}
+    assert available() == {
+        "flow": ["eflownet", "eflownet2", "flownet", "flownetc", "flownets", "pwc", "pwcnet",
+                 "simple"],
+        "occ": ["occnetc", "occnets", "simple"],
+        "flow_occ": ["flowoccnet", "flowoccnetc", "flowoccnets", "pwoc", "pwoc2", "simple"]}
     for (family, key), cls in want.items():
         assert type(build(family, key)) is cls
     a = build("flow", "flownetc", generator=torch.Generator().manual_seed(3))
     b = FlowNetC(generator=torch.Generator().manual_seed(3))
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
-    with pytest.raises(ValueError, match="flownets.*'occnetc'"):
-        build("flow", "flownets")
+    with pytest.raises(ValueError, match="ocflownet.*'occnetc'"):
+        build("flow", "ocflownet")
     with pytest.raises(ValueError, match="inpainting"):
         build("inpainting", "simple")
     with pytest.raises(ValueError, match="'simple'"):
-        build("occ", "simple")
+        build("occ", "gated")
 
 
 def test_fp32_forward_pins_cudnn_convolutions_to_fp32(monkeypatch):

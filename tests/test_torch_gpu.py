@@ -688,3 +688,45 @@ def test_flax_batchnorm_on_gpu_matches_the_cpu(cuda_device):
     for name in ("running_mean", "running_var"):
         torch.testing.assert_close(getattr(bns[1], name).cpu(), getattr(bns[0], name),
                                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("key,launches", [("flownetc", [2, 1]), ("flownet", [10, 5])])
+def test_unsupervised_zoo_step_on_gpu_launches_the_cost_volume_without_tf32(
+        cuda_device, monkeypatch, key, launches):
+    """One occlusion-aware unsupervised step under ``compute_dtype:
+    bfloat16`` (the loss tail's images only) at 2x64x128: FlowNetC's d=10
+    cost volume runs twice (the forward and the backward-flow pass) and its
+    backward once, FlowNet's d=4 ones at five levels 10 and 5 times, and no
+    other kernel; every convolution of the step, forward and backward, runs
+    with cuDNN's TF32 off though the caller's flag allows it."""
+    from ocflow_torch.models import registry
+
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(*args, **kwargs):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    gen = torch.Generator().manual_seed(0)
+    model = registry.build("flow", key, generator=gen)
+    first = next(m for m in model.modules() if isinstance(m, torch.nn.Conv2d))
+    first.weight.register_hook(lambda g: seen.append(torch.backends.cudnn.allow_tf32))
+    coarse = torch.rand((2, 6, 8, 16), generator=gen) * 2 - 1
+    batch = {"images": smooth_images(coarse).to(cuda_device)}
+    hp = {"model": key, "occ_aware": True, "occ_method": "range_map", "photo_weight": 4.0,
+          "smooth1_weight": 0.5, "smooth2_weight": 0.0, "compute_dtype": "bfloat16"}
+    state = create_train_state(model, 1e-4, device=cuda_device)
+    train_step, _ = make_unsupervised_flow_step(hp)
+    counters = (cv_mod.cost_volume, cv_mod.cost_volume_backward, conv_chain.conv_group,
+                conv_chain.conv_group_diff, conv_chain_q8.conv_group_q8)
+    for c in counters:
+        c.launches = 0
+    torch.backends.cudnn.allow_tf32 = True
+    _, metrics = train_step(state, batch)
+    torch.cuda.synchronize()
+    assert torch.backends.cudnn.allow_tf32
+    assert [c.launches for c in counters] == launches + [0, 0, 0]
+    assert len(seen) > 20 and not any(seen)
+    assert all(torch.isfinite(v).all() for v in metrics.values())

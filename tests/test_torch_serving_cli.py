@@ -140,8 +140,8 @@ def test_clis_refuse_what_is_not_ported(sintel, tmp_path):
         tevaluate.main(["--device", "cpu", "--task", "inpainting"])
     with pytest.raises(NotImplementedError, match="A10"):
         tevaluate.main(["--device", "cpu", "--with_fid"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        tevaluate.main(["--device", "cpu", "--model", "flownets", "--dataset",
+    with pytest.raises(NotImplementedError, match="A10"):
+        tevaluate.main(["--device", "cpu", "--model", "ocflownet", "--dataset",
                         "MpiSintelClean", "--root", sintel])
     with pytest.raises(ValueError, match="pwc"):
         tinfer.main(["--device", "cpu", "--input", sintel, "--model", "flownetc", "--q8"])
