@@ -150,6 +150,35 @@ Phases (any failure raises and exits non-zero):
    no launches, the card against the CPU at 2x64x128 (1e-4 of max|out|),
    ms per forward.
 
+14. the cost volume past d = 10 on the general kernels
+   (``csrc/cost_volume_any.cu``) at d = 11, 12 and 16, at 8x64x112x256 and
+   8x196x7x16, forward and backward, fp32 and bf16, each call against its
+   plain version (fp32 1e-4 of max|plain|, bf16 2^-6) and timed beside its
+   bound (bytes at 3.35 TB/s or operations at 67 TFLOP/s) and the plain
+   version; a FlowNetC built with displacement 12 (B=8, 448x1024, fp32,
+   eval): the launches of its forward and input gradient (one general
+   forward, one general backward), its 8x256x56x128 call replayed and
+   timed. Then the inpainting slice at full width (448x1024, B=8, fp32, TF32
+   off): ``SyntheticInpainting`` made on the card against the CPU (frames
+   1e-4, masks bit for bit) and its ms per sample; the three file-backed
+   inpainting datasets on phase 11's trees (keys, shapes, coverage, zeroed
+   holes); InpaintingNet's eval forward (card vs CPU at 2x64x128, 1e-4; ms),
+   one supervised step on phase 11's Sintel tree resized to 448x1024 and one
+   stage step on ``SyntheticInpainting`` (each: card vs CPU at 2x64x128,
+   loss 1e-5 and statistics 1e-5 in fp32, gradients 1e-4 of max|grad| in
+   fp64; at full size the launches (none), both TF32 flags read inside the
+   step (off), the loss, the statistics moved, the warm step's ms and its
+   kernel time by kind); OCFlowNet's forward (card vs CPU, the hard mask
+   where the soft value is clear of 0.5; ms); ``python -m
+   ocflow_torch.train`` on the inpainting net (a process of its own) and
+   ``python -m ocflow_torch.train_unsupervised`` on
+   ``configs/inpainting_gan_fullres.yaml`` cut to ``model: simple``, no GAN,
+   B=8, 44 samples, 2 epochs (its panels decoded and equal to the drawn
+   ones); ``python -m ocflow_torch.evaluate --task inpainting`` on
+   ``SyntheticInpainting`` (24 samples) and the Sintel tree: PSNR and SSIM
+   against float64 on the CPU from the same completed images (1e-5
+   relative), SSIM at most 1, the metric pass's pairs/s.
+
 Phases 6 and 8 hold their references (the eager fp32 forward, the eager
 step) on the plain cost volume; phase 6 also holds the eager forward on the
 cost-volume kernel (5 launches) against it.
@@ -2602,6 +2631,616 @@ def _phase13(card, max_err, dev="cuda"):
     return launches
 
 
+# phase 14: the cost volume past d = 10 on the general kernels
+# (csrc/cost_volume_any.cu), at one FlowNetCV level-2 shape and at level 6,
+# fp32 and bf16; and a FlowNetC built with displacement 12 (its correlation
+# 8x256x56x128 at B=8 448x1024), whose forward and input gradient launch
+# them once each
+CV_GENERAL_DISPLACEMENTS = (11, 12, 16)
+CV_FLOWNETC_D = 12
+# phase 14: the inpainting slice at full width (B=8, 448x1024), fp32, TF32
+# off; card against CPU at INPAINT_SMALL
+INPAINT_SMALL = (2, 64, 128)
+INPAINT_REL = 1e-4           # outputs, gradients: max-abs over max|CPU|
+INPAINT_LOSS_REL = 1e-5      # loss: relative
+INPAINT_STATS_REL = 1e-5     # BatchNorm statistics: max-abs over max|CPU|
+INPAINT_METRIC_REL = 1e-5    # PSNR, SSIM against float64 on the CPU
+INPAINT_SYNTH_TOL = 1e-4     # SyntheticInpainting's frames, card vs CPU
+# the stage CLI: configs/inpainting_gan_fullres.yaml with these cuts
+STAGE_CLI_CUTS = {"model": "simple", "adversarial_loss": False, "batch_size": 8,
+                  "dataset_size": 44, "max_epochs": 2, "log_every_n_steps": 1,
+                  "log_image_every_epoch": 1, "num_workers": 6}
+
+
+def _hold_general(kind, args, max_err, label):
+    """One general-kernel call (forward or backward) against its plain
+    version within KERNEL_TOL; the general counter of the wrapper must count
+    it. Returns the plain version's ms (one call, CUDA events)."""
+    from ocflow_torch.kernels import cost_volume as cv_mod
+
+    fwd = kind == "cost_volume_general"
+    counter = cv_mod.cost_volume if fwd else cv_mod.cost_volume_backward
+    before = counter.general_launches
+    got = [cv_mod.cost_volume(*args)] if fwd else cv_mod.cost_volume_backward(*args)
+    ref, plain_ms = _timed_once(lambda: [cv_mod.cost_volume_plain(*args)] if fwd
+                                else cv_mod.cost_volume_backward_plain(*args))
+    torch.cuda.synchronize()
+    dtype = args[0].dtype
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+    scale = max(r.float().abs().max().item() for r in ref)
+    tol = KERNEL_TOL[dtype] * max(scale, 1e-30)
+    print(f"check {label}{kind} {str(dtype)[6:]} {tuple(args[0].shape)}: max_abs_err "
+          f"{err:.3e} rel {err / max(scale, 1e-30):.3e} max|plain| {scale:.3e} tol "
+          f"{tol:.3e} ({TOL_REASON[dtype]})")
+    if not err <= tol or counter.general_launches != before + 1:
+        raise AssertionError(f"{kind} {tuple(args[0].shape)} {dtype}: {err} > {tol}, "
+                             f"general launches {before} -> {counter.general_launches}")
+    max_err[kind] = max(max_err[kind], err)
+    return plain_ms
+
+
+def _time_general(card, kind, args, plain_ms):
+    """The general kernel's ms at ``args`` beside its bound (the larger of
+    bytes at 3.35 TB/s and operations at 67 TFLOP/s: fp32 CUDA cores for
+    fp32 and bf16 inputs alike) and the plain version's ms."""
+    from ocflow_torch.bench import cuda_ms
+    from ocflow_torch.kernels import cost_volume as cv_mod
+
+    fn = cv_mod.cost_volume if kind == "cost_volume_general" else cv_mod.cost_volume_backward
+    ms = cuda_ms(lambda: fn(*args), 3)
+    d = args[-1]
+    nbytes, ops = (_cv_cost if kind == "cost_volume_general" else _cv_bwd_cost)(args[0], d)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / PEAK_FLOPS[torch.float32] * 1e3
+    by = "bytes" if b_ms >= o_ms else "operations"
+    print(f"time {kind} d={d} {str(args[0].dtype)[6:]} {tuple(args[0].shape)}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound {max(b_ms, o_ms):.4f} ms "
+          f"({by}; bytes {b_ms:.4f} ms at 3.35 TB/s, operations {o_ms:.4f} ms at 67 TFLOP/s "
+          f"fp32), {100 * max(b_ms, o_ms) / ms:.2f}% of bound [{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_ms, o_ms), "bound_by": by}
+
+
+def _general_d_phase(card, max_err):
+    """Phase 14 (a): every d of ``CV_GENERAL_DISPLACEMENTS`` at each shape of
+    ``CV_NEW_SHAPES``, fp32 and bf16, forward and backward (a seeded
+    cotangent), each call against its plain version and timed beside its
+    bound; then a FlowNetC with displacement ``CV_FLOWNETC_D`` (B=8,
+    448x1024, fp32, eval, seeded): the launches of its forward and input
+    gradient (one general forward, one general backward, nothing else), its
+    correlation call (8x256x56x128) replayed forward and backward against
+    the plain versions and timed. Returns ``(per_d, path_launches,
+    path_records)``."""
+    from ocflow_torch.bench import BATCH, HEIGHT, SEED, WIDTH, make_flownetc_inputs
+    from ocflow_torch.kernels import cost_volume as cv_mod
+    from ocflow_torch.models import FlowNetC
+    from ocflow_torch.models import flow_net_s as fns
+
+    kinds = ("cost_volume_general", "cost_volume_bwd_general")
+    per_d = {k: {} for k in kinds}
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for d in CV_GENERAL_DISPLACEMENTS:
+        for k in kinds:
+            per_d[k][d] = {"float32": [], "bfloat16": []}
+        for shape in CV_NEW_SHAPES:
+            f1, f2 = (torch.randn(*shape, device="cuda", generator=gen) for _ in range(2))
+            b, _, h, w = shape
+            g = torch.randn(b, (2 * d + 1) ** 2, h, w, device="cuda", generator=gen)
+            for dtype in (torch.float32, torch.bfloat16):
+                a1, a2, ag = f1.to(dtype), f2.to(dtype), g.to(dtype)
+                for kind, args in ((kinds[0], (a1, a2, d)), (kinds[1], (a1, a2, ag, d))):
+                    plain_ms = _hold_general(kind, args, max_err, f"d={d} ")
+                    rec = _time_general(card, kind, args, plain_ms)
+                    per_d[kind][d][str(dtype)[6:]].append(
+                        [rec["ms"], rec["plain_ms"], rec["bound_ms"], rec["bound_by"]])
+            del f1, f2, g
+            torch.cuda.empty_cache()
+
+    cls = type("FlowNetC12", (FlowNetC,), {"DISPLACEMENT": CV_FLOWNETC_D})
+    model, x = make_flownetc_inputs(BATCH, HEIGHT, WIDTH, "cuda", SEED, cls)
+    with torch.no_grad():
+        shape = model(x).shape
+    cot = torch.randn(shape, device="cuda", generator=gen)
+
+    def grad():
+        xg = x.detach().requires_grad_()
+        return torch.autograd.grad(model(xg), xg, cot)[0]
+
+    def counted(run):
+        cv_mod.cost_volume.general_launches = 0
+        cv_mod.cost_volume_backward.general_launches = 0
+        counts, out = _count_launches(run)
+        counts.update(cost_volume_general=cv_mod.cost_volume.general_launches,
+                      cost_volume_bwd_general=cv_mod.cost_volume_backward.general_launches)
+        return counts, out
+
+    launches, out = counted(grad)
+    expect = {k: 0 for k in launches}
+    expect.update(cost_volume=1, cost_volume_bwd=1, cost_volume_general=1,
+                  cost_volume_bwd_general=1)
+    print(f"main path flownetc_d{CV_FLOWNETC_D} (FlowNetC with displacement "
+          f"{CV_FLOWNETC_D}, one fp32 eval forward and input gradient, B={BATCH} "
+          f"{HEIGHT}x{WIDTH}) launches: {launches} (expected {expect}); gradient finite "
+          f"{bool(torch.isfinite(out).all())}")
+    if launches != expect or not torch.isfinite(out).all():
+        raise AssertionError(f"flownetc d={CV_FLOWNETC_D} path: {launches}")
+    calls = _record([(fns, "cost_volume"), (cv_mod, "cost_volume_backward")], grad)
+    fwd_args = next(a for k, a in calls if k == "cost_volume")
+    bwd_args = next(a for k, a in calls if k == "cost_volume_backward")
+    records = {}
+    for kind, args in ((kinds[0], fwd_args), (kinds[1], bwd_args)):
+        if tuple(args[0].shape) != (BATCH, 256, HEIGHT // 8, WIDTH // 8):
+            raise AssertionError(f"{kind} call {tuple(args[0].shape)}")
+        plain_ms = _hold_general(kind, args, max_err, f"flownetc d={CV_FLOWNETC_D} ")
+        records[kind] = _time_general(card, kind, args, plain_ms)
+    del model, x, out, calls, fwd_args, bwd_args
+    torch.cuda.empty_cache()
+    return per_d, launches, records
+
+
+def _inpaint_step(card, label, factory, model, batch):
+    """One train step of ``factory``'s step on ``batch`` (B=8, 448x1024) with
+    every counter zeroed and both TF32 flags set before it: its launches
+    (none), the TF32 flags read inside it (both off), the loss, the
+    BatchNorm statistics moved; then the warm step's ms (median of 5, CUDA
+    events) and its kernel time by kind (``torch.profiler``). Returns
+    ``(launches, ms, profile)``."""
+    import math
+    import statistics
+
+    from ocflow_torch.tools.flownetc_profile import profile_fn
+    from ocflow_torch.train import create_train_state
+
+    state = create_train_state(model, 1e-4, device="cuda")
+    train_step, _ = factory({"loss_type": "pixel-wise"})
+    before = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    # both TF32 flags as the net's forward finds them
+    seen = []
+    hook = model.register_forward_pre_hook(lambda m, a: seen.append(
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        counts, (_, metrics) = _count_launches(lambda: train_step(state, batch))
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        hook.remove()
+    moved = max((model.state_dict()[k] - v).abs().max().item() for k, v in before.items())
+    loss = metrics["loss"].item()
+    runs = []
+    for _ in range(5):
+        _, ms = _timed_once(lambda: train_step(state, batch))
+        runs.append(ms)
+    prof = profile_fn(lambda: train_step(state, batch), 8, 3)
+    print(f"main path {label} (one fp32 train step, B=8 448x1024) launches: {counts} "
+          f"(none expected: no kernel of this repository); TF32 read inside the step "
+          f"(cudnn, matmul): {sorted(set(seen))} (the caller's flags True); loss {loss:.6f}; "
+          f"BatchNorm running statistics moved by up to {moved:.3e}")
+    print(f"time {label} step B=8 448x1024 fp32: {statistics.median(runs):.3f} ms (median "
+          f"of 5, CUDA events; runs {', '.join(f'{r:.2f}' for r in runs)}), "
+          f"{8e3 / statistics.median(runs):.2f} pairs/s; profile (3 steps): "
+          f"{prof['ms_per_batch']:.3f} ms/step, kernels {prof['kernel_ms_per_batch']:.3f} ms "
+          f"(busy {100 * prof['busy_share']:.1f}%), by kind "
+          f"{ {k: round(v, 3) for k, v in prof['by_kind'].items()} } [{card}]")
+    if any(counts.values()) or seen != [(False, False)] or not math.isfinite(loss) \
+            or not moved > 0:
+        raise AssertionError(f"{label}: {counts} {seen} {loss} {moved}")
+    del state
+    return counts, statistics.median(runs), prof
+
+
+def _inpaint_small_step(label, factory, batch):
+    """The step of ``factory`` on the card against the CPU at
+    ``INPAINT_SMALL`` from the same seeded weights and batch: in fp32 the
+    loss within 1e-5 and the statistics within 1e-5; in fp64 (the same step,
+    cuDNN's fp64 convolutions) the gradients within 1e-4 of max|grad| per
+    tensor. (In fp32 the net's train-mode BatchNorms over 4 values a channel
+    at its 1x2 level carry rounding far: the fp32 gradient gap is printed.)"""
+    from ocflow_torch.bench import perturb_batchnorm
+    from ocflow_torch.models import InpaintingNet
+    from ocflow_torch.train import TrainState
+
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        for dev in ("cpu", "cuda"):
+            model = InpaintingNet(generator=torch.Generator().manual_seed(2))
+            perturb_batchnorm(model, torch.Generator().manual_seed(3))
+            model = model.to(dev, dtype)
+            state = TrainState(model, torch.optim.Adam(model.parameters(), lr=1e-4))
+            train_step, _ = factory({"loss_type": "pixel-wise"})
+            _, metrics = train_step(state, {k: v.to(dev, dtype) for k, v in batch.items()})
+            res[(dtype, dev)] = (
+                metrics["loss"].item(),
+                {k: p.grad.detach().cpu().double() for k, p in model.named_parameters()},
+                {k: v.cpu().double() for k, v in model.state_dict().items() if "running" in k})
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        (lc, gc, sc), (lg, gg, sg) = res[(dtype, "cpu")], res[(dtype, "cuda")]
+        grad = max(((gg[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+                   for k, v in gc.items())
+        stats = max(((sg[k] - v).abs().max() / v.abs().max()).item() for k, v in sc.items())
+        out[str(dtype)[6:]] = {"loss": abs(lg - lc) / abs(lc), "grad": grad, "stats": stats}
+    b, h, w = INPAINT_SMALL
+    print(f"check {label} card vs CPU at {b}x{h}x{w}, seeded weights: fp32 loss "
+          f"{out['float32']['loss']:.3e} (tol {INPAINT_LOSS_REL}) statistics "
+          f"{out['float32']['stats']:.3e} (tol {INPAINT_STATS_REL}), gradients "
+          f"{out['float32']['grad']:.3e} of max|grad| (printed, not held); fp64 loss "
+          f"{out['float64']['loss']:.3e} statistics {out['float64']['stats']:.3e} gradients "
+          f"{out['float64']['grad']:.3e} (tol {INPAINT_REL})")
+    if not (out["float32"]["loss"] <= INPAINT_LOSS_REL
+            and out["float32"]["stats"] <= INPAINT_STATS_REL
+            and out["float64"]["loss"] <= INPAINT_LOSS_REL
+            and out["float64"]["grad"] <= INPAINT_REL):
+        raise AssertionError(f"{label} card vs CPU: {out}")
+
+
+def _ocflownet_check(card):
+    """Phase 14 (e): OCFlowNet (seeded, statistics perturbed) card vs CPU at
+    ``INPAINT_SMALL`` (flow and completed frame within 1e-4 of max, the hard
+    mask equal wherever the soft value is at least 1e-4 from 0.5), its
+    launches (none) and ms per forward at B=8 448x1024."""
+    from ocflow_torch.bench import BATCH, HEIGHT, SEED, WIDTH, cuda_ms, perturb_batchnorm
+    from ocflow_torch.models import OCFlowNet
+    from ocflow_torch.ops import resize_bilinear
+
+    model = OCFlowNet(generator=torch.Generator().manual_seed(SEED))
+    perturb_batchnorm(model, torch.Generator().manual_seed(SEED + 1))
+    model.eval()
+    b, h, w = INPAINT_SMALL
+    x = torch.rand((b, h, w, 6), generator=torch.Generator().manual_seed(5)) * 2 - 1
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        seen = {}
+        hook = m.flow_occ.predict_occ1.register_forward_hook(
+            lambda mod, i, o: seen.setdefault("logit", o))  # noqa: B023
+        with torch.no_grad():
+            out = m(x.to(dev))
+        hook.remove()
+        soft = torch.sigmoid(10.0 * resize_bilinear(seen["logit"], h, w)).permute(0, 2, 3, 1)
+        outs[dev] = [t.cpu() for t in out] + [soft.cpu()]
+    (fc, oc, cc, sc), (fg, og, cg, _) = outs["cpu"], outs["cuda"]
+    clear = (sc - 0.5).abs() >= 1e-4
+    errs = [((g - c).abs().max() / c.abs().max()).item() for g, c in ((fg, fc), (cg, cc))]
+    mask_ok = bool(torch.equal(og[clear], oc[clear]))
+    model = model.cuda()
+    xb = torch.rand((BATCH, HEIGHT, WIDTH, 6), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(6)) * 2 - 1
+
+    def forward():
+        with torch.no_grad():
+            return model(xb)
+
+    counts, out = _count_launches(forward)
+    ms = cuda_ms(forward, 5)
+    shapes = [tuple(t.shape) for t in out]
+    print(f"main path ocflownet (eval forward, fp32, B={BATCH} {HEIGHT}x{WIDTH}) launches: "
+          f"{counts} (none expected); outputs {shapes}; card vs CPU at {b}x{h}x{w}: flow "
+          f"{errs[0]:.3e}, completed {errs[1]:.3e} of max (tol {INPAINT_REL}), hard mask "
+          f"equal where the soft value is clear of 0.5 ({100 * clear.float().mean():.2f}% "
+          f"of pixels): {mask_ok}")
+    print(f"time ocflownet forward B={BATCH} {HEIGHT}x{WIDTH} fp32 eval: {ms:.3f} ms "
+          f"({BATCH * 1e3 / ms:.2f} pairs/s, CUDA events, mean of 5) [{card}]")
+    if any(counts.values()) or max(errs) > INPAINT_REL or not mask_ok \
+            or not all(torch.isfinite(t).all() for t in out):
+        raise AssertionError(f"ocflownet: {counts} {errs} {mask_ok}")
+    return counts, ms
+
+
+def _synthetic_inpainting_check(card):
+    """Phase 14 (b): 8 ``SyntheticInpainting`` samples at 448x1024 made on
+    the card against the same samples on the CPU (frames within 1e-4, masks
+    and ``occluded`` bit for bit), and the card's ms per sample (wall: the
+    texture on the card, the strokes on the host)."""
+    from ocflow_torch.data import build_dataset
+
+    kw = dict(size=8, image_size=(448, 1024), occlusion_ratio=0.4, seed=0)
+    card_ds = build_dataset("SyntheticInpainting", device="cuda", **kw)
+    cpu_ds = build_dataset("SyntheticInpainting", device="cpu", **kw)
+    t0 = time.perf_counter()
+    got = [card_ds[i] for i in range(8)]
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) * 1e3 / 8
+    img_err, exact, cover = 0.0, True, []
+    for i, g in enumerate(got):
+        r = cpu_ds[i]
+        img_err = max(img_err, (g["image"].cpu() - r["image"]).abs().max().item())
+        exact &= bool(torch.equal(g["occ"].cpu(), r["occ"]))
+        exact &= bool(torch.equal(g["occluded"].cpu(), torch.where(r["occ"] > 0, 0.0,
+                                                                   g["image"].cpu())))
+        cover.append(r["occ"].mean().item())
+    print(f"data SyntheticInpainting 448x1024 (ratio 0.4), 8 samples: card vs CPU frames "
+          f"{img_err:.3e} (tol {INPAINT_SYNTH_TOL}), masks and occluded frames bit for bit: "
+          f"{exact}; coverage {min(cover):.3f}-{max(cover):.3f}; {per:.1f} ms per sample on "
+          f"the card (wall: texture on the card, strokes on the host) [{card}]")
+    if not img_err <= INPAINT_SYNTH_TOL or not exact:
+        raise AssertionError(f"SyntheticInpainting card vs CPU: {img_err} {exact}")
+    return per
+
+
+def _inpainting_files_check(trees):
+    """Phase 14 (c): the file-backed inpainting datasets on phase 11's trees:
+    keys, shapes, each mask binary with its coverage, ``occluded`` zero under
+    the mask and the frame elsewhere."""
+    import numpy as np
+
+    from ocflow_torch.data import build_dataset
+
+    for name, root, size in (("MpiSintelCleanInpainting", trees["sintel"], (384, 1024)),
+                             ("MpiSintelFinalInpainting", trees["sintel"], (384, 1024)),
+                             ("FlyingChairsInpainting", trees["chairs2"], (384, 512))):
+        t0 = time.perf_counter()
+        ds = build_dataset(name, root=root, occlusion_ratio=0.4)
+        n = min(len(ds), 10)
+        cover, ok = [], len(ds) > 0
+        for i in range(n):
+            s = ds[i]
+            ok &= set(s) == {"occluded", "image", "occ"}
+            ok &= s["image"].shape == (*size, 3) and s["occ"].shape == (*size, 1)
+            ok &= bool(np.isin(s["occ"], (0.0, 1.0)).all())
+            ok &= bool((s["occluded"] == np.where(s["occ"] > 0, 0.0, s["image"])).all())
+            cover.append(float(s["occ"].mean()))
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        print(f"data {name}: {len(ds)} frames, {n} read at {size[0]}x{size[1]}: keys, shapes, "
+              f"binary masks and zeroed holes {ok}; coverage {min(cover):.3f}-{max(cover):.3f} "
+              f"(free-form strokes up to 0.9 x 0.4 or 100 rounds); {ms:.1f} ms per sample "
+              f"(decode, crop, strokes; host)")
+        if not ok:
+            raise AssertionError(f"{name}: a sample breaks the inpainting contract")
+
+
+def _inpainting_net_phase(card, trees):
+    """Phase 14 (d): InpaintingNet's eval forward (card vs CPU, ms at full
+    size), one supervised step on ``MpiSintelFlowOccClean`` resized to
+    448x1024 and one stage step on ``SyntheticInpainting``, each held card
+    vs CPU at ``INPAINT_SMALL`` and run at full size. Returns launches and
+    records."""
+    from ocflow_torch.bench import BATCH, HEIGHT, SEED, WIDTH, cuda_ms, perturb_batchnorm
+    from ocflow_torch.data import DataLoader, build_dataset
+    from ocflow_torch.models import InpaintingNet
+    from ocflow_torch.train import make_inpainting_stage_step, make_supervised_inpainting_step
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = InpaintingNet(generator=gen)
+    perturb_batchnorm(model, gen)
+    model.eval()
+    b, h, w = INPAINT_SMALL
+    imgs = torch.rand((b, h, w, 3), generator=gen) * 2 - 1
+    masks = (torch.rand((b, h, w, 1), generator=gen) > 0.6).float()
+    with torch.no_grad():
+        ref = model(imgs, masks)
+        cuda_model = copy.deepcopy(model).cuda()
+        got = cuda_model(imgs.cuda(), masks.cuda()).cpu()
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    big = torch.rand((BATCH, HEIGHT, WIDTH, 3), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(7)) * 2 - 1
+    big_m = (torch.rand((BATCH, HEIGHT, WIDTH, 1), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(8)) > 0.6).float()
+
+    def forward():
+        with torch.no_grad():
+            return cuda_model(big, big_m)
+
+    counts, out = _count_launches(forward)
+    fwd_ms = cuda_ms(forward, 5)
+    print(f"main path inpainting_forward (eval, fp32, B={BATCH} {HEIGHT}x{WIDTH}) launches: "
+          f"{counts} (none expected); card vs CPU at {b}x{h}x{w}: {err:.3e} of max|out| (tol "
+          f"{INPAINT_REL}); output {tuple(out.shape)} in [{out.min().item():.3f}, "
+          f"{out.max().item():.3f}]")
+    print(f"time inpainting_forward B={BATCH} {HEIGHT}x{WIDTH} fp32 eval: {fwd_ms:.3f} ms "
+          f"({BATCH * 1e3 / fwd_ms:.2f} pairs/s, CUDA events, mean of 5) [{card}]")
+    if any(counts.values()) or not err <= INPAINT_REL or not torch.isfinite(out).all():
+        raise AssertionError(f"inpainting forward: {counts} {err}")
+    launches = {"inpainting_forward": counts}
+    del out, big, big_m, cuda_model
+    torch.cuda.empty_cache()
+
+    rng = torch.Generator().manual_seed(9)
+    small_sup = {"images": torch.rand((b, h, w, 6), generator=rng) * 2 - 1,
+                 "flow": torch.randn((b, h, w, 2), generator=rng) * 3,
+                 "occ": (torch.rand((b, h, w, 1), generator=rng) > 0.7).float()}
+    small_stage = {"image": small_sup["images"][..., :3], "occ": small_sup["occ"]}
+    _inpaint_small_step("supervised_inpainting", make_supervised_inpainting_step, small_sup)
+    _inpaint_small_step("stage_inpainting", make_inpainting_stage_step, small_stage)
+
+    sintel = build_dataset("MpiSintelFlowOccClean", root=trees["sintel"],
+                           image_size=(HEIGHT, WIDTH))
+    sup_batch = {k: v.cuda() for k, v in next(iter(DataLoader(sintel, BATCH))).items()}
+    synth = build_dataset("SyntheticInpainting", size=BATCH, image_size=(HEIGHT, WIDTH),
+                          occlusion_ratio=0.4, device="cuda")
+    stage_batch = next(iter(DataLoader(synth, BATCH, num_workers=0)))
+    step_ms, profiles = {}, {}
+    for label, factory, batch in (("supervised_inpainting", make_supervised_inpainting_step,
+                                   sup_batch),
+                                  ("stage_inpainting", make_inpainting_stage_step,
+                                   stage_batch)):
+        net = InpaintingNet(generator=torch.Generator().manual_seed(SEED))
+        launches[label], step_ms[label], profiles[label] = _inpaint_step(
+            card, label, factory, net, batch)
+        del net
+        torch.cuda.empty_cache()
+    return launches, fwd_ms, step_ms, profiles
+
+
+def _inpainting_cli_phase(card, trees):
+    """Phase 14 (f): ``python -m ocflow_torch.train`` (``network_type:
+    inpainting``, ``model: simple``, ``MpiSintelFlowOccClean`` at 448x1024,
+    B=8, 2 epochs; phase 11's tree has 8 pairs, so ``overfit``: train, val
+    and test are those 8) as a process of its own: exit 0, the CSV's rows,
+    the best checkpoint, its wall time; ``python -m
+    ocflow_torch.train_unsupervised`` on ``configs/inpainting_gan_fullres.yaml``
+    with ``STAGE_CLI_CUTS`` in this process: finite losses, the CSV's rows,
+    the ``inpaint`` panel PNGs decoded with zlib and equal to the panels
+    the run drew, its wall time."""
+    import csv
+    import math
+    import os
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from ocflow_torch import train_unsupervised
+    from ocflow_torch.train import config as config_lib
+    from ocflow_torch.utils.checkpoint import CheckpointManager
+
+    walls = {}
+    with tempfile.TemporaryDirectory() as out:
+        def write(name, raw):
+            raw = {**raw, **{k: os.path.join(out, name, v) for k, v in (
+                ("metrics_csv", "metrics.csv"), ("log_dir", "tb"), ("checkpoint_dir", "ckpt"),
+                ("result_dir", "."))}}
+            path = os.path.join(out, f"{name}.yaml")
+            with open(path, "w") as f:
+                f.write("".join(f"{k}: {_yaml_value(v)}\n" for k, v in raw.items()))
+            return path, raw
+
+        path, raw = write("sup", {
+            "network_type": "inpainting", "model": "simple",
+            "dataset_name": "MpiSintelFlowOccClean", "root": trees["sintel"],
+            "image_size": [448, 1024], "batch_size": 8, "max_epochs": 2, "overfit": True,
+            "num_workers": 6, "log_every_n_steps": 1, "learning_rate": 1e-4, "seed": 0})
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ocflow_torch.train", "--config", path],
+                              capture_output=True, text=True, timeout=600)
+        walls["supervised"] = time.perf_counter() - t0
+        test_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("test:")]
+        rows = []
+        if os.path.exists(raw["metrics_csv"]):
+            with open(raw["metrics_csv"]) as f:
+                rows = list(csv.DictReader(f))
+        phases = [r["phase"] for r in rows]
+        manager = CheckpointManager(raw["checkpoint_dir"])
+        best = manager.best_step
+        print(f"inpainting supervised CLI (python -m ocflow_torch.train, MpiSintelFlowOccClean "
+              f"448x1024, B=8, 2 epochs, overfit): exit {proc.returncode}, {test_line}, CSV "
+              f"{phases.count('train')} train and {phases.count('val')} val rows, best "
+              f"checkpoint at epoch {best}; {walls['supervised']:.1f} s wall (the process's "
+              f"start and TensorBoard included) [{card}]")
+        if proc.returncode != 0 or not test_line or phases != ["train", "val"] * 2 \
+                or best is None:
+            raise AssertionError(f"inpainting supervised CLI: {proc.returncode} {phases} "
+                                 f"{proc.stderr[-2000:]}")
+
+        with open("configs/inpainting_gan_fullres.yaml") as f:
+            stage = config_lib.parse_flat_yaml(f.read())
+        stage.update(STAGE_CLI_CUTS)
+        path, raw = write("stage", stage)
+        drawn = []
+        saved = train_unsupervised.inpaint_viz_fn
+
+        def spy(state, batch):
+            panels = saved(state, batch)
+            drawn.append(panels["inpaint"])
+            return panels
+
+        train_unsupervised.inpaint_viz_fn = spy
+        t0 = time.perf_counter()
+        try:
+            results = train_unsupervised.main(["--config", path])
+        finally:
+            train_unsupervised.inpaint_viz_fn = saved
+        walls["stage"] = time.perf_counter() - t0
+        with open(raw["metrics_csv"]) as f:
+            rows = list(csv.DictReader(f))
+        phases = [r["phase"] for r in rows]
+        losses = [float(r["loss"]) for r in rows]
+        pngs = [_png_pixels(os.path.join(out, "stage", f"val_{e}", "inpaint.png"))
+                for e in range(raw["max_epochs"])]
+        equal = len(pngs) == len(drawn) and all(np.array_equal(p, d)
+                                                for p, d in zip(pngs, drawn))
+        n_train = int(0.8 * raw["dataset_size"]) // raw["batch_size"]
+        print(f"inpainting stage CLI (python -m ocflow_torch.train_unsupervised, "
+              f"inpainting_gan_fullres.yaml with {STAGE_CLI_CUTS}, 448x1024): test {results}, "
+              f"CSV {phases.count('train')} train and {phases.count('val')} val rows, losses "
+              f"finite {all(math.isfinite(v) for v in losses)}; panels {[p.shape for p in pngs]} "
+              f"decoded and equal to the drawn ones: {equal}; {walls['stage']:.1f} s wall "
+              f"(the data's generation included) [{card}]")
+        if phases.count("train") != n_train * raw["max_epochs"] \
+                or phases.count("val") != raw["max_epochs"] or not equal \
+                or not all(math.isfinite(v) for v in [*losses, *results.values()]):
+            raise AssertionError(f"inpainting stage CLI: {phases} {results} {equal}")
+    return walls
+
+
+def _inpainting_eval_phase(card, trees):
+    """Phase 14 (g): ``python -m ocflow_torch.evaluate --task inpainting
+    --model simple`` on ``SyntheticInpainting`` (448x1024, 24 samples, B=8)
+    and on ``MpiSintelCleanInpainting`` (phase 11's tree): PSNR and SSIM
+    against the same metrics computed in float64 on the CPU from the same
+    completed images (1e-5 relative), SSIM at most 1, pairs/s of the metric
+    pass from the second batch on, the command's wall time."""
+    import io
+
+    from ocflow_torch import evaluate
+    from ocflow_torch.metrics import image_metrics
+
+    out = {}
+    for name, extra in (("SyntheticInpainting", ["--dataset_size", "24", "--image_size",
+                                                 "448", "1024"]),
+                        ("MpiSintelCleanInpainting", ["--root", trees["sintel"]])):
+        seen, stamps = [], []
+        saved = image_metrics.completed_images
+
+        def recording(fn, batches):
+            for complete, imgs in saved(fn, batches):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                if len(seen) < len(batches):
+                    seen.append((complete.detach().cpu().double(), imgs.cpu().double()))
+                yield complete, imgs
+
+        image_metrics.completed_images = recording
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                counts, results = _count_launches(lambda: evaluate.main(
+                    ["--task", "inpainting", "--model", "simple", "--dataset", name,
+                     "--batch_size", "8", *extra]))  # noqa: B023
+        finally:
+            image_metrics.completed_images = saved
+        wall = time.perf_counter() - t0
+        n = sum(c.shape[0] for c, _ in seen)
+        psnr64 = sum(image_metrics.psnr(c, i).item() for c, i in seen) / len(seen)
+        ssim64 = sum(image_metrics.ssim(c, i).item() for c, i in seen) / len(seen)
+        rel = {"psnr": abs(results["psnr"] - psnr64) / abs(psnr64),
+               "ssim": abs(results["ssim"] - ssim64) / abs(ssim64)}
+        first_b = seen[0][0].shape[0]
+        steady = (n - first_b) / (stamps[len(seen) - 1] - stamps[0]) if len(seen) > 1 else None
+        print(f"main path evaluate_inpainting_{name} (--task inpainting --model simple, {n} "
+              f"pairs, B=8) launches: {counts} (none expected); {buf.getvalue().strip()}; "
+              f"against float64 on the CPU from the same completed images: PSNR "
+              f"{psnr64:.6f} ({rel['psnr']:.3e}), SSIM {ssim64:.6f} ({rel['ssim']:.3e}) (tol "
+              f"{INPAINT_METRIC_REL}); {wall:.1f} s wall (the data's generation included), "
+              f"the metric pass {steady and f'{steady:.2f}'} pairs/s from the second batch on "
+              f"[{card}]")
+        if any(counts.values()) or max(rel.values()) > INPAINT_METRIC_REL \
+                or not results["ssim"] <= 1.0:
+            raise AssertionError(f"evaluate inpainting {name}: {counts} {results} {rel}")
+        out[name] = {"wall_s": wall, "steady_pairs_per_s": steady, **results}
+    return out
+
+
+def _phase14(card, max_err, trees):
+    """Phase 14 (module docstring): the cost volume past d = 10 on the
+    general kernels, and the inpainting slice at full width. Returns the
+    launch counts by path and the general kernels' records."""
+    t0 = time.perf_counter()
+    per_d, fnetc_launches, records = _general_d_phase(card, max_err)
+    launches = {f"flownetc_d{CV_FLOWNETC_D}": fnetc_launches}
+    synth_ms = _synthetic_inpainting_check(card)
+    _inpainting_files_check(trees)
+    found, fwd_ms, step_ms, _ = _inpainting_net_phase(card, trees)
+    launches.update(found)
+    launches["ocflownet"], oc_ms = _ocflownet_check(card)
+    walls = _inpainting_cli_phase(card, trees)
+    evals = _inpainting_eval_phase(card, trees)
+    print(f"inpainting: SyntheticInpainting {synth_ms:.1f} ms per sample, InpaintingNet "
+          f"forward {fwd_ms:.3f} ms, steps {step_ms}, OCFlowNet forward {oc_ms:.3f} ms, CLIs "
+          f"{ {k: round(v, 1) for k, v in walls.items()} } s, evaluate {evals}; phase 14 took "
+          f"{time.perf_counter() - t0:.1f} s wall [{card}]")
+    return launches, per_d, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2638,7 +3277,8 @@ def main() -> int:
     model_b = copy.deepcopy(model).bfloat16()
     xb = x32.bfloat16()
     max_err = {"cost_volume": 0.0, "conv_group": 0.0, "conv_group_q8": 0.0,
-               "cost_volume_bwd": 0.0, "conv_group_diff": 0.0}
+               "cost_volume_bwd": 0.0, "conv_group_diff": 0.0, "cost_volume_general": 0.0,
+               "cost_volume_bwd_general": 0.0}
     serving = [(pwc_fast, n) for n in ("cost_volume", "conv_group", "conv_group_q8")]
 
     # 3. every kernel call of the bf16/fp32 path, kernel vs plain
@@ -2876,18 +3516,20 @@ def main() -> int:
 
     # 11. the file-backed data path and the serving and eval CLIs; 12. the
     # cost volume at every d, supervised training, the new nets served (on
-    # phase 11's Sintel tree)
-    p12 = {}
+    # phase 11's Sintel tree); 13. the unsupervised zoo: the step on the nets
+    # with a cost volume, the CLI on FlowNetC, the nets without a kernel
+    # served; 14. the cost volume past d = 10, the inpainting slice (on phase
+    # 11's trees)
+    p12, p14 = {}, {}
 
-    def phase12(trees):
+    def after_files(trees):
         found, p12["per_d"], p12["step_ms"] = _phase12(card, max_err, trees)
+        found.update(_phase13(card, max_err))
+        more, p14["per_d"], p14["records"] = _phase14(card, max_err, trees)
+        found.update(more)
         return found
 
-    launches.update(_files_phase(card, max_err, then=phase12))
-
-    # 13. the unsupervised zoo: the step on the nets with a cost volume, the
-    # CLI on FlowNetC, the nets without a kernel served
-    launches.update(_phase13(card, max_err))
+    launches.update(_files_phase(card, max_err, then=after_files))
 
     # per kernel: its source, the TPU kernel it replaces, and the path whose
     # calls its times sum (its "launches" are that path's count)
@@ -2941,6 +3583,21 @@ def main() -> int:
             # per dtype at each of CV_NEW_SHAPES
             kernels[-1].update(displacements=list(cv_mod.FORWARD_DISPLACEMENTS),
                                other_d={"shapes": CV_NEW_SHAPES, **p12["per_d"][name]})
+    # the general kernels (d > 10): their path is a FlowNetC built with
+    # displacement 12 (forward and input gradient); times at its fp32
+    # 8x256x56x128 call; the other d and shapes beside them
+    path = f"flownetc_d{CV_FLOWNETC_D}"
+    for name, source_line in (("cost_volume_general", 91), ("cost_volume_bwd_general", 187)):
+        rec = p14["records"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "ocflow_torch/csrc/cost_volume_any.cu",
+            "replaces": f"ocflow_tpu/ops/pallas/cost_volume_kernel.py:{source_line}",
+            "path": path, "launches": launches[path][name], "d": CV_FLOWNETC_D,
+            "max_abs_err": max_err[name], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+            "library_reason": NO_LIBRARY["cost_volume" if "bwd" not in name
+                                         else "cost_volume_bwd"],
+            "other_d": {"shapes": CV_NEW_SHAPES, **p14["per_d"][name]}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,20 +32,23 @@ import torch
 
 @contextlib.contextmanager
 def full_fp32_convs(dtype: torch.dtype):
-    """Inside, for ``dtype`` fp32, cuDNN convolutions run in full fp32 (TF32
-    off), as the eager reference they are held to; other dtypes are left
-    alone. PyTorch's default lets cuDNN round fp32 convolutions to TF32,
-    which moved the fp32 ``fast_apply`` at 8x448x1024 to 1.06e-4 of
-    max|flow| on an H100, over the port's 1e-4."""
+    """Inside, for ``dtype`` fp32, cuDNN convolutions and CUDA matmuls run in
+    full fp32 (TF32 off), as the eager reference they are held to; other
+    dtypes are left alone. PyTorch's default lets cuDNN round fp32
+    convolutions to TF32, which moved the fp32 ``fast_apply`` at 8x448x1024
+    to 1.06e-4 of max|flow| on an H100, over the port's 1e-4; its default
+    for matmuls is full fp32 already, and stays pinned here (the bilinear
+    resize is two matmuls)."""
     if dtype != torch.float32:
         yield
         return
-    saved = torch.backends.cudnn.allow_tf32
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = saved
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def resolve_device(device=None) -> torch.device:

@@ -19,8 +19,14 @@ the resize with flow rescale (OpenCV's bilinear, ``data.resize``) and the
 occlusion binarization; the loaders put them on the device. The decoding
 is ``data.native_io`` (no OpenCV, PIL or imageio).
 
-``SyntheticInpainting`` and the three inpainting datasets are not ported
-yet (ROADMAP A10).
+The inpainting datasets return ``{'occluded', 'image', 'occ'}``: one frame
+``image`` [H, W, 3] in [-1, 1], a synthetic occlusion mask ``occ`` [H, W, 1]
+(1 = hole; ``data.occlusion``, the JAX package's draws in the same order)
+and ``occluded``, the frame with the hole zeroed. ``SyntheticInpainting``
+makes its frame on its device as ``SyntheticFlowWarp`` makes its texture
+and draws the mask on the host from the same generator; the three
+file-backed ones (``MpiSintelCleanInpainting``, ``MpiSintelFinalInpainting``,
+``FlyingChairsInpainting``) decode a frame on the host.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ from ocflow_torch import full_fp32_convs, resolve_device
 from ocflow_torch.data import native_io
 from ocflow_torch.data.flow_io import read_kitti_png_flow, resize_flow_np
 from ocflow_torch.data.frame_io import read_gen
+from ocflow_torch.data.occlusion import (apply_occlusion, free_form_occlusion,
+                                         static_random_occlusion)
 from ocflow_torch.data.resize import resize_linear
 
 
@@ -181,11 +189,7 @@ class SyntheticFlowWarp(Dataset):
         h, w = self.image_size
         dev = self.device
 
-        # multi-octave texture in [-1, 1]
-        img2 = torch.zeros((h, w, 3), device=dev)
-        for sigma, amp in ((2.0, 1.0), (6.0, 1.5), (18.0, 2.0)):
-            img2 += gaussian_blur(_uniform(rng, (h, w, 3), dev), sigma) * amp * sigma
-        img2 = (img2 / img2.abs().max() * 1.6).clamp(-1.0, 1.0)
+        img2 = _texture(rng, h, w, dev)
 
         # flow = affine (translation + small rotation / zoom) + smooth field
         yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
@@ -207,6 +211,50 @@ class SyntheticFlowWarp(Dataset):
         if self.with_occ:
             sample["occ"] = torch.zeros((h, w, 1), device=dev)
         return sample
+
+
+def _texture(rng: np.random.Generator, h: int, w: int, device) -> torch.Tensor:
+    """The procedural frames' multi-octave texture in [-1, 1], ``[H, W,
+    3]`` on ``device``: three uniform draws blurred at sigma 2, 6 and 18."""
+    img = torch.zeros((h, w, 3), device=device)
+    for sigma, amp in ((2.0, 1.0), (6.0, 1.5), (18.0, 2.0)):
+        img += gaussian_blur(_uniform(rng, (h, w, 3), device), sigma) * amp * sigma
+    return (img / img.abs().max() * 1.6).clamp(-1.0, 1.0)
+
+
+def _occlusion_mask(rng: np.random.Generator, h: int, w: int, ratio: float,
+                    static_occ: bool) -> np.ndarray:
+    if static_occ:
+        return static_random_occlusion(rng, h, w, ratio)
+    return free_form_occlusion(rng, h, w, ratio)
+
+
+class SyntheticInpainting(Dataset):
+    """Procedural inpainting samples (``ocflow_tpu`` ``SyntheticInpainting``):
+    ``SyntheticFlowWarp``'s texture as the frame, made on ``device`` from
+    ``np.random.default_rng((seed, 7, index % size))``, then free-form
+    strokes (or, with ``static_occ``, one rectangle) drawn on the host from
+    the same generator: ``{'occluded', 'image', 'occ'}`` on ``device``."""
+
+    def __init__(self, size=64, image_size=(64, 128), occlusion_ratio=0.5,
+                 static_occ=False, seed=0, device=None):
+        self.size = size
+        self.image_size = image_size
+        self.occlusion_ratio = occlusion_ratio
+        self.static_occ = static_occ
+        self.seed = seed
+        self.device = resolve_device(device)
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, index):
+        rng = np.random.default_rng((self.seed, 7, index % self.size))
+        h, w = self.image_size
+        img = _texture(rng, h, w, self.device)
+        mask = torch.from_numpy(_occlusion_mask(rng, h, w, self.occlusion_ratio,
+                                                self.static_occ)).to(self.device)
+        return {"occluded": torch.where(mask > 0, 0.0, img), "image": img, "occ": mask}
 
 
 def normalize_image(img: np.ndarray) -> np.ndarray:
@@ -394,6 +442,74 @@ class MpiSintelFlowOccFinal(MpiSintelFlowOcc):
         super().__init__(root, "final", replicates, image_size)
 
 
+class _InpaintingDataset(Dataset):
+    """Single frames with a synthetic occlusion: ``{'occluded', 'image',
+    'occ'}`` as numpy arrays. A frame is centre-cropped to its size
+    floored to multiples of 64 (the first frame's), resized to
+    ``image_size`` if given and mapped to [-1, 1]; its mask is drawn from
+    ``np.random.default_rng((seed, index))``, free-form strokes up to
+    ``occlusion_ratio`` or, with ``static_occ``, one rectangle."""
+
+    def __init__(self, image_list, replicates=1, image_size=None,
+                 occlusion_ratio=0.5, static_occ=False, seed=0):
+        self.image_list = image_list
+        self.size = len(image_list)
+        if self.size == 0:
+            raise FileNotFoundError("Empty dataset: no files matched")
+        self.replicates = replicates
+        self.image_size = image_size
+        self.occlusion_ratio = occlusion_ratio
+        self.static_occ = static_occ
+        self.seed = seed
+        self.render_size = floor64(read_gen(image_list[0]).shape[:2])
+
+    def __getitem__(self, index):
+        rng = np.random.default_rng((self.seed, index))
+        th, tw = self.render_size
+        img = center_crop(read_gen(self.image_list[index % self.size]), th, tw)
+        if self.image_size:
+            img = _resize_img(img, *self.image_size)
+        img = normalize_image(img)
+        h, w = img.shape[:2]
+        mask = _occlusion_mask(rng, h, w, self.occlusion_ratio, self.static_occ)
+        return {"occluded": apply_occlusion(img, mask), "image": img, "occ": mask}
+
+
+class MpiSintelInpainting(_InpaintingDataset):
+    """Every Sintel frame ``root/<dstype>/<scene>/*.png``."""
+
+    def __init__(self, root="", dstype="clean", replicates=1, image_size=None,
+                 occlusion_ratio=0.5, static_occ=False, seed=0):
+        frames = sorted(glob(join(root, dstype, "*/*.png")))
+        super().__init__(frames, replicates, image_size, occlusion_ratio, static_occ, seed)
+
+
+class MpiSintelCleanInpainting(MpiSintelInpainting):
+    def __init__(self, root="", replicates=1, image_size=None, occlusion_ratio=0.5,
+                 static_occ=False, seed=0):
+        super().__init__(root, "clean", replicates, image_size, occlusion_ratio,
+                         static_occ, seed)
+
+
+class MpiSintelFinalInpainting(MpiSintelInpainting):
+    """Reads the clean pass, as the JAX package's (and its reference's)
+    class of this name does."""
+
+    def __init__(self, root="", replicates=1, image_size=None, occlusion_ratio=0.5,
+                 static_occ=False, seed=0):
+        super().__init__(root, "clean", replicates, image_size, occlusion_ratio,
+                         static_occ, seed)
+
+
+class FlyingChairsInpainting(_InpaintingDataset):
+    """Every FlyingChairs2 frame ``root/*-img_*.png``."""
+
+    def __init__(self, root="", replicates=1, image_size=None, occlusion_ratio=0.5,
+                 static_occ=False, seed=0):
+        frames = sorted(glob(join(root, "*-img_*.png")))
+        super().__init__(frames, replicates, image_size, occlusion_ratio, static_occ, seed)
+
+
 def _consecutive_pairs(images: list, n: int) -> list:
     if len(images) // 2 != n:
         raise FileNotFoundError(f"{len(images)} frames for {n} flows")
@@ -506,7 +622,12 @@ FILE_DATASETS = {
     "ImagesFromFolder": ImagesFromFolder,
     "ImgFlowOccFromFolder": ImgFlowOccFromFolder,
 }
-# the JAX package's registry but for SyntheticInpainting and the three
-# inpainting datasets (ROADMAP A10)
-DATASET_REGISTRY = {**FILE_DATASETS, "SyntheticFlow": SyntheticFlow,
-                    "SyntheticFlowWarp": SyntheticFlowWarp}
+INPAINTING_DATASETS = {
+    "MpiSintelCleanInpainting": MpiSintelCleanInpainting,
+    "MpiSintelFinalInpainting": MpiSintelFinalInpainting,
+    "FlyingChairsInpainting": FlyingChairsInpainting,
+}
+# the JAX package's registry, key for key
+DATASET_REGISTRY = {**FILE_DATASETS, **INPAINTING_DATASETS, "SyntheticFlow": SyntheticFlow,
+                    "SyntheticFlowWarp": SyntheticFlowWarp,
+                    "SyntheticInpainting": SyntheticInpainting}

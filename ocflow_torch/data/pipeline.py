@@ -222,6 +222,5 @@ def build_dataset(name: str, **kwargs):
         ctor = DATASET_REGISTRY[name]
     except KeyError:
         raise ValueError(
-            f"Unknown dataset {name!r}; the port has {sorted(DATASET_REGISTRY)} "
-            "(SyntheticInpainting and the inpainting datasets are ROADMAP A10)") from None
+            f"Unknown dataset {name!r}; the port has {sorted(DATASET_REGISTRY)}") from None
     return ctor(**kwargs)

@@ -1,10 +1,13 @@
 """Evaluation CLI of the port (``evaluate.py`` of the repository): flow
-quality over a dataset, EPE and, for a flow+occlusion net, occlusion F1.
+quality over a dataset, EPE and, for a flow+occlusion net, occlusion F1;
+or inpainting quality, PSNR and SSIM.
 
     python -m ocflow_torch.evaluate --task flow --model pwc \\
         --dataset MpiSintelClean --root /data/sintel/training [--checkpoint CKPT]
     python -m ocflow_torch.evaluate --task flow_occ --model flowoccnetc \\
         --dataset MpiSintelFlowOccClean --root /data/sintel/training
+    python -m ocflow_torch.evaluate --task inpainting --model simple \\
+        --dataset MpiSintelCleanInpainting --root /data/sintel/training
 
 Builds the network ``models.load_model(task, model)`` (seeded from 0, or the
 ``params`` of a port checkpoint), serves it eagerly in fp32 and eval mode
@@ -13,9 +16,13 @@ with full fp32 cuDNN convolutions, as the JAX CLI serves ``net.apply``
 kernel), batch by batch from the loader (``--batch_size``, the last batch
 ragged), and prints one JSON line: the mean over batches of each batch's
 EPE (``metrics.evaluate_flow``) and, with ``--task flow_occ`` on a dataset
-with occlusion masks, of its ``occlusion_f1``. Runs on ``cuda`` unless
-``--device`` says otherwise. ``--task inpainting`` and ``--with_fid`` are
-ROADMAP A10.
+with occlusion masks, of its ``occlusion_f1``. ``--task inpainting`` applies
+the inpainting net to each batch's complete ``image`` and its mask ``occ``
+(the net zeroes the hole itself), as the JAX CLI does, and prints the mean
+over batches of each batch's PSNR and SSIM of ``recon * occ + image * (1 -
+occ)`` (``metrics.calculate_psnr``, ``calculate_ssim``). Runs on ``cuda``
+unless ``--device`` says otherwise. ``--with_fid`` (an Inception network's
+features) is ROADMAP A10.5.
 """
 
 from __future__ import annotations
@@ -25,14 +32,30 @@ import json
 
 import numpy as np
 
+import torch
+
 from ocflow_torch import data as data_lib
-from ocflow_torch import resolve_device
-from ocflow_torch.metrics import evaluate_flow, occlusion_f1
+from ocflow_torch import full_fp32_convs, resolve_device
+from ocflow_torch.metrics import calculate_psnr, calculate_ssim, evaluate_flow, occlusion_f1
 from ocflow_torch.models import load_model, predict
+from ocflow_torch.models.registry import check_ported
+
+
+def inpaint_fn(model):
+    """The eager fp32 inpainting of ``(imgs, masks)`` NHWC (the refined
+    output of a ``(coarse, refined)`` generator), no gradients, full fp32
+    convolutions."""
+
+    def inpaint(imgs, masks):
+        with torch.no_grad(), full_fp32_convs(torch.float32):
+            out = model(imgs.float(), masks.float())
+        return out[1] if isinstance(out, tuple) else out
+
+    return inpaint
 
 
 def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description="Flow evaluation (PyTorch port)")
+    ap = argparse.ArgumentParser(description="Flow and inpainting evaluation (PyTorch port)")
     ap.add_argument("--task", default="flow", choices=["flow", "flow_occ", "inpainting"])
     ap.add_argument("--model", default="pwc")
     ap.add_argument("--checkpoint", default="")
@@ -45,13 +68,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--dataset_seed", type=int, default=None,
                     help="generation seed for Synthetic* datasets (a seed other than "
                     "training's gives a held-out set)")
-    ap.add_argument("--with_fid", action="store_true", help="ROADMAP A10, not ported")
+    ap.add_argument("--with_fid", action="store_true", help="ROADMAP A10.5, not ported")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.task == "inpainting" or args.with_fid:
+    if args.with_fid:
         raise NotImplementedError(
-            "inpainting evaluation (PSNR, SSIM, FID) is ROADMAP A10; the port "
-            "evaluates --task flow and flow_occ")
+            "--with_fid: FID needs the Inception network, ROADMAP A10.5; the port "
+            "evaluates PSNR and SSIM")
+    check_ported(args.task, args.model)
     dev = resolve_device(args.device)
 
     # as the JAX CLI: the procedural datasets take a size and a seed (and
@@ -71,6 +95,12 @@ def main(argv=None) -> dict:
     loader = data_lib.DataLoader(ds, args.batch_size, drop_last=False)
     model = load_model(args.task, args.model, args.checkpoint, dev)
 
+    if args.task == "inpainting":
+        batches = list(data_lib.device_iterator(loader, dev))
+        results = {"psnr": calculate_psnr(inpaint_fn(model), batches),
+                   "ssim": calculate_ssim(inpaint_fn(model), batches)}
+        print(json.dumps(results))
+        return results
     epes, f1s = [], []
     for batch in data_lib.device_iterator(loader, dev):
         flow, occ = predict(model, batch["images"])

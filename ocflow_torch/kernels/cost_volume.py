@@ -1,5 +1,6 @@
 """Cost volume, differentiable: the Hopper kernels ``csrc/cost_volume.cu``
-(forward) and ``csrc/cost_volume_bwd.cu`` (backward) and their plain
+(forward) and ``csrc/cost_volume_bwd.cu`` (backward), tuned for d = 1..10,
+the general kernels ``csrc/cost_volume_any.cu`` for d > 10, and their plain
 versions.
 
 Replaces ``ocflow_tpu/ops/pallas/cost_volume_kernel.py``: the forward
@@ -7,20 +8,23 @@ Replaces ``ocflow_tpu/ops/pallas/cost_volume_kernel.py``: the forward
 ``cost_volume_fused_flat``) and the VJP of ``cost_volume_fused`` (``_bwd``
 -> ``_bwd_xla_mirror``). The wrapper takes ``[B, C, H, W]`` features and
 returns ``[B, (2d+1)^2, H, W]`` (the channel-major layout the decoders
-read). A CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises. Both kernels are compiled for every d from 1 to
+read). A CPU tensor goes to the plain version; a CUDA tensor launches a
+kernel or raises. The tuned kernels are compiled for every d from 1 to
 ``MAX_DISPLACEMENT`` = 10 (d = 4, 81 shifts, the FlowNetCV path and the d=4
 nets; d = 10, 441 shifts, the FlowNetC family; the others for a net built
-with another ``displacement``); a larger d raises before a launch, naming
-the limit (a thread of either kernel keeps (2d+1) x 4 fp32 values in
-registers, and at d = 10 the fp32 kernels already spill; the reference
-takes its XLA cost volume there).
+with another ``displacement``): a thread there keeps (2d+1) x 4 fp32 values
+in registers, and at d = 10 the fp32 kernels already spill. Every d above
+goes to the general kernels (one thread per output element, the backward in
+gather form), as the reference takes its XLA cost volume wherever its
+Pallas block does not fit; d < 1 raises before a launch.
 
 Under autograd (an input that requires grad, grad mode on) ``cost_volume``
 runs through ``_CostVolume``, whose backward is ``cost_volume_backward``:
-the backward kernel on CUDA, ``cost_volume_backward_plain`` on the CPU.
+a backward kernel on CUDA, ``cost_volume_backward_plain`` on the CPU.
 ``cost_volume.launches`` counts forward launches and
-``cost_volume_backward.launches`` backward launches.
+``cost_volume_backward.launches`` backward launches, of either kernel;
+``cost_volume.general_launches`` and ``cost_volume_backward.general_launches``
+count those of the general kernels among them.
 
 What bounds each kernel on the card differs with d and C: bytes at d=4
 and small C, fp32 operations at d=10 and C=256 (see the source notes in
@@ -38,17 +42,16 @@ from ocflow_torch.kernels import _build
 from ocflow_torch.ops.cost_volume import cost_volume as cost_volume_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the largest d of the tuned kernels, one configuration line per d in
+# csrc/cost_volume.cu and csrc/cost_volume_bwd.cu; larger d run on
+# csrc/cost_volume_any.cu
 MAX_DISPLACEMENT = 10
-# one configuration line per d in csrc/cost_volume.cu and csrc/cost_volume_bwd.cu
 FORWARD_DISPLACEMENTS = BACKWARD_DISPLACEMENTS = tuple(range(1, MAX_DISPLACEMENT + 1))
 
 
-def _check_displacement(what: str, d: int, built: tuple[int, ...]) -> None:
-    if d not in built:
-        raise ValueError(
-            f"{what}: the kernel is built for d in 1..{MAX_DISPLACEMENT}, got d={d} (a "
-            f"thread keeps (2d+1) x 4 fp32 values in registers; d > {MAX_DISPLACEMENT} "
-            "is not built)")
+def _check_displacement(what: str, d: int) -> None:
+    if d < 1:
+        raise ValueError(f"{what}: the displacement must be at least 1, got d={d}")
 
 
 def _fn(name: str, symbol: str, n_ptr: int):
@@ -75,17 +78,21 @@ def _check_tensors(what: str, *ts: torch.Tensor) -> None:
 def _forward(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int) -> torch.Tensor:
     if f1.device.type == "cpu":
         return cost_volume_plain(f1, f2, max_displacement)
-    _check_displacement("cost_volume: forward", max_displacement, FORWARD_DISPLACEMENTS)
+    _check_displacement("cost_volume: forward", max_displacement)
     _check_tensors("cost_volume", f1, f2)
     b, c, h, w = f1.shape
     n = 2 * max_displacement + 1
     out = torch.empty((b, n * n, h, w), dtype=f1.dtype, device=f1.device)
     stream = torch.cuda.current_stream(f1.device).cuda_stream
-    code = _fn("cost_volume", "ocf_cost_volume_fwd", 3)(
+    general = max_displacement > MAX_DISPLACEMENT
+    name, symbol = (("cost_volume_any", "ocf_cost_volume_any_fwd") if general
+                    else ("cost_volume", "ocf_cost_volume_fwd"))
+    code = _fn(name, symbol, 3)(
         _DTYPES[f1.dtype], f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c,
         h, w, max_displacement, stream)
     _build.check(code, "cost_volume")
     cost_volume.launches += 1
+    cost_volume.general_launches += general
     return out
 
 
@@ -119,8 +126,7 @@ def cost_volume_backward(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
     CUDA, plain version on the CPU."""
     if f1.device.type == "cpu":
         return cost_volume_backward_plain(f1, f2, g, max_displacement)
-    _check_displacement("cost_volume_backward: backward", max_displacement,
-                        BACKWARD_DISPLACEMENTS)
+    _check_displacement("cost_volume_backward: backward", max_displacement)
     _check_tensors("cost_volume_backward", f1, f2, g)
     b, c, h, w = f1.shape
     if g.shape != (b, (2 * max_displacement + 1) ** 2, h, w):
@@ -128,11 +134,15 @@ def cost_volume_backward(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
     df1 = torch.empty_like(f1)
     df2 = torch.empty_like(f2)
     stream = torch.cuda.current_stream(f1.device).cuda_stream
-    code = _fn("cost_volume_bwd", "ocf_cost_volume_bwd", 5)(
+    general = max_displacement > MAX_DISPLACEMENT
+    name, symbol = (("cost_volume_any", "ocf_cost_volume_any_bwd") if general
+                    else ("cost_volume_bwd", "ocf_cost_volume_bwd"))
+    code = _fn(name, symbol, 5)(
         _DTYPES[f1.dtype], f1.data_ptr(), f2.data_ptr(), g.data_ptr(),
         df1.data_ptr(), df2.data_ptr(), b, c, h, w, max_displacement, stream)
     _build.check(code, "cost_volume_backward")
     cost_volume_backward.launches += 1
+    cost_volume_backward.general_launches += general
     return df1, df2
 
 
@@ -159,5 +169,5 @@ def cost_volume(f1: torch.Tensor, f2: torch.Tensor,
     return _forward(f1, f2, max_displacement)
 
 
-cost_volume.launches = 0
-cost_volume_backward.launches = 0
+cost_volume.launches = cost_volume.general_launches = 0
+cost_volume_backward.launches = cost_volume_backward.general_launches = 0

@@ -18,7 +18,8 @@ in ``ocflow_tpu/models/torch_convert.py``:
   ``PredictFlowStack`` is ``Sequential(ConvBlock(32), ConvBlock(16),
   Sequential(Conv2d(16, 2)))`` (keys ``<name>.0.0``, ``.1.0``, ``.2.0``);
 - ``ProjDown`` / ``ProjUp`` are the projection-bottleneck blocks of
-  SimpleFlowNet: three ``conv<k>`` (no bias) / ``bn<k>`` pairs.
+  SimpleFlowNet and InpaintingNet: three ``conv<k>`` (no bias) / ``bn<k>``
+  pairs (InpaintingNet's last up block: no ``bn3``).
 
 Every BatchNorm is :class:`BatchNorm`: ``BatchNorm2d``'s buffers and names,
 flax's train-mode update of the running variance.
@@ -143,29 +144,38 @@ class PredictOccStack(nn.Sequential):
 
 class _ProjBlock(nn.Module):
     """Three conv (no bias) + :class:`BatchNorm` + LeakyReLU(0.1) stages,
-    ``conv1..3`` / ``bn1..3``, the first of kernel ``k1``, stride ``s1``,
-    no padding (1x1 or 2x2), the second 3x3, the third 1x1."""
+    ``conv1..3`` / ``bn1..3``: the first of kernel ``k1``, stride ``s1``,
+    no padding (1x1 or 2x2), the second ``k2`` x ``k2`` (padding ``(k2 -
+    1) // 2``), the third 1x1. With ``last_act`` false the third stage is
+    the bare conv (no ``bn3``, no LeakyReLU)."""
 
-    def __init__(self, cin: int, inter: int, cout: int, k1: int, s1: int):
+    def __init__(self, cin: int, inter: int, cout: int, k1: int, s1: int, k2: int = 3,
+                 last_act: bool = True):
         super().__init__()
-        specs = ((cin, inter, k1, s1, 0), (inter, inter, 3, 1, 1), (inter, cout, 1, 1, 0))
+        specs = ((cin, inter, k1, s1, 0), (inter, inter, k2, 1, (k2 - 1) // 2),
+                 (inter, cout, 1, 1, 0))
         for j, (ci, co, k, st, p) in enumerate(specs, 1):
             self.add_module(f"conv{j}", nn.Conv2d(ci, co, k, stride=st, padding=p,
                                                   bias=False))
-            self.add_module(f"bn{j}", BatchNorm(co))
+            if j < 3 or last_act:
+                self.add_module(f"bn{j}", BatchNorm(co))
+        self.last_act = last_act
 
     def forward(self, x):
         for j in (1, 2, 3):
-            x = F.leaky_relu(getattr(self, f"bn{j}")(getattr(self, f"conv{j}")(x)), 0.1)
+            x = getattr(self, f"conv{j}")(x)
+            if j < 3 or self.last_act:
+                x = F.leaky_relu(getattr(self, f"bn{j}")(x), 0.1)
         return x
 
 
 class ProjDown(_ProjBlock):
     """Projection-bottleneck 2x downsample: 2x2/s2 conv to ``cin //
-    proj_ratio`` channels (at least 1), 3x3 conv, 1x1 conv to ``cout``."""
+    proj_ratio`` channels (at least 1), ``kernel_size`` conv (3x3 unless
+    given), 1x1 conv to ``cout``."""
 
-    def __init__(self, cin: int, cout: int, proj_ratio: int = 4):
-        super().__init__(cin, max(cin // proj_ratio, 1), cout, 2, 2)
+    def __init__(self, cin: int, cout: int, proj_ratio: int = 4, kernel_size: int = 3):
+        super().__init__(cin, max(cin // proj_ratio, 1), cout, 2, 2, kernel_size)
 
 
 class ProjUp(_ProjBlock):
@@ -173,10 +183,10 @@ class ProjUp(_ProjBlock):
     (bilinear, ``align_corners=False``), zero-padded to the skip's size
     with the odd pixel after, ``cat([skip, x])`` (``cin`` channels in all),
     then 1x1 conv to ``cin // proj_ratio``, 3x3 conv, 1x1 conv to
-    ``cout``."""
+    ``cout`` (bare with ``activation`` false)."""
 
-    def __init__(self, cin: int, cout: int, proj_ratio: int = 4):
-        super().__init__(cin, max(cin // proj_ratio, 1), cout, 1, 1)
+    def __init__(self, cin: int, cout: int, proj_ratio: int = 4, activation: bool = True):
+        super().__init__(cin, max(cin // proj_ratio, 1), cout, 1, 1, last_act=activation)
 
     def forward(self, x, skip):
         h, w = x.shape[2] * 2, x.shape[3] * 2

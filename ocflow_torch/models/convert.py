@@ -14,9 +14,12 @@ returns the port's ``state_dict``. ``flownetc_from_flax``,
 (inverses of ``convert_flownets``, ``convert_occlusion_net_s``,
 ``convert_flow_occ_net_s``, which give the up-deconvs a zero bias where
 these carry flax's), ``simpleoccnet_from_flax``,
-``simpleflowoccnet_from_flax`` and ``eflownet_from_flax`` (inverses of
-``convert_simple_occlusion_net``, ``convert_simple_flow_occ_net``,
-``convert_eflownet`` and ``convert_eflownet2``), while
+``simpleflowoccnet_from_flax``, ``eflownet_from_flax`` and
+``inpaintingnet_from_flax`` (inverses of ``convert_simple_occlusion_net``,
+``convert_simple_flow_occ_net``, ``convert_eflownet``,
+``convert_eflownet2`` and ``convert_inpainting_net``), and
+``ocflownet_from_flax`` (the two nets of ``OCFlowNet`` under
+``SimpleFlowOccNet_0`` and ``InpaintingNet_0``), while
 ``flowoccnetcv_from_flax`` and ``flowoccnetcv2_from_flax`` (inverses of
 ``convert_flow_occ_net_cv`` and ``convert_flow_occ_net_cv2``) take
 ``params``, as those nets have no BatchNorm. Conventions:
@@ -39,6 +42,8 @@ import torch
 from ocflow_torch.models.feature_pyramid import CONTEXT as FPN_CONTEXT
 from ocflow_torch.models.flow_net_s import LEVELS, S_TRUNK_CONVS, TRUNK_CONVS, FlowNetC, FlowNetS
 from ocflow_torch.models.flow_occ_nets import FlowOccNetC, FlowOccNetS
+from ocflow_torch.models.inpainting_net import DOWN as INPAINT_DOWN
+from ocflow_torch.models.inpainting_net import UP as INPAINT_UP
 from ocflow_torch.models.occlusion_nets import OcclusionNetC, OcclusionNetS
 from ocflow_torch.models.pwc_net import CONTEXT, DECODER_LEVELS, GROWTH, encoder_names
 from ocflow_torch.models.simple_flow_net import DOWN, UP
@@ -239,6 +244,39 @@ def simpleflowoccnet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     for i in range(len(UP)):
         _stack(sd, f"predict_flow{len(UP) - i}", p[f"PredictFlowStack_{i}"])
         _stack(sd, f"predict_occ{len(UP) - i}", p[f"PredictOccStack_{i}"])
+    return sd
+
+
+def inpaintingnet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of InpaintingNet -> port
+    ``state_dict``: ``_Down_i`` / ``_Up_i`` -> ``down<i+1>`` / ``up<i+1>``
+    (``ConvBlock_j`` -> ``conv<j+1>``, ``bn<j+1>``; the last up block's
+    third conv has no BatchNorm)."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+    for flax_name, name, n in (("_Down", "down", len(INPAINT_DOWN)),
+                               ("_Up", "up", len(INPAINT_UP))):
+        for i in range(n):
+            node = f"{flax_name}_{i}"
+            for j in range(3):
+                block = p[node][f"ConvBlock_{j}"]
+                _conv(sd, f"{name}{i + 1}.conv{j + 1}", block["Conv_0"])
+                if "BatchNorm_0" in block:
+                    _bn(sd, f"{name}{i + 1}.bn{j + 1}", block["BatchNorm_0"],
+                        st[node][f"ConvBlock_{j}"]["BatchNorm_0"])
+    return sd
+
+
+def ocflownet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of OCFlowNet -> port
+    ``state_dict``: ``SimpleFlowOccNet_0`` -> ``flow_occ.*``,
+    ``InpaintingNet_0`` -> ``inpaint.*``."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+    for flax_name, prefix, fn in (("SimpleFlowOccNet_0", "flow_occ", simpleflowoccnet_from_flax),
+                                  ("InpaintingNet_0", "inpaint", inpaintingnet_from_flax)):
+        part = fn({"params": p[flax_name], "batch_stats": st[flax_name]})
+        sd.update({f"{prefix}.{k}": v for k, v in part.items()})
     return sd
 
 

@@ -15,12 +15,15 @@ from ocflow_torch.models.flow_net import FlowNet
 from ocflow_torch.models.flow_net_s import FlowNetC, FlowNetS
 from ocflow_torch.models.flow_occ_nets import (FlowOccNet, FlowOccNetC, FlowOccNetCV,
                                                FlowOccNetCV2, FlowOccNetS, SimpleFlowOccNet)
+from ocflow_torch.models.inpainting_net import InpaintingNet
+from ocflow_torch.models.ocflownet import OCFlowNet
 from ocflow_torch.models.occlusion_nets import OcclusionNetC, OcclusionNetS, SimpleOcclusionNet
 from ocflow_torch.models.pwc_net import FlowNetCV, PWCNet
 from ocflow_torch.models.simple_flow_net import SimpleFlowNet
 
-# the JAX registry's flow, occlusion and flow+occlusion families, key for
-# key; its inpainting, discriminator and pipeline families are ROADMAP A10
+# the JAX registry's families, key for key, but for its gated-conv
+# generators (``inpainting/gated``, ``gated_org``) and the ``discriminator``
+# family: ROADMAP A10.3
 _REGISTRY = {
     "flow": {"simple": SimpleFlowNet, "pwc": FlowNetCV, "pwcnet": PWCNet,
              "flownets": FlowNetS, "flownetc": FlowNetC, "flownet": FlowNet,
@@ -29,7 +32,11 @@ _REGISTRY = {
     "flow_occ": {"simple": SimpleFlowOccNet, "flowoccnets": FlowOccNetS,
                  "flowoccnetc": FlowOccNetC, "pwoc": FlowOccNetCV, "pwoc2": FlowOccNetCV2,
                  "flowoccnet": FlowOccNet},
+    "inpainting": {"simple": InpaintingNet},
+    "pipeline": {"ocflownet": OCFlowNet},
 }
+NOT_PORTED = {("inpainting", "gated"), ("inpainting", "gated_org"),
+              ("discriminator", "gated"), ("discriminator", "gated_org")}
 
 
 def available() -> dict[str, list[str]]:
@@ -37,9 +44,22 @@ def available() -> dict[str, list[str]]:
     return {f: sorted(keys) for f, keys in _REGISTRY.items()}
 
 
+def check_ported(family: str, key: str) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP A10.3 for the JAX
+    package's gated-conv generators and discriminators."""
+    if (family, key) in NOT_PORTED:
+        raise NotImplementedError(
+            f"model {family}/{key}: the gated-conv inpainting GAN (generators and "
+            "discriminators) is ROADMAP A10.3, not ported yet")
+
+
 def build(family: str, key: str, **kwargs):
     """The module registered under ``family``/``key``, built with
-    ``kwargs`` (e.g. ``generator=`` for a seeded init, ``device=``)."""
+    ``kwargs`` (e.g. ``generator=`` for a seeded init, ``device=``). The
+    JAX package's gated-conv generators and discriminators raise
+    ``NotImplementedError`` naming ROADMAP A10.3; other unknown names raise
+    ``ValueError``."""
+    check_ported(family, key)
     if family not in _REGISTRY:
         raise ValueError(f"unknown model family {family!r}; the port has {available()}")
     if key not in _REGISTRY[family]:
@@ -51,18 +71,12 @@ def build(family: str, key: str, **kwargs):
 def load_model(family: str, key: str, checkpoint: str = "", device=None) -> torch.nn.Module:
     """The network ``build(family, key)`` on ``device`` in eval mode:
     seeded from 0, or with the ``params`` of a port checkpoint. Keys the
-    port does not have raise ``NotImplementedError`` naming ROADMAP A10
-    (the inpainting, discriminator and pipeline families)."""
+    port does not have raise (:func:`build`)."""
     # imported here: utils.checkpoint imports the train package, which
     # imports the models
     from ocflow_torch.utils.checkpoint import load_subtree
 
-    try:
-        model = build(family, key, generator=torch.Generator().manual_seed(0))
-    except ValueError as e:
-        raise NotImplementedError(
-            f"{e}; the inpainting, discriminator and pipeline families are "
-            "ROADMAP A10") from None
+    model = build(family, key, generator=torch.Generator().manual_seed(0))
     if checkpoint:
         model.load_state_dict(load_subtree(checkpoint, "params"))
     return model.to(device).eval()

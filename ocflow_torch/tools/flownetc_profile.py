@@ -18,8 +18,9 @@ seeded registry net ``--model`` (``flownetc``, ``flownet`` or ``pwcnet``;
 - ``by_kind``: that kernel time summed by kind (cost volume, convolution
   forward and backward, BatchNorm, LeakyReLU, concatenation, copies,
   gathers and scatters (warps, the range map), the optimizer, the rest),
-  the kind read from the kernel's name; ``top``: the kernels with the most
-  device time.
+  the kind read from the kernel's name; a GEMM outside cuDNN is
+  ``matmul`` (the resize's dense matrices); ``top``: the kernels with the
+  most device time.
 
 Usage: ``python -m ocflow_torch.tools.flownetc_profile [--model flownetc]
 [--iters 10]``, ``python -m ocflow_torch.tools.flownetc_profile
@@ -54,8 +55,15 @@ KINDS = (("cost_volume", ("cost_volume",)),
          ("copy", ("copy", "nchwToNhwc", "nhwcToNchw", "transpose")))
 
 
+# cuBLAS / CUTLASS GEMMs (the dense-matrix bilinear resize): a GEMM kernel
+# whose name carries none of these convolution fragments
+CONV_GEMM = ("fprop", "dgrad", "wgrad", "implicit", "conv", "cudnn", "winograd")
+
+
 def kind_of(name: str) -> str:
     low = name.lower()
+    if ("gemm" in low or "gemv" in low) and not any(p in low for p in CONV_GEMM):
+        return "matmul"
     for kind, parts in KINDS:
         if any(p.lower() in low for p in parts):
             return kind

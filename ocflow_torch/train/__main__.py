@@ -3,19 +3,22 @@
     python -m ocflow_torch.train --config configs/supervised.yaml \\
         [--max_epochs N] [--device cuda|cpu]
 
-Dispatches ``network_type`` ``flow`` | ``occ`` | ``flow-occ`` to the
-registry's family (``flow``, ``occ``, ``flow_occ``; ``model: pwc`` is
-``FlowNetCV(displacement=cfg.displacement)``, computing in
-``compute_dtype`` over fp32 weights) and the matching supervised step of
-``train.steps``, builds the loaders (``train.loop.make_loaders``), a net
+Dispatches ``network_type`` ``flow`` | ``occ`` | ``flow-occ`` |
+``inpainting`` to the registry's family (``flow``, ``occ``, ``flow_occ``,
+``inpainting``; ``model: pwc`` is ``FlowNetCV(displacement=cfg.displacement)``,
+computing in ``compute_dtype`` over fp32 weights) and the matching
+supervised step of ``train.steps`` (``train.steps_inpainting`` for
+``inpainting``: frame 2 warped by the ground-truth flow, the occluded
+region completed, the masked L1 against frame 1), builds the loaders (``train.loop.make_loaders``), a net
 seeded from ``cfg.seed`` with Adam at ``cfg.learning_rate`` (with
 ``find_best_lr``: first the range test of ``train.lr_finder``, whose
 suggestion it prints and then trains at, from fresh weights), runs
 ``train.loop.fit`` (CSV, TensorBoard, the best checkpoint, early stopping)
 and ``train.loop.evaluate`` on the test split, printing ``test: {...}``.
-``inpainting`` raises ``NotImplementedError`` (ROADMAP A10), and so do
-``eflownet`` and ``eflownet2``: the JAX steps pass no dropout rng, so the
-reference cannot train them either (``train.steps.check_trainable``). Runs on
+``eflownet`` and ``eflownet2`` raise ``NotImplementedError``: the JAX steps
+pass no dropout rng, so the reference cannot train them either
+(``train.steps.check_trainable``); so do the gated-conv inpainting
+generators (ROADMAP A10.3). Runs on
 ``cuda`` unless ``--device`` says otherwise.
 """
 
@@ -29,7 +32,7 @@ from ocflow_torch import resolve_device
 from ocflow_torch.models import registry
 from ocflow_torch.models.pwc_net import FlowNetCV
 from ocflow_torch.train import config as config_lib
-from ocflow_torch.train import loop, steps
+from ocflow_torch.train import loop, steps, steps_inpainting
 from ocflow_torch.train.lr_finder import lr_find
 from ocflow_torch.train.state import create_train_state
 from ocflow_torch.train.steps import check_trainable
@@ -39,6 +42,7 @@ REGIMES = {
     "flow": ("flow", steps.make_supervised_flow_step),
     "occ": ("occ", steps.make_supervised_occ_step),
     "flow-occ": ("flow_occ", steps.make_supervised_flow_occ_step),
+    "inpainting": ("inpainting", steps_inpainting.make_supervised_inpainting_step),
 }
 
 
@@ -60,14 +64,11 @@ def main(argv=None) -> dict:
     cfg = config_lib.load_config(args.config)
     if args.max_epochs is not None:
         cfg.max_epochs = args.max_epochs
-    if cfg.network_type == "inpainting":
-        raise NotImplementedError(
-            "network_type 'inpainting': the inpainting family and its steps are "
-            "ROADMAP A10")
     if cfg.network_type not in REGIMES:
         raise ValueError(f"network_type {cfg.network_type!r}: want one of "
-                         f"{sorted(REGIMES)} or 'inpainting'")
+                         f"{sorted(REGIMES)}")
     check_trainable(cfg.model)
+    registry.check_ported(REGIMES[cfg.network_type][0], cfg.model)
     device = resolve_device(args.device)
 
     train_loader, val_loader, test_loader = loop.make_loaders(cfg, device)

@@ -116,7 +116,8 @@ def make_loaders(cfg: Config, device=None):
     """Dataset -> seeded 80/10/10 split (``overfit``: train = val = test) ->
     loaders ``(train, val, test)``. The procedural datasets generate on
     ``device`` (default ``cuda``), ``dataset_size`` samples; the file-backed
-    ones read ``cfg.root`` on the host. ``device_cache`` keeps each split on
+    ones read ``cfg.root`` on the host; an inpainting dataset also takes
+    ``occlusion_ratio`` and ``static_occ``. ``device_cache`` keeps each split on
     ``device`` in ``device_cache_dtype``. Train batches shuffle per epoch
     and drop the ragged last batch; val and test keep it."""
     if cfg.dataset_name.startswith("Synthetic"):
@@ -125,6 +126,9 @@ def make_loaders(cfg: Config, device=None):
             kwargs["size"] = cfg.dataset_size
     else:
         kwargs = {"root": cfg.root}
+    if "Inpainting" in cfg.dataset_name:
+        kwargs["occlusion_ratio"] = cfg.occlusion_ratio
+        kwargs["static_occ"] = cfg.static_occ
     if cfg.image_size:
         kwargs["image_size"] = tuple(cfg.image_size)
     dataset = data_lib.build_dataset(cfg.dataset_name, **kwargs)

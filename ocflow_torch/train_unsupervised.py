@@ -1,7 +1,8 @@
 """Unsupervised trainer CLI of the port: the ``network_type: flow`` regime
 of the repository's ``train_unsupervised.py``, occlusion-aware through the
 config's hparams, for every flow net of the registry that the JAX package
-can train.
+can train; and its ``network_type: inpainting`` stage regime without the
+GAN.
 
     python -m ocflow_torch.train_unsupervised --config configs/longrun_synthetic.yaml \\
         [--max_epochs N] [--device cuda|cpu]
@@ -20,8 +21,16 @@ net with BatchNorm normalizes by the batch in both passes of the step (the
 stop-gradient backward-flow pass too) and keeps both updates of its
 running statistics, as the JAX step does. ``eflownet`` and
 ``eflownet2`` raise: the JAX steps pass no dropout rng, so the reference
-cannot train them either (``train.steps.check_trainable``). The
-inpainting and two-stage regimes are ROADMAP A10. Runs on ``cuda`` unless
+cannot train them either (``train.steps.check_trainable``).
+
+``network_type: inpainting`` with ``model: simple`` and ``adversarial_loss:
+false`` trains ``InpaintingNet`` on the inpainting datasets' ``{'image',
+'occ'}`` with ``train.steps_inpainting.make_inpainting_stage_step``
+(``loss_type: pixel-wise``), the validation panel ``inpaint`` (the masked
+input, the raw reconstruction, the frame, the composite) from the net in
+eval mode. The gated-conv generators (``model: gated``, ``org: true``) and
+``adversarial_loss: true`` are ROADMAP A10.3, ``loss_type: vgg`` A10.5, and
+``network_type: twostage`` A10.4; each raises. Runs on ``cuda`` unless
 ``--device`` says otherwise.
 """
 
@@ -41,22 +50,36 @@ from ocflow_torch.train import loop
 from ocflow_torch.train.state import create_train_state
 from ocflow_torch.train.steps import (_apply_flow_net, check_trainable,
                                      make_unsupervised_flow_step)
+from ocflow_torch.train.steps_inpainting import (_apply_generator, check_loss_type,
+                                                 make_inpainting_stage_step)
 from ocflow_torch.utils import panels
 
 
 def check_supported(cfg: config_lib.Config) -> None:
     """Refuse what the port cannot train, saying why or where it is
     queued."""
-    if cfg.network_type != "flow":
+    if cfg.network_type == "twostage":
         raise NotImplementedError(
-            f"network_type {cfg.network_type!r}: the port trains only 'flow'; the "
-            "inpainting and two-stage regimes are ROADMAP A10")
+            "network_type 'twostage': the two-stage pipelines are ROADMAP A10.4")
+    if cfg.network_type == "inpainting":
+        if cfg.adversarial_loss:
+            raise NotImplementedError(
+                "adversarial_loss: the SN-PatchGAN inpainting regime is ROADMAP A10.3")
+        registry.check_ported("inpainting", "gated_org" if cfg.org else cfg.model)
+        check_loss_type(cfg.loss_type)
+        return
+    if cfg.network_type != "flow":
+        raise ValueError(f"network_type {cfg.network_type!r}: want 'flow', 'inpainting' "
+                         "or 'twostage'")
     check_trainable(cfg.model)
 
 
 def build_net(cfg: config_lib.Config) -> torch.nn.Module:
-    """The config's flow net, seeded from ``cfg.seed``."""
+    """The config's flow net (or inpainting generator), seeded from
+    ``cfg.seed``."""
     gen = torch.Generator().manual_seed(cfg.seed)
+    if cfg.network_type == "inpainting":
+        return registry.build("inpainting", cfg.model, generator=gen)
     if cfg.model == "pwc":
         return FlowNetCV(displacement=cfg.displacement, generator=gen)
     return registry.build("flow", cfg.model, generator=gen)
@@ -90,8 +113,28 @@ def viz_fn(state, batch) -> dict:
     return out
 
 
+def inpaint_viz_fn(state, batch) -> dict:
+    """The validation panel ``inpaint`` of the first sample of a batch:
+    the masked input, the generator's raw reconstruction (eval mode, no
+    gradients; the model's mode is given back), the frame and the
+    composite ``recon * occ + image * (1 - occ)``."""
+    occluded, occ = batch["occluded"][:1].float(), batch["occ"][:1].float()
+    training = state.model.training
+    state.model.eval()
+    try:
+        with torch.no_grad():
+            refined = _apply_generator(state.model, occluded, occ)[1][0].float().cpu().numpy()
+    finally:
+        state.model.train(training)
+    image = batch["image"][0].float().cpu().numpy()
+    occ0 = occ[0].cpu().numpy()
+    complete = refined * occ0 + image * (1.0 - occ0)
+    return {"inpaint": panels.inpainting_panel(occluded[0].cpu().numpy(), refined, image,
+                                               complete)}
+
+
 def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description="Unsupervised flow trainer (PyTorch port)")
+    ap = argparse.ArgumentParser(description="Unsupervised trainer (PyTorch port)")
     ap.add_argument("--config", default="configs/longrun_synthetic.yaml")
     ap.add_argument("--max_epochs", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -106,9 +149,14 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     train_loader, val_loader, test_loader = loop.make_loaders(cfg, device)
     state = create_train_state(build_net(cfg), cfg.learning_rate, device=device)
-    train_step, eval_step = make_unsupervised_flow_step(cfg.as_hparams())
+    if cfg.network_type == "inpainting":
+        train_step, eval_step = make_inpainting_stage_step(cfg.as_hparams())
+        show = inpaint_viz_fn
+    else:
+        train_step, eval_step = make_unsupervised_flow_step(cfg.as_hparams())
+        show = viz_fn
     state = loop.fit(cfg, state, train_step, eval_step, train_loader, val_loader,
-                     viz_fn=viz_fn)
+                     viz_fn=show)
     fit_s = time.perf_counter() - t0
     results = loop.evaluate(cfg, state, eval_step, test_loader)
     print(f"fit: {state.step} steps of {cfg.batch_size} pairs in {fit_s:.1f} s wall on "

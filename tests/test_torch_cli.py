@@ -67,7 +67,7 @@ def test_cli_trains_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("over,match", [({"model": "eflownet"}, "dropout rng"),
-                                        ({"network_type": "twostage"}, "A10")])
+                                        ({"network_type": "twostage"}, "A10.4")])
 def test_cli_refuses_what_the_port_cannot_train(tmp_path, over, match):
     with pytest.raises(NotImplementedError, match=match):
         cli_main(["--config", _tiny_config(tmp_path, **over), "--device", "cpu"])

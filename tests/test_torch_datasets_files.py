@@ -111,9 +111,10 @@ def trees(tmp_path_factory):
 def test_every_file_dataset_is_registered():
     assert len(tdata.FILE_DATASETS) == 12
     assert set(tdata.FILE_DATASETS) <= set(jdata.DATASET_REGISTRY)
-    assert set(jdata.DATASET_REGISTRY) - set(tdata.DATASET_REGISTRY) == {
-        "SyntheticInpainting", "MpiSintelCleanInpainting", "MpiSintelFinalInpainting",
-        "FlyingChairsInpainting"}
+    assert set(jdata.DATASET_REGISTRY) == set(tdata.DATASET_REGISTRY)
+    assert set(tdata.DATASET_REGISTRY) - set(tdata.FILE_DATASETS) == {
+        "SyntheticFlow", "SyntheticFlowWarp", "SyntheticInpainting",
+        *tdata.INPAINTING_DATASETS}
 
 
 @pytest.mark.parametrize("image_size", [None, (48, 101)])

@@ -25,10 +25,10 @@ from ocflow_torch.bench import perturb_batchnorm
 from ocflow_torch.kernels import cost_volume as cv_mod
 from ocflow_torch.models import (EFlowNet, EFlowNet2, FlowNet, FlowNetC, FlowNetCV,
                                  FlowNetS, FlowOccNet, FlowOccNetC, FlowOccNetCV,
-                                 FlowOccNetCV2, FlowOccNetS, OcclusionNetC, OcclusionNetS,
-                                 PWCNet, SimpleFlowNet, SimpleFlowOccNet, SimpleOcclusionNet,
-                                 available, build, flownetc_from_flax, flowoccnetc_from_flax,
-                                 occnetc_from_flax)
+                                 FlowOccNetCV2, FlowOccNetS, InpaintingNet, OCFlowNet,
+                                 OcclusionNetC, OcclusionNetS, PWCNet, SimpleFlowNet,
+                                 SimpleFlowOccNet, SimpleOcclusionNet, available, build,
+                                 flownetc_from_flax, flowoccnetc_from_flax, occnetc_from_flax)
 from ocflow_torch.ops.cost_volume import cost_volume as plain_cost_volume
 from ocflow_tpu.models import flow_net_s as jfns
 from ocflow_tpu.models import flow_occ_nets as jfon
@@ -184,7 +184,8 @@ def test_registry_builds_each_key_and_raises_on_unknown():
         "flow": ["eflownet", "eflownet2", "flownet", "flownetc", "flownets", "pwc", "pwcnet",
                  "simple"],
         "occ": ["occnetc", "occnets", "simple"],
-        "flow_occ": ["flowoccnet", "flowoccnetc", "flowoccnets", "pwoc", "pwoc2", "simple"]}
+        "flow_occ": ["flowoccnet", "flowoccnetc", "flowoccnets", "pwoc", "pwoc2", "simple"],
+        "inpainting": ["simple"], "pipeline": ["ocflownet"]}
     for (family, key), cls in want.items():
         assert type(build(family, key)) is cls
     a = build("flow", "flownetc", generator=torch.Generator().manual_seed(3))
@@ -193,8 +194,12 @@ def test_registry_builds_each_key_and_raises_on_unknown():
         assert ka == kb and torch.equal(va, vb)
     with pytest.raises(ValueError, match="ocflownet.*'occnetc'"):
         build("flow", "ocflownet")
-    with pytest.raises(ValueError, match="inpainting"):
-        build("inpainting", "simple")
+    # the inpainting and pipeline families are ported; the gated-conv GAN is
+    # ROADMAP A10.3
+    assert type(build("inpainting", "simple")) is InpaintingNet
+    assert type(build("pipeline", "ocflownet")) is OCFlowNet
+    with pytest.raises(NotImplementedError, match="A10.3"):
+        build("inpainting", "gated")
     with pytest.raises(ValueError, match="'simple'"):
         build("occ", "gated")
 
@@ -229,21 +234,20 @@ def test_fp32_forward_pins_cudnn_convolutions_to_fp32(monkeypatch):
 
 
 def test_kernel_wrappers_check_the_displacement_before_launching():
-    """Off the CPU the forward and the backward take every d from 1 to 10
-    (``MAX_DISPLACEMENT``) and refuse a larger one (or 0), each with its
-    own message naming the limit (meta tensors reach the checks without a
-    card; a built d then fails the device check)."""
+    """Off the CPU the forward and the backward take every d from 1 (the
+    tuned kernels up to ``MAX_DISPLACEMENT`` = 10, the general kernels
+    above) and refuse d = 0 with their own message (meta tensors reach the
+    checks without a card; a valid d then fails the device check)."""
     f = torch.empty(1, 8, 5, 6, device="meta")
     assert cv_mod.MAX_DISPLACEMENT == 10
-    for d in (0, 11):
-        g = torch.empty(1, (2 * d + 1) ** 2, 5, 6, device="meta")
-        with pytest.raises(ValueError, match=rf"forward: the kernel is built for d in "
-                                             rf"1\.\.10, got d={d} .*d > 10 is not built"):
-            cv_mod.cost_volume(f, f, d)
-        with pytest.raises(ValueError, match=rf"backward: the kernel is built for d in "
-                                             rf"1\.\.10, got d={d}"):
-            cv_mod.cost_volume_backward(f, f, g, d)
-    for d in range(1, 11):
+    g = torch.empty(1, 1, 5, 6, device="meta")
+    with pytest.raises(ValueError, match=r"forward: the displacement must be at least 1, "
+                                         r"got d=0"):
+        cv_mod.cost_volume(f, f, 0)
+    with pytest.raises(ValueError, match=r"backward: the displacement must be at least 1, "
+                                         r"got d=0"):
+        cv_mod.cost_volume_backward(f, f, g, 0)
+    for d in (*range(1, 11), 11, 12, 16):
         g = torch.empty(1, (2 * d + 1) ** 2, 5, 6, device="meta")
         with pytest.raises(ValueError, match="unsupported devices"):
             cv_mod.cost_volume(f, f, d)

@@ -149,20 +149,20 @@ def test_cost_volume_d10_kernel_matches_plain(cuda_device, shape, dtype):
 
 
 def test_cost_volume_kernel_rejects_other_displacements(cuda_device):
-    """d = 7 now runs on both kernels (C2); d = 11, past the kernels'
-    limit, raises naming it, and so does d = 0."""
+    """d = 7 runs on the tuned kernels (C2) and d = 11 on the general ones
+    (C3); d = 0 raises, naming the lower limit."""
     f = torch.randn(1, 8, 9, 70, device=cuda_device)
-    for d in (0, 11):
+    g = torch.randn(1, 1, 9, 70, device=cuda_device)
+    with pytest.raises(ValueError, match=r"at least 1, got d=0"):
+        cv_mod.cost_volume(f, f, 0)
+    with pytest.raises(ValueError, match=r"at least 1, got d=0"):
+        cv_mod.cost_volume_backward(f, f, g, 0)
+    for d in (7, 11):
         g = torch.randn(1, (2 * d + 1) ** 2, 9, 70, device=cuda_device)
-        with pytest.raises(ValueError, match=rf"built for d in 1\.\.10, got d={d}"):
-            cv_mod.cost_volume(f, f, d)
-        with pytest.raises(ValueError, match=rf"built for d in 1\.\.10, got d={d}"):
-            cv_mod.cost_volume_backward(f, f, g, d)
-    g = torch.randn(1, 225, 9, 70, device=cuda_device)
-    _close(cv_mod.cost_volume(f, f, 7), cv_mod.cost_volume_plain(f, f, 7), torch.float32)
-    for got, ref in zip(cv_mod.cost_volume_backward(f, f, g, 7),
-                        cv_mod.cost_volume_backward_plain(f, f, g, 7)):
-        _close(got, ref, torch.float32)
+        _close(cv_mod.cost_volume(f, f, d), cv_mod.cost_volume_plain(f, f, d), torch.float32)
+        for got, ref in zip(cv_mod.cost_volume_backward(f, f, g, d),
+                            cv_mod.cost_volume_backward_plain(f, f, g, d)):
+            _close(got, ref, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -730,3 +730,83 @@ def test_unsupervised_zoo_step_on_gpu_launches_the_cost_volume_without_tf32(
     assert [c.launches for c in counters] == launches + [0, 0, 0]
     assert len(seen) > 20 and not any(seen)
     assert all(torch.isfinite(v).all() for v in metrics.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [11, 12, 16])
+def test_cost_volume_general_kernels_match_plain(cuda_device, d, dtype):
+    """C3: every d above 10 on ``csrc/cost_volume_any.cu``, forward and
+    backward, at a map narrower and shorter than the shift window and W not
+    a multiple of a warp; the general counters count those launches only."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    f1, f2 = (torch.randn(2, 20, 13, 45, device=cuda_device, generator=gen).to(dtype)
+              for _ in range(2))
+    g = torch.randn(2, (2 * d + 1) ** 2, 13, 45, device=cuda_device, generator=gen).to(dtype)
+    cv_mod.cost_volume.general_launches = cv_mod.cost_volume_backward.general_launches = 0
+    _close(cv_mod.cost_volume(f1, f2, d), cv_mod.cost_volume_plain(f1, f2, d), dtype)
+    for got, ref in zip(cv_mod.cost_volume_backward(f1, f2, g, d),
+                        cv_mod.cost_volume_backward_plain(f1, f2, g, d)):
+        _close(got, ref, dtype)
+    cv_mod.cost_volume(f1, f2, 4)
+    assert (cv_mod.cost_volume.general_launches,
+            cv_mod.cost_volume_backward.general_launches) == (1, 1)
+
+
+def test_inpainting_train_step_on_gpu_runs_in_full_fp32(cuda_device, monkeypatch):
+    """One supervised inpainting step at 2x64x128 on the card: both TF32
+    flags read off inside the step though the caller's allow TF32, every
+    kernel counter of the repository at 0, and the step equal to the same
+    step on the CPU (loss 1e-5 relative, BatchNorm statistics 1e-5 of max)."""
+    from ocflow_torch.models import InpaintingNet
+    from ocflow_torch.train import make_supervised_inpainting_step
+
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(*args, **kwargs):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    rng = np.random.default_rng(0)
+    batch = {"images": torch.from_numpy(rng.uniform(-1, 1, (2, 64, 128, 6)).astype(np.float32)),
+             "flow": torch.from_numpy((rng.normal(size=(2, 64, 128, 2)) * 3).astype(np.float32)),
+             "occ": torch.from_numpy((rng.uniform(size=(2, 64, 128, 1)) > 0.7)
+                                     .astype(np.float32))}
+    train_step, _ = make_supervised_inpainting_step()
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = InpaintingNet(generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, 1e-4, device=dev)
+        counters = (cv_mod.cost_volume, cv_mod.cost_volume_backward, conv_chain.conv_group,
+                    conv_chain.conv_group_diff, conv_chain_q8.conv_group_q8)
+        for c in counters:
+            c.launches = 0
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        seen.clear()
+        try:
+            _, metrics = train_step(state, {k: v.to(dev) for k, v in batch.items()})
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        assert [c.launches for c in counters] == [0] * 5
+        assert len(seen) > 20 and not any(a or b for a, b in seen)
+        out[str(dev)] = (metrics["loss"].item(), {k: v.cpu() for k, v in
+                                                  model.state_dict().items() if "running" in k})
+    (loss_c, stats_c), (loss_g, stats_g) = out.values()
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for k, v in stats_c.items():
+        assert (stats_g[k] - v).abs().max() <= 1e-5 * v.abs().max(), k
+
+
+def test_evaluate_inpainting_on_gpu_matches_cpu(cuda_device, capsys):
+    """``evaluate --task inpainting`` on the card, by default, against the
+    same evaluation on the CPU (1e-5 relative)."""
+    from ocflow_torch import evaluate as tevaluate
+
+    args = ["--task", "inpainting", "--model", "simple", "--dataset", "SyntheticInpainting",
+            "--dataset_size", "4", "--image_size", "64", "128", "--batch_size", "2"]
+    on_card = tevaluate.main(args)
+    on_cpu = tevaluate.main(args + ["--device", "cpu"])
+    for k, v in on_cpu.items():
+        assert abs(on_card[k] - v) <= 1e-5 * abs(v), (k, on_card[k], v)
+    assert on_card["ssim"] <= 1.0

@@ -279,7 +279,10 @@ def test_port_imports_no_jax_opencv_yaml_imageio_or_pil():
         "assert not bad, bad\n"
         "new = ('ocflow_torch.data.native_io', 'ocflow_torch.data.flow_io',\n"
         "       'ocflow_torch.data.frame_io', 'ocflow_torch.data.resize',\n"
-        "       'ocflow_torch.infer', 'ocflow_torch.evaluate')\n"
+        "       'ocflow_torch.infer', 'ocflow_torch.evaluate',\n"
+        "       'ocflow_torch.data.occlusion', 'ocflow_torch.models.inpainting_net',\n"
+        "       'ocflow_torch.models.ocflownet', 'ocflow_torch.losses.reconstruction',\n"
+        "       'ocflow_torch.metrics.image_metrics', 'ocflow_torch.train.steps_inpainting')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -132,15 +132,16 @@ def test_port_imports_neither_jax_nor_ocflow_tpu():
         "import pkgutil, importlib, sys, ocflow_torch\n"
         "for m in pkgutil.walk_packages(ocflow_torch.__path__, 'ocflow_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ocflow_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ocflow_tpu',\n"
+        "       'cv2')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|ocflow_tpu)\b"
-        r"|import_module\(\s*['\"](jax|flax|ocflow_tpu)", re.M)
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|ocflow_tpu|cv2)\b"
+        r"|import_module\(\s*['\"](jax|flax|ocflow_tpu|cv2)", re.M)
     files = sorted((REPO / "ocflow_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 5
     offenders = [str(f) for f in files if pattern.search(f.read_text())]

@@ -2,7 +2,8 @@
 the CPU: each ``network_type`` (``flow`` on SimpleFlowNet, ``occ`` on
 OcclusionNetC, ``flow-occ`` on FlowOccNetCV) on a tiny config (64x128, 20
 SyntheticFlow samples, B=4) through ``--device cpu``; ``find_best_lr``; the
-refusal of ``inpainting`` naming ROADMAP A10; no silent CPU fallback
+refusal of the gated-conv inpainting generators naming ROADMAP A10.3; no
+silent CPU fallback
 without ``--device``. The run against the repository's JAX ``train.py``:
 ``tests/test_torch_train_cli_jax.py``.
 """
@@ -93,8 +94,13 @@ def test_cli_with_find_best_lr_trains_at_the_suggestion(tmp_path, capsys, monkey
 
 
 def test_cli_refuses_inpainting_naming_a10(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10"):
-        cli.main(["--config", _config(tmp_path, network_type="inpainting"), "--device", "cpu"])
+    """``network_type: inpainting`` trains ``model: simple`` now
+    (tests/test_torch_inpaint_cli.py); the gated-conv generators raise,
+    naming ROADMAP A10.3."""
+    for model in ("gated", "gated_org"):
+        with pytest.raises(NotImplementedError, match="A10.3"):
+            cli.main(["--config", _config(tmp_path, network_type="inpainting", model=model),
+                      "--device", "cpu"])
 
 
 def test_cli_runs_on_cuda_unless_told(tmp_path):

@@ -1,6 +1,6 @@
 """The registry against the JAX registry, and ``python -m
-ocflow_torch.evaluate`` serving the new keys of the flow and
-flow+occlusion families (seeded weights, eval mode) on the CPU."""
+ocflow_torch.evaluate`` serving the keys of the flow and flow+occlusion
+families added with the zoo (seeded weights, eval mode) on the CPU."""
 
 import pytest
 
@@ -8,17 +8,28 @@ from test_torch_ops import share_cores  # noqa: F401  (autouse)
 
 
 def test_registry_equals_the_jax_registry_less_the_a10_families():
-    """The port's registry has every key of the JAX registry's flow,
-    occlusion and flow+occlusion families and nothing else; the inpainting,
-    discriminator and pipeline families are ROADMAP A10."""
-    from ocflow_torch.models import available
+    """The port's registry has every key of the JAX registry but its
+    gated-conv generators (``inpainting/gated``, ``gated_org``) and its
+    ``discriminator`` family, which raise naming ROADMAP A10.3; the
+    inpainting and pipeline families are ported (``simple``,
+    ``ocflownet``)."""
+    from ocflow_torch.models import available, build
     from ocflow_tpu.models import registry as jregistry
 
-    want = {f: keys for f, keys in jregistry.available().items()
-            if f not in ("inpainting", "discriminator", "pipeline")}
+    queued = {("inpainting", "gated"), ("inpainting", "gated_org"),
+              ("discriminator", "gated"), ("discriminator", "gated_org")}
+    want = {}
+    for f, keys in jregistry.available().items():
+        kept = sorted(k for k in keys if (f, k) not in queued)
+        if kept:
+            want[f] = kept
     assert available() == want
-    assert set(jregistry.available()) - set(want) == {"inpainting", "discriminator",
-                                                      "pipeline"}
+    assert want["inpainting"] == ["simple"] and want["pipeline"] == ["ocflownet"]
+    assert {(f, k) for f, keys in jregistry.available().items() for k in keys} - {
+        (f, k) for f, keys in want.items() for k in keys} == queued
+    for family, key in sorted(queued):
+        with pytest.raises(NotImplementedError, match="A10.3"):
+            build(family, key)
 
 
 @pytest.mark.parametrize("task,key", [("flow", "flownets"), ("flow", "eflownet2"),
