@@ -179,6 +179,24 @@ Phases (any failure raises and exits non-zero):
    against float64 on the CPU from the same completed images (1e-5
    relative), SSIM at most 1, the metric pass's pairs/s.
 
+15. the gated-conv GAN (``configs/inpainting_gan_fullres.yaml``: 448x1024,
+   B=2, fp32, TF32 off; seeded nets, ``gamma`` 0.5): the blockwise
+   attention against the dense one at 2x28672 tokens (the refine branch's,
+   d=16, c=128; output and q, k, v gradients within 1e-4 of max|dense|;
+   each path's ms and peak memory); InpaintSANet (remat off and on) and
+   InpaintSANetOrg eval forwards on the card against the CPU (1e-4 of
+   max|CPU|; the attention's token count; ms); one GAN step card vs CPU
+   (``d_loss``, ``g_loss`` 1e-4 relative; the largest gradient gap
+   printed); the flagship step with remat on and off: its launches (none),
+   both TF32 flags read inside every forward (off), the median step ms, the
+   peak memory, a ``torch.profiler`` split into the attention, convolutions,
+   BatchNorm and the rest; ``python -m ocflow_torch.train_unsupervised`` on
+   the config cut to 16 samples and 2 epochs (a process of its own: CSV
+   rows with the GAN metrics, the pair checkpoint, the exported generator,
+   finite test metrics, wall time, peak memory); ``python -m
+   ocflow_torch.evaluate --task inpainting --model gated`` on the exported
+   generator (pairs/s).
+
 Phases 6 and 8 hold their references (the eager fp32 forward, the eager
 step) on the plain cost volume; phase 6 also holds the eager forward on the
 cost-volume kernel (5 launches) against it.
@@ -193,6 +211,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -3241,6 +3260,379 @@ def _phase14(card, max_err, trees):
     return launches, per_d, records
 
 
+# phase 15: the gated-conv GAN at the flagship config's width (B=2,
+# 448x1024), fp32, TF32 off
+GAN_SIZE = (2, 448, 1024)
+GAN_TOKENS = (2, 28672)      # the refine branch's 112x256 positions, B=2
+GAN_ATT_REL = 1e-4           # blockwise vs dense: max-abs over max|dense|
+GAN_REL = 1e-4               # card vs CPU: outputs over max|CPU|, losses relative
+# the size of the card-vs-CPU checks (b) and (c): the flagship size when the
+# CPU's forward takes under ~30 s there
+GAN_CHECK_SIZE = (2, 448, 1024)
+# configs/inpainting_gan_fullres.yaml through its CLI: these cuts only (a
+# CSV row every step)
+GAN_CLI_CUTS = {"dataset_size": 16, "max_epochs": 2, "log_every_n_steps": 1}
+
+
+def _gan_nets(key, remat=False, seed=1):
+    """A seeded generator of ``key`` (``gamma`` 0.5, BatchNorm statistics
+    perturbed from the seed) and a seeded discriminator of the same kind, on
+    the CPU."""
+    from ocflow_torch.bench import perturb_batchnorm
+    from ocflow_torch.models import registry
+
+    gen = registry.build("inpainting", key, remat=remat,
+                         generator=torch.Generator().manual_seed(seed))
+    perturb_batchnorm(gen, torch.Generator().manual_seed(seed + 100))
+    with torch.no_grad():
+        gen.refine_attn.gamma.fill_(0.5)
+    dis = registry.build("discriminator", key, generator=torch.Generator().manual_seed(seed + 1))
+    return gen, dis
+
+
+def _gan_batch(size, seed=2):
+    b, h, w = size
+    g = torch.Generator().manual_seed(seed)
+    return {"image": torch.rand((b, h, w, 3), generator=g) * 2 - 1,
+            "occ": (torch.rand((b, h, w, 1), generator=g) > 0.6).float()}
+
+
+def _attention_range_ms(prof, iters):
+    """Device ms a call inside ``ops.attention.RANGE`` (the attention's
+    forward and its blockwise backward) in a ``torch.profiler`` trace."""
+    from ocflow_torch.ops.attention import RANGE
+
+    total = 0.0
+    for e in prof.events():
+        if e.name == RANGE and not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+    return total / 1e3 / iters
+
+
+def _gan_attention_check(card, dev="cuda"):
+    """Phase 15 (a): blockwise against dense attention at ``GAN_TOKENS``,
+    d=16, c=128 (the refine branch's q, k and v at 448x1024, B=2): the
+    output and the q, k, v gradients of a seeded cotangent within
+    ``GAN_ATT_REL`` of max|dense|; each path's forward ms, forward and
+    backward ms, and peak memory."""
+    from ocflow_torch.bench import cuda_ms
+    from ocflow_torch.ops import attention as att
+
+    b, n = GAN_TOKENS
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k = (torch.randn((b, n, 16), generator=g, device=dev) for _ in range(2))
+    v, cot = (torch.randn((b, n, 128), generator=g, device=dev) for _ in range(2))
+    paths = {"dense": att.dense_attention,
+             "blockwise": lambda *a: att.blockwise_attention(*a, 1024)}
+    res, out = {}, {}
+    for name, fn in paths.items():
+        def both(fn=fn):
+            ts = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = fn(*ts)
+            return (o.detach(), *torch.autograd.grad(o, ts, cot))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out[name] = both()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda fn=fn: fn(q, k, v), 5)
+        res[name] = {"fwd_ms": fwd_ms, "fwd_bwd_ms": cuda_ms(both, 3), "peak_gib": peak}
+    errs = {part: ((bl - de).abs().max() / de.abs().max()).item()
+            for part, bl, de in zip(("out", "dq", "dk", "dv"), out["blockwise"], out["dense"])}
+    print(f"check gan attention blockwise vs dense, {b}x{n} tokens, d=16, c=128, fp32, TF32 "
+          f"(matmul) {torch.backends.cuda.matmul.allow_tf32}: "
+          f"{ {k: f'{v:.3e}' for k, v in errs.items()} } of max|dense| (tol {GAN_ATT_REL})")
+    for name, r in res.items():
+        print(f"time gan attention {name} {b}x{n}: forward {r['fwd_ms']:.3f} ms, forward and "
+              f"backward {r['fwd_bwd_ms']:.3f} ms, peak memory {r['peak_gib']:.2f} GiB over "
+              f"the inputs [{card}]")
+    if max(errs.values()) > GAN_ATT_REL or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"gan attention: {errs}")
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+def _gan_forward_check(card, dev="cuda"):
+    """Phase 15 (b): the eval forwards of InpaintSANet (remat off and on)
+    and InpaintSANetOrg on the card against the same forward on the CPU at
+    ``GAN_CHECK_SIZE`` (coarse and refined within ``GAN_REL`` of max|CPU|;
+    remat does nothing without gradients, so one CPU forward serves both),
+    the token count the self-attention sees, the launches (none), the card's
+    and the CPU's forward times."""
+    from ocflow_torch.bench import cuda_ms
+    from ocflow_torch.models.gated_conv import SelfAttention
+
+    batch = _gan_batch(GAN_CHECK_SIZE)
+    tokens = []
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda m, a: tokens.append(a[0].shape[2] * a[0].shape[3])
+        if isinstance(m, SelfAttention) else None)
+    out = {}
+    try:  # the hook is global: removed below whatever happens
+        for key in ("gated", "gated_org"):
+            gen, _ = _gan_nets(key)
+            gen.eval()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                ref = gen(batch["image"], batch["occ"])
+            cpu_s = time.perf_counter() - t0
+            for remat in ((False, True) if key == "gated" else (False,)):
+                card_gen = copy.deepcopy(gen).to(dev)
+                for m in card_gen.modules():
+                    if hasattr(m, "remat"):
+                        m.remat = remat
+                x = {k: v.to(dev) for k, v in batch.items()}
+                counts, got = _count_launches(lambda: _gen_no_grad(card_gen, x))
+                errs = [((g.cpu() - r).abs().max() / r.abs().max()).item()
+                        for g, r in zip(got, ref)]
+                ms = cuda_ms(lambda: _gen_no_grad(card_gen, x), 3)
+                label = f"{key}{' remat' if remat else ''}"
+                print(f"check gan forward {label} card vs CPU at "
+                      f"{'x'.join(map(str, GAN_CHECK_SIZE))}, seeded, gamma 0.5: coarse "
+                      f"{errs[0]:.3e}, refined {errs[1]:.3e} of max|CPU| (tol {GAN_REL}); "
+                      f"launches {counts} (none expected); the attention saw {tokens[-1]} "
+                      f"tokens; card {ms:.3f} ms, CPU {cpu_s:.1f} s [{card}]")
+                if max(errs) > GAN_REL or any(counts.values()):
+                    raise AssertionError(f"gan forward {label}: {errs} {counts}")
+                out[label] = {"ms": ms, "cpu_s": cpu_s, "tokens": tokens[-1]}
+                del card_gen
+    finally:
+        hook.remove()
+    return out
+
+
+def _gen_no_grad(model, x):
+    with torch.no_grad():
+        return model(x["image"], x["occ"])
+
+
+def _gan_step_check(card, dev="cuda"):
+    """Phase 15 (c): one GAN step (the projected nets, remat, SGD at 1e-4
+    and 4e-4) on the card and on the CPU from the same seeded weights and
+    batch at ``GAN_CHECK_SIZE``: ``d_loss`` and ``g_loss`` within
+    ``GAN_REL`` relative; the largest per-tensor gradient gap (printed), of
+    the tensors whose gradient is not zero (over 1e-4 of the net's
+    max|grad|: a bias before a train-mode BatchNorm, or the key conv's,
+    has none, and reads fp32 rounding). SGD, not the CLI's Adam: Adam's first step moves a weight by
+    about its learning rate whatever its gradient's size, so a zero
+    gradient's rounding would move the discriminator that ``g_loss`` reads
+    by 4e-4 in another direction on each device."""
+    from ocflow_torch.train import TrainState, make_gan_inpainting_step
+
+    batch = _gan_batch(GAN_CHECK_SIZE, seed=4)
+    res = {}
+    for where in ("cpu", dev):
+        gen, dis = _gan_nets("gated", remat=True)
+        gen, dis = gen.to(where), dis.to(where)
+        states = (TrainState(gen, torch.optim.SGD(gen.parameters(), lr=1e-4)),
+                  TrainState(dis, torch.optim.SGD(dis.parameters(), lr=4e-4)))
+        t0 = time.perf_counter()
+        _, metrics = make_gan_inpainting_step({})(states, {k: v.to(where)
+                                                           for k, v in batch.items()})
+        grads = {f"{n}.{k}": p.grad.detach().cpu() for n, m in (("G", gen), ("D", dis))
+                 for k, p in m.named_parameters()}
+        res[where] = ({k: v.item() for k, v in metrics.items()}, grads,
+                      time.perf_counter() - t0)
+    (mc, gc, cpu_s), (mg, gg, _) = res["cpu"], res[dev]
+    rel = {k: abs(mg[k] - v) / abs(v) for k, v in mc.items()}
+    scale = {n: max(v.abs().max().item() for k, v in gc.items() if k.startswith(n))
+             for n in ("G", "D")}
+    gaps = {k: ((gg[k] - v).abs().max() / v.abs().max()).item() for k, v in gc.items()
+            if v.abs().max().item() > 1e-4 * scale[k[0]]}
+    worst = max(gaps, key=gaps.get)
+    print(f"check gan step card vs CPU at {'x'.join(map(str, GAN_CHECK_SIZE))} (projected, "
+          f"remat, SGD): metrics relative { {k: f'{v:.3e}' for k, v in rel.items()} } "
+          f"(d_loss, g_loss tol {GAN_REL}); largest per-tensor gradient gap {gaps[worst]:.3e} "
+          f"of max|grad| ({worst}; printed, not held: the train-mode BatchNorms), median "
+          f"{sorted(gaps.values())[len(gaps) // 2]:.3e}, over the {len(gaps)} of {len(gc)} "
+          f"tensors whose gradient is not zero; the CPU step {cpu_s:.1f} s [{card}]")
+    if rel["d_loss"] > GAN_REL or rel["g_loss"] > GAN_REL:
+        raise AssertionError(f"gan step card vs CPU: {rel}")
+    return {"metrics_rel": rel, "worst_grad": gaps[worst], "cpu_s": cpu_s}
+
+
+def _gan_step_timing(card, dev="cuda"):
+    """Phase 15 (d, f): the flagship step at ``GAN_SIZE`` on the card with
+    remat on (as the config ships) and off: its launches (none), both TF32
+    flags read inside every generator and discriminator forward while the
+    caller's are on (off), the median of 5 warm steps' ms (CUDA events),
+    the peak memory of a step; with remat, a ``torch.profiler`` split of
+    two steps into the attention (``ops.attention.RANGE``), convolutions,
+    BatchNorm and the rest, and the card's busy share."""
+    import statistics
+
+    from ocflow_torch.bench import cuda_ms
+    from ocflow_torch.tools.flownetc_profile import profile_fn
+    from ocflow_torch.train import create_train_state, make_gan_inpainting_step
+
+    batch = {k: v.to(dev) for k, v in _gan_batch(GAN_SIZE, seed=5).items()}
+    out = {}
+    for remat in (True, False):
+        gen, dis = _gan_nets("gated", remat=remat)
+        states = (create_train_state(gen, 1e-4, device=dev),
+                  create_train_state(dis, 4e-4, device=dev))
+        step = make_gan_inpainting_step({})
+        seen = []
+        hooks = [m.register_forward_pre_hook(lambda m, a: seen.append(
+            (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+            for m in (gen, dis)]
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            step(states, batch)  # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts, (_, metrics) = _count_launches(lambda: step(states, batch))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            for h in hooks:
+                h.remove()
+        runs = [cuda_ms(lambda: step(states, batch), 1) for _ in range(5)]
+        ms = statistics.median(runs)
+        losses = {k: round(v.item(), 6) for k, v in metrics.items()}
+        label = "remat" if remat else "no remat"
+        print(f"main path gan_step ({label}, B=2 448x1024 fp32, projected nets, D-then-G) "
+              f"launches: {counts} (none expected: no kernel of this repository); TF32 read "
+              f"inside the step's {len(seen)} forwards (cudnn, matmul): {sorted(set(seen))} "
+              f"(the caller's True); metrics {losses}")
+        print(f"time gan_step {label} B=2 448x1024: {ms:.3f} ms (median of 5, CUDA events; "
+              f"runs {', '.join(f'{r:.2f}' for r in runs)}), {2e3 / ms:.2f} pairs/s; peak "
+              f"memory {peak:.2f} GiB [{card}]")
+        if any(counts.values()) or set(seen) != {(False, False)} \
+                or not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"gan step {label}: {counts} {seen} {losses}")
+        out[label] = {"ms": ms, "peak_gib": peak, "launches": counts}
+        if remat:
+            from torch.profiler import ProfilerActivity, profile
+
+            prof_all = profile_fn(lambda: step(states, batch), 2, 2)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    step(states, batch)
+                torch.cuda.synchronize()
+            attention = _attention_range_ms(prof, 2)
+            kinds = prof_all["by_kind"]  # the attention's kernels: matmul and other
+            split = {"attention": attention, "convolutions": kinds.get("conv", 0.0),
+                     "batchnorm": kinds.get("batchnorm", 0.0)}
+            split["rest"] = prof_all["kernel_ms_per_batch"] - sum(split.values())
+            print(f"time gan_step remat where the kernel time goes (torch.profiler, 2 steps): "
+                  f"{prof_all['kernel_ms_per_batch']:.3f} ms of kernels per step (busy "
+                  f"{100 * prof_all['busy_share']:.1f}%), "
+                  f"{ {k: round(v, 3) for k, v in split.items()} } ms; by kind "
+                  f"{ {k: round(v, 3) for k, v in kinds.items()} } [{card}]")
+            out["split"] = split
+            out["busy_share"] = prof_all["busy_share"]
+        del states, gen, dis
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gan_cli_phase(card, dev="cuda"):
+    """Phase 15 (d, e): ``configs/inpainting_gan_fullres.yaml`` through
+    ``python -m ocflow_torch.train_unsupervised`` in a process of its own,
+    cut by ``GAN_CLI_CUTS`` (width, batch, remat, learning rates as
+    shipped), its outputs in a temporary directory: exit 0, the CSV's rows
+    with the GAN metrics, the pair checkpoint, the exported generator,
+    finite test metrics, the wall time, the loop's pairs/s and the peak
+    memory the CLI prints; then ``python -m ocflow_torch.evaluate --task
+    inpainting --model gated`` on the exported generator (SyntheticInpainting
+    16 samples at 448x1024, B=2) in this process: launches (none), finite
+    PSNR and SSIM <= 1, pairs/s over its wall (the data's generation
+    included)."""
+    import csv
+    import io
+    import os
+    import subprocess
+    import tempfile
+
+    from ocflow_torch import evaluate
+    from ocflow_torch.train import config as config_lib
+    from ocflow_torch.utils.checkpoint import CheckpointManager, load_pytree
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with open("configs/inpainting_gan_fullres.yaml") as f:
+            raw = config_lib.parse_flat_yaml(f.read())
+        raw.update(GAN_CLI_CUTS)
+        raw.update({k: os.path.join(tmp, v) for k, v in (
+            ("metrics_csv", "metrics.csv"), ("log_dir", "tb"), ("checkpoint_dir", "ckpt"),
+            ("result_dir", "."))})
+        path = os.path.join(tmp, "gan.yaml")
+        with open(path, "w") as f:
+            f.write("".join(f"{k}: {_yaml_value(v)}\n" for k, v in raw.items()))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ocflow_torch.train_unsupervised",
+                               "--config", path, "--device", dev], capture_output=True,
+                              text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("fit:", "test:",
+                                                                          "generator"))]
+        rows = []
+        if os.path.exists(raw["metrics_csv"]):
+            with open(raw["metrics_csv"]) as f:
+                rows = list(csv.DictReader(f))
+        phases = [r["phase"] for r in rows]
+        gan_cols = ("whole_loss", "d_loss", "g_loss", "content_loss")
+        finite = all(math.isfinite(float(r[c])) for r in rows if r["phase"] == "train"
+                     for c in gan_cols)
+        manager = CheckpointManager(raw["checkpoint_dir"])
+        pair = manager.restore() if manager.best_step is not None else None
+        gen_path = os.path.join(raw["checkpoint_dir"], "generator")
+        ips = [float(r["images_per_sec"]) for r in rows if r["phase"] == "train"]
+        n_train = int(0.8 * raw["dataset_size"]) // raw["batch_size"]
+        print(f"gan CLI (python -m ocflow_torch.train_unsupervised, inpainting_gan_fullres.yaml "
+              f"with {GAN_CLI_CUTS}: 448x1024, B=2, remat, D at 4x): exit {proc.returncode}; "
+              f"{lines}; CSV {phases.count('train')} train rows with the GAN metrics (finite "
+              f"{finite}) and {phases.count('val')} val rows; pair checkpoint at epoch "
+              f"{manager.best_step} ({type(pair).__name__} of {len(pair or ())}); generator "
+              f"exported {os.path.exists(gen_path)}; the loop's rate at its last step "
+              f"{ips[-1] if ips else 0.0:.3f} images/s, "
+              f"{raw['batch_size'] * 1e3 / ips[-1] if ips else 0.0:.1f} ms a step (host clock, "
+              f"a metrics fetch every step); {wall:.1f} s wall (the process's start, the "
+              f"data's generation, TensorBoard included) [{card}]")
+        if proc.returncode != 0 or phases.count("train") != n_train * raw["max_epochs"] \
+                or phases.count("val") != raw["max_epochs"] or not finite \
+                or not isinstance(pair, tuple) or not os.path.exists(gen_path):
+            raise AssertionError(f"gan CLI: {proc.returncode} {phases} {proc.stderr[-3000:]}")
+        if not any(ln.startswith("test:") for ln in lines) \
+                or set(load_pytree(gen_path)) != {"params"}:
+            raise AssertionError(f"gan CLI outputs: {lines}")
+
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            counts, results = _count_launches(lambda: evaluate.main(
+                ["--task", "inpainting", "--model", "gated", "--checkpoint", gen_path,
+                 "--dataset", "SyntheticInpainting", "--dataset_size", "16", "--image_size",
+                 *map(str, GAN_SIZE[1:]), "--batch_size", "2", "--device", dev]))
+        ewall = time.perf_counter() - t0
+        print(f"main path evaluate_gated (--task inpainting --model gated on the exported "
+              f"generator, 16 pairs 448x1024, B=2) launches: {counts} (none expected); "
+              f"{buf.getvalue().strip()}; {ewall:.1f} s wall, {16 / ewall:.2f} pairs/s (the "
+              f"data's generation included) [{card}]")
+        if any(counts.values()) or not all(math.isfinite(v) for v in results.values()) \
+                or not results["ssim"] <= 1.0:
+            raise AssertionError(f"evaluate gated: {counts} {results}")
+    return {"cli_wall_s": wall, "eval_wall_s": ewall, "eval": results}
+
+
+def _phase15(card, dev="cuda"):
+    """Phase 15 (module docstring): the gated-conv GAN. Returns the launches
+    of its paths (none) and its numbers."""
+    t0 = time.perf_counter()
+    out = {"attention": _gan_attention_check(card, dev)}
+    out["forward"] = _gan_forward_check(card, dev)
+    out["step_vs_cpu"] = _gan_step_check(card, dev)
+    out["step"] = _gan_step_timing(card, dev)
+    out["cli"] = _gan_cli_phase(card, dev)
+    print(f"gan: phase 15 took {time.perf_counter() - t0:.1f} s wall [{card}]")
+    launches = {"gan_step": out["step"]["remat"]["launches"]}
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3530,6 +3922,10 @@ def main() -> int:
         return found
 
     launches.update(_files_phase(card, max_err, then=after_files))
+
+    # 15. the gated-conv GAN at the flagship config's width
+    gan_launches, _ = _phase15(card)
+    launches.update(gan_launches)
 
     # per kernel: its source, the TPU kernel it replaces, and the path whose
     # calls its times sum (its "launches" are that path's count)

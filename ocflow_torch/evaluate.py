@@ -10,7 +10,8 @@ or inpainting quality, PSNR and SSIM.
         --dataset MpiSintelCleanInpainting --root /data/sintel/training
 
 Builds the network ``models.load_model(task, model)`` (seeded from 0, or the
-``params`` of a port checkpoint), serves it eagerly in fp32 and eval mode
+``params`` of a port checkpoint: a GAN run's exported ``generator`` or its
+pair checkpoint), serves it eagerly in fp32 and eval mode
 with full fp32 cuDNN convolutions, as the JAX CLI serves ``net.apply``
 (FlowNetCV's cost volumes and the FlowNetC family's on the hand-written
 kernel), batch by batch from the loader (``--batch_size``, the last batch
@@ -38,7 +39,6 @@ from ocflow_torch import data as data_lib
 from ocflow_torch import full_fp32_convs, resolve_device
 from ocflow_torch.metrics import calculate_psnr, calculate_ssim, evaluate_flow, occlusion_f1
 from ocflow_torch.models import load_model, predict
-from ocflow_torch.models.registry import check_ported
 
 
 def inpaint_fn(model):
@@ -75,7 +75,6 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             "--with_fid: FID needs the Inception network, ROADMAP A10.5; the port "
             "evaluates PSNR and SSIM")
-    check_ported(args.task, args.model)
     dev = resolve_device(args.device)
 
     # as the JAX CLI: the procedural datasets take a size and a seed (and

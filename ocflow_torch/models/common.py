@@ -27,6 +27,7 @@ flax's train-mode update of the running variance.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -49,24 +50,46 @@ class BatchNorm(nn.BatchNorm2d):
     ``F.batch_norm`` takes the statistics in its one pass over the batch and
     updates the running variance with the unbiased variance, n / (n - 1)
     times the biased one over n values a channel; the update's batch term is
-    scaled back by (n - 1) / n. Eval mode is ``BatchNorm2d``'s."""
+    scaled back by (n - 1) / n. Eval mode is ``BatchNorm2d``'s. With
+    ``update_stats`` false (:func:`frozen_stats`) a train-mode forward
+    normalizes by the batch and leaves the running statistics as they are,
+    as a flax apply in train mode whose ``batch_stats`` are not kept."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, device=None, dtype=None):
         super().__init__(num_features, eps=eps, momentum=0.1, device=device, dtype=dtype)
+        self.update_stats = True
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         n = x.numel() // x.shape[1]
-        # a copy: autograd keeps the running variance the op was given
-        var = self.running_var.clone()
-        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
-                         True, self.momentum, self.eps)
-        with torch.no_grad():
-            kept = (1.0 - self.momentum) * self.running_var
-            self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
-            self.num_batches_tracked.add_(1)
+        # copies, updated by the op: autograd keeps the running statistics
+        # the op was given
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, self.momentum, self.eps)
+        if self.update_stats:
+            with torch.no_grad():
+                kept = (1.0 - self.momentum) * self.running_var
+                self.running_mean.copy_(mean)
+                self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
+                self.num_batches_tracked.add_(1)
         return y
+
+
+@contextlib.contextmanager
+def frozen_stats(module: nn.Module):
+    """Inside, every :class:`BatchNorm` of ``module`` leaves its running
+    statistics alone in train mode (``update_stats`` false); each flag is
+    given back on exit."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [m.update_stats for m in norms]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(norms, saved):
+            m.update_stats = flag
 
 
 class ConvBlock(nn.Sequential):

@@ -19,7 +19,10 @@ these carry flax's), ``simpleoccnet_from_flax``,
 ``convert_simple_flow_occ_net``, ``convert_eflownet``,
 ``convert_eflownet2`` and ``convert_inpainting_net``), and
 ``ocflownet_from_flax`` (the two nets of ``OCFlowNet`` under
-``SimpleFlowOccNet_0`` and ``InpaintingNet_0``), while
+``SimpleFlowOccNet_0`` and ``InpaintingNet_0``), ``inpaintsanet_from_flax``,
+``inpaintsanetorg_from_flax`` and ``discriminator_from_flax`` (the
+gated-conv generators and the spectral-norm discriminators, their ``u`` and
+``sigma`` too), while
 ``flowoccnetcv_from_flax`` and ``flowoccnetcv2_from_flax`` (inverses of
 ``convert_flow_occ_net_cv`` and ``convert_flow_occ_net_cv2``) take
 ``params``, as those nets have no BatchNorm. Conventions:
@@ -29,7 +32,8 @@ these carry flax's), ``simpleoccnet_from_flax``,
   with the kernel spatially flipped;
 - flax ``nn.BatchNorm`` (``params`` scale, bias; ``batch_stats`` mean, var)
   -> torch ``BatchNorm2d`` (weight, bias, running_mean, running_var; and
-  ``num_batches_tracked`` 0, which nothing in eval mode reads).
+  ``num_batches_tracked`` 0, which nothing in eval mode reads);
+- values become fp32 tensors, but fp64 ones stay fp64.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 from ocflow_torch.models.feature_pyramid import CONTEXT as FPN_CONTEXT
 from ocflow_torch.models.flow_net_s import LEVELS, S_TRUNK_CONVS, TRUNK_CONVS, FlowNetC, FlowNetS
 from ocflow_torch.models.flow_occ_nets import FlowOccNetC, FlowOccNetS
+from ocflow_torch.models.gated_conv import COARSE, DIS_WIDTHS, REFINE, UPSAMPLE
 from ocflow_torch.models.inpainting_net import DOWN as INPAINT_DOWN
 from ocflow_torch.models.inpainting_net import UP as INPAINT_UP
 from ocflow_torch.models.occlusion_nets import OcclusionNetC, OcclusionNetS
@@ -50,7 +55,9 @@ from ocflow_torch.models.simple_flow_net import DOWN, UP
 
 
 def _arr(a) -> np.ndarray:
-    return np.asarray(a, dtype=np.float32)
+    """fp32, or fp64 where the tree is fp64 (an fp64 check's readings)."""
+    a = np.asarray(a)
+    return a if a.dtype == np.float64 else a.astype(np.float32)
 
 
 def _conv(sd: dict, name: str, node: Mapping) -> None:
@@ -277,6 +284,90 @@ def ocflownet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
                                   ("InpaintingNet_0", "inpaint", inpaintingnet_from_flax)):
         part = fn({"params": p[flax_name], "batch_stats": st[flax_name]})
         sd.update({f"{prefix}.{k}": v for k, v in part.items()})
+    return sd
+
+
+def _gated_block(sd: dict, name: str, p: Mapping, st: Mapping, projected: bool) -> None:
+    """A flax ``GatedConv`` -> the port's ``<name>.conv2d``,
+    ``<name>.mask_conv2d`` (``_ProjConv_0``, ``_ProjConv_1`` with their
+    ``_Conv_j`` -> ``conv<j+1>``; or ``_Conv_0``, ``_Conv_1``) and its
+    BatchNorm (``batch_norm``, or ``batch_norm2d`` under plain towers)."""
+    for t, tower in enumerate(("conv2d", "mask_conv2d")):
+        if projected:
+            for j in range(3):
+                _conv(sd, f"{name}.{tower}.conv{j + 1}", p[f"_ProjConv_{t}"][f"_Conv_{j}"]["Conv_0"])
+        else:
+            _conv(sd, f"{name}.{tower}", p[f"_Conv_{t}"]["Conv_0"])
+    bn = "batch_norm" if projected else "batch_norm2d"
+    _bn(sd, f"{name}.{bn}", p["BatchNorm_0"], st["BatchNorm_0"])
+
+
+def _inpaintsanet_from_flax(variables: Mapping, projected: bool) -> dict[str, torch.Tensor]:
+    p, st = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+    for flax_name, name, spec in (("_GeneratorTrunk_0", "coarse_net", COARSE),
+                                  ("_RefineTrunk_0", "refine_conv_net", REFINE),
+                                  ("_RefineUpsample_0", "refine_upsample_net", UPSAMPLE)):
+        seen = {"GatedConv": 0, "GatedDeConv": 0}
+        for i, (_, *conv) in enumerate(spec):
+            kind = "GatedDeConv" if conv == [None] else "GatedConv"
+            node = f"{kind}_{seen[kind]}"
+            seen[kind] += 1
+            bp, bs, prefix = p[flax_name][node], st[flax_name][node], f"{name}.{i}"
+            if kind == "GatedDeConv":
+                bp, bs, prefix = bp["GatedConv_0"], bs["GatedConv_0"], f"{prefix}.conv2d"
+            _gated_block(sd, prefix, bp, bs, projected)
+    attn = p["SelfAttention_0"]
+    for j, conv in enumerate(("query_conv", "key_conv", "value_conv")):
+        _conv(sd, f"refine_attn.{conv}", attn[f"Conv_{j}"])
+    sd["refine_attn.gamma"] = torch.from_numpy(_arr(attn["gamma"]).copy())
+    return sd
+
+
+def inpaintsanet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of InpaintSANet -> port
+    ``state_dict``: ``_GeneratorTrunk_0``, ``_RefineTrunk_0``,
+    ``_RefineUpsample_0`` -> ``coarse_net``, ``refine_conv_net``,
+    ``refine_upsample_net`` (their ``GatedConv_k`` and ``GatedDeConv_k``
+    counted apart, in the trunk's order; a deconv's ``GatedConv_0`` ->
+    ``<i>.conv2d``), ``SelfAttention_0`` (``Conv_0..2``, ``gamma``) ->
+    ``refine_attn`` (``query_conv``, ``key_conv``, ``value_conv``,
+    ``gamma``)."""
+    return _inpaintsanet_from_flax(variables, projected=True)
+
+
+def inpaintsanetorg_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of InpaintSANetOrg -> port
+    ``state_dict``, as :func:`inpaintsanet_from_flax` with plain towers."""
+    return _inpaintsanet_from_flax(variables, projected=False)
+
+
+def _sn_conv(sd: dict, name: str, p: Mapping, st: Mapping) -> None:
+    """A flax ``_Conv`` with spectral norm -> the port's ``SNConv2d``: its
+    ``Conv_0`` kernel and bias, and ``SpectralNorm_0``'s
+    ``Conv_0/kernel/u`` and ``Conv_0/kernel/sigma`` -> ``u``, ``sigma``."""
+    _conv(sd, name, p["Conv_0"])
+    sn = st["SpectralNorm_0"]
+    sd[f"{name}.u"] = torch.from_numpy(_arr(sn["Conv_0/kernel/u"]).copy())
+    sd[f"{name}.sigma"] = torch.from_numpy(_arr(sn["Conv_0/kernel/sigma"]).copy())
+
+
+def discriminator_from_flax(variables: Mapping, projected: bool = True) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of InpaintSADiscriminator (or,
+    with ``projected`` false, InpaintSADiscriminatorOrg) -> port
+    ``state_dict``: ``_ProjConv_i`` (``_Conv_j`` -> ``conv<j+1>``) or
+    ``_Conv_i`` -> ``discriminator_net.<i>.conv2d``, with each spectral
+    norm's ``u`` and ``sigma``."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+    for i in range(len(DIS_WIDTHS) - 1):
+        name = f"discriminator_net.{i}.conv2d"
+        if projected:
+            for j in range(3):
+                _sn_conv(sd, f"{name}.conv{j + 1}", p[f"_ProjConv_{i}"][f"_Conv_{j}"],
+                         st[f"_ProjConv_{i}"][f"_Conv_{j}"])
+        else:
+            _sn_conv(sd, name, p[f"_Conv_{i}"], st[f"_Conv_{i}"])
     return sd
 
 

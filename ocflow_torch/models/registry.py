@@ -1,6 +1,7 @@
 """String-key model registry (port of ``ocflow_tpu/models/registry.py``):
-``build(family, key, **kwargs)`` returns a port module, for the keys the
-port has. Unknown families and keys raise, listing what is available.
+``build(family, key, **kwargs)`` returns a port module; the port has every
+key of the JAX registry. Unknown families and keys raise, listing what is
+available.
 ``load_model`` builds one for serving (seeded or from a checkpoint, eval
 mode) and ``predict`` runs its eager fp32 forward, as both CLIs serve it.
 """
@@ -15,15 +16,15 @@ from ocflow_torch.models.flow_net import FlowNet
 from ocflow_torch.models.flow_net_s import FlowNetC, FlowNetS
 from ocflow_torch.models.flow_occ_nets import (FlowOccNet, FlowOccNetC, FlowOccNetCV,
                                                FlowOccNetCV2, FlowOccNetS, SimpleFlowOccNet)
+from ocflow_torch.models.gated_conv import (InpaintSADiscriminator, InpaintSADiscriminatorOrg,
+                                            InpaintSANet, InpaintSANetOrg)
 from ocflow_torch.models.inpainting_net import InpaintingNet
 from ocflow_torch.models.ocflownet import OCFlowNet
 from ocflow_torch.models.occlusion_nets import OcclusionNetC, OcclusionNetS, SimpleOcclusionNet
 from ocflow_torch.models.pwc_net import FlowNetCV, PWCNet
 from ocflow_torch.models.simple_flow_net import SimpleFlowNet
 
-# the JAX registry's families, key for key, but for its gated-conv
-# generators (``inpainting/gated``, ``gated_org``) and the ``discriminator``
-# family: ROADMAP A10.3
+# the JAX registry's families, key for key
 _REGISTRY = {
     "flow": {"simple": SimpleFlowNet, "pwc": FlowNetCV, "pwcnet": PWCNet,
              "flownets": FlowNetS, "flownetc": FlowNetC, "flownet": FlowNet,
@@ -32,11 +33,10 @@ _REGISTRY = {
     "flow_occ": {"simple": SimpleFlowOccNet, "flowoccnets": FlowOccNetS,
                  "flowoccnetc": FlowOccNetC, "pwoc": FlowOccNetCV, "pwoc2": FlowOccNetCV2,
                  "flowoccnet": FlowOccNet},
-    "inpainting": {"simple": InpaintingNet},
+    "inpainting": {"simple": InpaintingNet, "gated": InpaintSANet, "gated_org": InpaintSANetOrg},
+    "discriminator": {"gated": InpaintSADiscriminator, "gated_org": InpaintSADiscriminatorOrg},
     "pipeline": {"ocflownet": OCFlowNet},
 }
-NOT_PORTED = {("inpainting", "gated"), ("inpainting", "gated_org"),
-              ("discriminator", "gated"), ("discriminator", "gated_org")}
 
 
 def available() -> dict[str, list[str]]:
@@ -44,22 +44,11 @@ def available() -> dict[str, list[str]]:
     return {f: sorted(keys) for f, keys in _REGISTRY.items()}
 
 
-def check_ported(family: str, key: str) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A10.3 for the JAX
-    package's gated-conv generators and discriminators."""
-    if (family, key) in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {family}/{key}: the gated-conv inpainting GAN (generators and "
-            "discriminators) is ROADMAP A10.3, not ported yet")
-
-
 def build(family: str, key: str, **kwargs):
     """The module registered under ``family``/``key``, built with
-    ``kwargs`` (e.g. ``generator=`` for a seeded init, ``device=``). The
-    JAX package's gated-conv generators and discriminators raise
-    ``NotImplementedError`` naming ROADMAP A10.3; other unknown names raise
+    ``kwargs`` (e.g. ``generator=`` for a seeded init, ``device=``, and
+    ``remat=`` for the gated-conv generators). Unknown names raise
     ``ValueError``."""
-    check_ported(family, key)
     if family not in _REGISTRY:
         raise ValueError(f"unknown model family {family!r}; the port has {available()}")
     if key not in _REGISTRY[family]:
@@ -70,15 +59,19 @@ def build(family: str, key: str, **kwargs):
 
 def load_model(family: str, key: str, checkpoint: str = "", device=None) -> torch.nn.Module:
     """The network ``build(family, key)`` on ``device`` in eval mode:
-    seeded from 0, or with the ``params`` of a port checkpoint. Keys the
-    port does not have raise (:func:`build`)."""
+    seeded from 0, or with the ``params`` of a port checkpoint (of a GAN
+    run's ``(generator, discriminator)`` checkpoint, the generator's).
+    Unknown keys raise (:func:`build`)."""
     # imported here: utils.checkpoint imports the train package, which
     # imports the models
-    from ocflow_torch.utils.checkpoint import load_subtree
+    from ocflow_torch.utils.checkpoint import load_pytree
 
     model = build(family, key, generator=torch.Generator().manual_seed(0))
     if checkpoint:
-        model.load_state_dict(load_subtree(checkpoint, "params"))
+        tree = load_pytree(checkpoint)
+        if isinstance(tree, (list, tuple)):
+            tree = tree[0]
+        model.load_state_dict(tree["params"])
     return model.to(device).eval()
 
 

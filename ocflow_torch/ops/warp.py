@@ -5,7 +5,8 @@ Port of ``ocflow_tpu/ops/warp.py`` in NCHW: ``img [B, C, H, W]``, ``flow
 
 Coordinates and bilinear hat weights are ALWAYS fp32: a bf16 coordinate
 grid quantizes sample positions (1 px spacing past x = 256). The four taps
-are gathered by hand, so the sampled tensor keeps its own dtype.
+are gathered by hand and summed in fp32 (fp64 for an fp64 image), so the
+sampled tensor keeps its own dtype.
 """
 
 from __future__ import annotations
@@ -35,25 +36,30 @@ def warp(img: torch.Tensor, flow: torch.Tensor,
 
     ``align_corners=True`` samples at ``grid + flow`` exactly; ``False``
     rescales by ``W / (W - 1)`` and shifts by -0.5 (the grid_sample
-    align_corners=False mapping of coordinates normalized by (W-1, H-1)).
+    align_corners=False mapping of coordinates normalized by (W-1, H-1)),
+    rounded to fp32 once, as the reference's jitted warp rounds its fused
+    multiply-add: the product of two fp32 values is exact in fp64.
     Taps outside the image get weight 0. Returns ``img``'s dtype.
     """
     b, c, h, w = img.shape
     coords = flow_to_warp(flow.float())
     x, y = coords[:, 0], coords[:, 1]
     if not align_corners:
-        x = x * (w / max(w - 1, 1)) - 0.5
-        y = y * (h / max(h - 1, 1)) - 0.5
+        sx, sy = (float(torch.tensor(n / max(n - 1, 1), dtype=torch.float32))
+                  for n in (w, h))
+        x = (x.double() * sx - 0.5).float()
+        y = (y.double() * sy - 0.5).float()
     x0 = torch.floor(x).clamp(0, w - 2)
     y0 = torch.floor(y).clamp(0, h - 2)
-    wx = [torch.relu(1.0 - (x - (x0 + k)).abs()) for k in (0, 1)]
-    wy = [torch.relu(1.0 - (y - (y0 + k)).abs()) for k in (0, 1)]
+    acc = torch.promote_types(img.dtype, torch.float32)
+    wx = [torch.relu(1.0 - (x - (x0 + k)).abs()).to(acc) for k in (0, 1)]
+    wy = [torch.relu(1.0 - (y - (y0 + k)).abs()).to(acc) for k in (0, 1)]
     base = (y0.long() * w + x0.long()).reshape(b, 1, h * w)
     flat = img.reshape(b, c, h * w)
-    out = torch.zeros((b, c, h * w), dtype=torch.float32, device=img.device)
+    out = torch.zeros((b, c, h * w), dtype=acc, device=img.device)
     for dy in (0, 1):
         for dx in (0, 1):
             idx = (base + (dy * w + dx)).expand(b, c, h * w)
             wgt = (wy[dy] * wx[dx]).reshape(b, 1, h * w)
-            out += torch.gather(flat, 2, idx).float() * wgt
+            out += torch.gather(flat, 2, idx).to(acc) * wgt
     return out.reshape(b, c, h, w).to(img.dtype)

@@ -14,7 +14,9 @@ seeded registry net ``--model`` (``flownetc``, ``flownet`` or ``pwcnet``;
   host paces the card);
 - ``kernel_ms_per_batch`` and ``busy_share``: the device time of every
   kernel in a ``torch.profiler`` trace of the same forwards, per forward
-  and as a share of their device time;
+  and as a share of their device time (the device-side span of a
+  ``record_function`` range, such as ``ops.attention.RANGE``, is not a
+  kernel and is left out);
 - ``by_kind``: that kernel time summed by kind (cost volume, convolution
   forward and backward, BatchNorm, LeakyReLU, concatenation, copies,
   gathers and scatters (warps, the range map), the optimizer, the rest),
@@ -38,6 +40,7 @@ import torch
 from ocflow_torch.bench import (BATCH, HEIGHT, SEED, WIDTH, cuda_ms, gpu_info,
                                 make_flownetc_inputs)
 from ocflow_torch.models import FlowNetC, FlowOccNetC, OcclusionNetC
+from ocflow_torch.ops.attention import RANGE
 from ocflow_torch.tools.train_profile import _device_us
 
 MODELS = {"flownetc": FlowNetC, "occnetc": OcclusionNetC, "flowoccnetc": FlowOccNetC}
@@ -121,7 +124,8 @@ def profile_fn(forward, batch: int, iters: int) -> dict:
         end.synchronize()
     traced_ms = start.elapsed_time(end) / iters
     kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0]
+               if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0
+               and e.key != RANGE]
     kernel_ms = sum(_device_us(e) for e in kernels) / 1e3 / iters
     by_kind: dict[str, float] = {}
     for e in kernels:

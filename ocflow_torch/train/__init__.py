@@ -1,5 +1,5 @@
 """Training: the config, the train state, the supervised steps, the
-unsupervised flow step, the inpainting steps (supervised and stage), and
+unsupervised flow step, the inpainting steps (supervised, stage and GAN), and
 the learning-rate range test (``python -m ocflow_torch.train`` is the
 supervised trainer CLI)."""
 
@@ -9,12 +9,14 @@ from ocflow_torch.train.state import TrainState, create_train_state
 from ocflow_torch.train.lr_finder import lr_find
 from ocflow_torch.train.steps import (make_supervised_flow_occ_step, make_supervised_flow_step,
                                      make_supervised_occ_step, make_unsupervised_flow_step)
-from ocflow_torch.train.steps_inpainting import (make_inpainting_stage_step,
+from ocflow_torch.train.steps_inpainting import (make_gan_inpainting_step,
+                                                 make_inpainting_stage_step,
                                                  make_supervised_inpainting_step)
 
 __all__ = [
     "LONGRUN_SYNTHETIC", "Config", "TrainState", "config_from_dict",
-    "create_train_state", "load_config", "lr_find", "make_inpainting_stage_step",
+    "create_train_state", "load_config", "lr_find", "make_gan_inpainting_step",
+    "make_inpainting_stage_step",
     "make_supervised_flow_occ_step", "make_supervised_flow_step",
     "make_supervised_inpainting_step", "make_supervised_occ_step",
     "make_unsupervised_flow_step",

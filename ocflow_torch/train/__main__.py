@@ -17,8 +17,8 @@ suggestion it prints and then trains at, from fresh weights), runs
 and ``train.loop.evaluate`` on the test split, printing ``test: {...}``.
 ``eflownet`` and ``eflownet2`` raise ``NotImplementedError``: the JAX steps
 pass no dropout rng, so the reference cannot train them either
-(``train.steps.check_trainable``); so do the gated-conv inpainting
-generators (ROADMAP A10.3). Runs on
+(``train.steps.check_trainable``). ``inpainting`` trains any generator
+of the registry's family (``simple``, ``gated``, ``gated_org``). Runs on
 ``cuda`` unless ``--device`` says otherwise.
 """
 
@@ -68,7 +68,6 @@ def main(argv=None) -> dict:
         raise ValueError(f"network_type {cfg.network_type!r}: want one of "
                          f"{sorted(REGIMES)}")
     check_trainable(cfg.model)
-    registry.check_ported(REGIMES[cfg.network_type][0], cfg.model)
     device = resolve_device(args.device)
 
     train_loader, val_loader, test_loader = loop.make_loaders(cfg, device)

@@ -16,6 +16,7 @@ import torch
 
 from ocflow_torch import data as data_lib
 from ocflow_torch.train.config import Config
+from ocflow_torch.train.state import state_device
 from ocflow_torch.utils.checkpoint import CheckpointManager
 from ocflow_torch.utils.png import encode_png, write_png
 from ocflow_torch.utils.profiling import StepTimer
@@ -169,7 +170,7 @@ def fit(cfg: Config, state, train_step: Callable, eval_step: Callable, train_loa
     logger = SummaryLogger(cfg.log_dir)
     csv = CsvLogger(cfg.get("metrics_csv", ""))
     ckpt = CheckpointManager(cfg.checkpoint_dir)
-    device = state.device
+    device = state_device(state)
 
     best = float("inf")
     bad_epochs = 0
@@ -235,7 +236,7 @@ def fit(cfg: Config, state, train_step: Callable, eval_step: Callable, train_loa
 def evaluate(cfg: Config, state, eval_step: Callable, loader, step_args: tuple = ()) -> dict:
     """The mean of each metric of ``eval_step`` over a loader's batches."""
     out = [fetch(eval_step(state, *step_args, batch))
-           for batch in data_lib.device_iterator(loader, state.device)]
+           for batch in data_lib.device_iterator(loader, state_device(state))]
     if not out:
         return {}
     return {k: float(np.mean([m[k] for m in out])) for k in out[0]}

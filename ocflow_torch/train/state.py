@@ -5,7 +5,8 @@ fp32 master weights, an Adam optimizer and the step counter.
 1e-8) and their update ``m_hat / (sqrt(v_hat) + eps)``. A net's BatchNorm
 statistics (the JAX state's ``batch_stats``) live in the module's buffers:
 a train step in train mode updates them in place, and a checkpoint of the
-model's ``state_dict`` carries them.
+model's ``state_dict`` carries them. A GAN run's state is the pair
+``(gen_state, dis_state)``, as the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -27,6 +28,12 @@ class TrainState:
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+
+def state_device(state) -> torch.device:
+    """The device of a ``TrainState``, or of a GAN run's ``(gen_state,
+    dis_state)`` pair (the generator's)."""
+    return (state[0] if isinstance(state, tuple) else state).device
 
 
 def create_train_state(model: nn.Module, learning_rate: float,

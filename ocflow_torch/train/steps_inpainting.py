@@ -1,5 +1,6 @@
 """Inpainting training steps (port of ``ocflow_tpu/train/steps_inpainting.py``):
-the supervised step and the stage step with the pixel-wise loss.
+the supervised step, the stage step with the pixel-wise loss and the
+SN-PatchGAN step (discriminator, then generator).
 
 Batches are dicts of NHWC tensors: the supervised step reads ``images``
 [B, H, W, 6], ``flow`` [B, H, W, 2] and ``occ`` [B, H, W, 1]; the stage
@@ -9,15 +10,18 @@ mode (BatchNorm on the batch's statistics, running ones updated, as the
 JAX step's ``mutable=['batch_stats']``) and takes one Adam step;
 ``eval_step`` runs it in eval mode without gradients. Both run in fp32
 with full fp32 cuDNN convolutions and matmuls (``full_fp32_convs``), as the
-JAX steps compute. The stage step's ``loss_type: vgg`` (a perceptual loss
-on a VGG16) and the adversarial regime are ROADMAP A10.5 and A10.3.
+JAX steps compute. ``loss_type: vgg`` (a perceptual loss on a VGG16) is
+ROADMAP A10.5.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ocflow_torch import full_fp32_convs, losses
+from ocflow_torch.models.common import frozen_stats
 from ocflow_torch.ops import warp
 
 
@@ -101,3 +105,87 @@ def make_inpainting_stage_step(hparams: dict):
         return total, {"loss": total, "rhole": rhole, "runhole": runhole}
 
     return _build_steps(loss_fn)
+
+
+@contextlib.contextmanager
+def _no_param_grads(model: torch.nn.Module):
+    """Inside, ``model``'s parameters record no gradient (each flag is given
+    back on exit): autograd reaches through the model to its inputs only."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+def make_gan_inpainting_step(hparams: dict):
+    """SN-PatchGAN training, the discriminator first, then the generator
+    against the updated discriminator, in the reference's order
+    (``ocflow_tpu/train/steps_inpainting.py:make_gan_inpainting_step``).
+
+    Returns ``train_step((gen_state, dis_state), batch) -> ((gen_state,
+    dis_state), metrics)`` on the inpainting datasets' ``{'image', 'occ'}``:
+
+    1. the generator in train mode without gradients, its BatchNorm
+       updates thrown away (the JAX step never uses them), and
+       ``complete = recon * occ + image * (1 - occ)``;
+    2. the discriminator in train mode on ``cat([pos, neg])`` along the
+       batch (``pos = [image, occ]``, ``neg = [complete, occ]``, channels
+       last), its spectral norms' ``u`` and ``sigma`` updated once; the
+       hinge loss ``sn_dis_loss`` on the two halves; one step of its
+       optimizer;
+    3. the generator in train mode (its BatchNorm statistics kept), held
+       against the updated discriminator in eval mode (the power iteration
+       runs from the new ``u``, nothing is stored, its parameters record
+       no gradient); the loss ``sn_gen_loss + recon_loss``; one step of the
+       generator's optimizer.
+
+    Metrics: ``whole_loss``, ``d_loss``, ``g_loss``, ``content_loss``,
+    ``occluded``, ``non_occluded``. fp32 with full fp32 convolutions and
+    matmuls (``full_fp32_convs``). ``hparams['loss_type']``: ``pixel-wise``
+    (the default); ``vgg`` raises (ROADMAP A10.5)."""
+    check_loss_type(hparams.get("loss_type", "pixel-wise"))
+
+    def train_step(state_pair, batch):
+        gen_state, dis_state = state_pair
+        gen, dis = gen_state.model, dis_state.model
+        dev = gen_state.device
+        imgs, masks = batch["image"].to(dev), batch["occ"].to(dev)
+        gen.train()
+        dis.train()
+        with full_fp32_convs(torch.float32):
+            with torch.no_grad(), frozen_stats(gen):
+                _, recon = _apply_generator(gen, imgs, masks)
+                complete = recon * masks + imgs * (1.0 - masks)
+            pos = torch.cat([imgs, masks], -1)
+            neg = torch.cat([complete, masks], -1)
+
+            dis_state.optimizer.zero_grad(set_to_none=True)
+            pred_pos, pred_neg = dis(torch.cat([pos, neg], 0)).chunk(2, 0)
+            d_loss = losses.sn_dis_loss(pred_pos, pred_neg)
+            d_loss.backward()
+            dis_state.optimizer.step()
+            dis_state.step += 1
+
+            gen_state.optimizer.zero_grad(set_to_none=True)
+            coarse, recon = _apply_generator(gen, imgs, masks)
+            complete = recon * masks + imgs * (1.0 - masks)
+            dis.eval()
+            try:
+                with _no_param_grads(dis):
+                    g_loss = losses.sn_gen_loss(dis(torch.cat([complete, masks], -1)))
+                    content, rhole, runhole = losses.recon_loss(imgs, recon, masks, coarse)
+                    whole = g_loss + content
+                    whole.backward()
+            finally:
+                dis.train()
+            gen_state.optimizer.step()
+            gen_state.step += 1
+        metrics = {"whole_loss": whole, "d_loss": d_loss, "g_loss": g_loss,
+                   "content_loss": content, "occluded": rhole, "non_occluded": runhole}
+        return (gen_state, dis_state), {k: v.detach() for k, v in metrics.items()}
+
+    return train_step

@@ -23,20 +23,29 @@ running statistics, as the JAX step does. ``eflownet`` and
 ``eflownet2`` raise: the JAX steps pass no dropout rng, so the reference
 cannot train them either (``train.steps.check_trainable``).
 
-``network_type: inpainting`` with ``model: simple`` and ``adversarial_loss:
-false`` trains ``InpaintingNet`` on the inpainting datasets' ``{'image',
-'occ'}`` with ``train.steps_inpainting.make_inpainting_stage_step``
-(``loss_type: pixel-wise``), the validation panel ``inpaint`` (the masked
-input, the raw reconstruction, the frame, the composite) from the net in
-eval mode. The gated-conv generators (``model: gated``, ``org: true``) and
-``adversarial_loss: true`` are ROADMAP A10.3, ``loss_type: vgg`` A10.5, and
-``network_type: twostage`` A10.4; each raises. Runs on ``cuda`` unless
-``--device`` says otherwise.
+``network_type: inpainting`` trains the generator ``model`` (``simple``,
+``gated``; ``org: true`` is ``gated_org``; ``remat: true`` recomputes each
+gated block in the backward pass) on the inpainting datasets' ``{'image',
+'occ'}``: with ``adversarial_loss: false`` on
+``train.steps_inpainting.make_inpainting_stage_step`` (``loss_type:
+pixel-wise``); with ``adversarial_loss: true`` on
+``make_gan_inpainting_step`` against the spectral-norm discriminator of the
+same kind (seeded from 1, Adam at 4x the learning rate), the state the pair
+``(gen_state, dis_state)`` (its checkpoints too), validated by the
+pixel-wise stage step on the generator, which is saved alone after the run
+to ``checkpoint_dir/generator`` (``{"params": state_dict}``, what
+``evaluate --checkpoint`` loads). The validation panel ``inpaint`` (the
+masked input, the raw reconstruction, the frame, the composite) comes from
+the generator in eval mode. ``loss_type: vgg`` (ROADMAP A10.5) and
+``network_type: twostage`` (A10.4) raise. Runs on ``cuda`` unless
+``--device`` says otherwise; on the card the run ends by printing its peak
+memory.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -51,8 +60,10 @@ from ocflow_torch.train.state import create_train_state
 from ocflow_torch.train.steps import (_apply_flow_net, check_trainable,
                                      make_unsupervised_flow_step)
 from ocflow_torch.train.steps_inpainting import (_apply_generator, check_loss_type,
+                                                 make_gan_inpainting_step,
                                                  make_inpainting_stage_step)
 from ocflow_torch.utils import panels
+from ocflow_torch.utils.checkpoint import save_pytree
 
 
 def check_supported(cfg: config_lib.Config) -> None:
@@ -62,10 +73,6 @@ def check_supported(cfg: config_lib.Config) -> None:
         raise NotImplementedError(
             "network_type 'twostage': the two-stage pipelines are ROADMAP A10.4")
     if cfg.network_type == "inpainting":
-        if cfg.adversarial_loss:
-            raise NotImplementedError(
-                "adversarial_loss: the SN-PatchGAN inpainting regime is ROADMAP A10.3")
-        registry.check_ported("inpainting", "gated_org" if cfg.org else cfg.model)
         check_loss_type(cfg.loss_type)
         return
     if cfg.network_type != "flow":
@@ -75,11 +82,13 @@ def check_supported(cfg: config_lib.Config) -> None:
 
 
 def build_net(cfg: config_lib.Config) -> torch.nn.Module:
-    """The config's flow net (or inpainting generator), seeded from
-    ``cfg.seed``."""
+    """The config's flow net (or inpainting generator: ``gated_org`` with
+    ``org``, ``remat`` for the gated ones), seeded from ``cfg.seed``."""
     gen = torch.Generator().manual_seed(cfg.seed)
     if cfg.network_type == "inpainting":
-        return registry.build("inpainting", cfg.model, generator=gen)
+        key = "gated_org" if cfg.org else cfg.model
+        kwargs = {"remat": True} if cfg.remat and "gated" in key else {}
+        return registry.build("inpainting", key, generator=gen, **kwargs)
     if cfg.model == "pwc":
         return FlowNetCV(displacement=cfg.displacement, generator=gen)
     return registry.build("flow", cfg.model, generator=gen)
@@ -117,7 +126,10 @@ def inpaint_viz_fn(state, batch) -> dict:
     """The validation panel ``inpaint`` of the first sample of a batch:
     the masked input, the generator's raw reconstruction (eval mode, no
     gradients; the model's mode is given back), the frame and the
-    composite ``recon * occ + image * (1 - occ)``."""
+    composite ``recon * occ + image * (1 - occ)``. Of a GAN run's pair, the
+    generator's."""
+    if isinstance(state, tuple):
+        state = state[0]
     occluded, occ = batch["occluded"][:1].float(), batch["occ"][:1].float()
     training = state.model.training
     state.model.eval()
@@ -149,7 +161,20 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     train_loader, val_loader, test_loader = loop.make_loaders(cfg, device)
     state = create_train_state(build_net(cfg), cfg.learning_rate, device=device)
-    if cfg.network_type == "inpainting":
+    gan = cfg.network_type == "inpainting" and cfg.adversarial_loss
+    if gan:
+        dis = registry.build("discriminator", "gated_org" if cfg.org else "gated",
+                             generator=torch.Generator().manual_seed(1))
+        # D trains at 4x the G learning rate, as the JAX CLI sets it
+        state = (state, create_train_state(dis, 4 * cfg.learning_rate, device=device))
+        train_step = make_gan_inpainting_step(cfg.as_hparams())
+        _, stage_eval = make_inpainting_stage_step({**cfg.as_hparams(), "loss_type": "pixel-wise"})
+
+        def eval_step(pair, batch):
+            return stage_eval(pair[0], batch)
+
+        show = inpaint_viz_fn
+    elif cfg.network_type == "inpainting":
         train_step, eval_step = make_inpainting_stage_step(cfg.as_hparams())
         show = inpaint_viz_fn
     else:
@@ -158,10 +183,17 @@ def main(argv=None) -> dict:
     state = loop.fit(cfg, state, train_step, eval_step, train_loader, val_loader,
                      viz_fn=show)
     fit_s = time.perf_counter() - t0
+    steps = (state[0] if gan else state).step
+    if gan:
+        gen_path = os.path.join(cfg.checkpoint_dir, "generator")
+        save_pytree(gen_path, {"params": state[0].model.state_dict()})
+        print("generator checkpoint:", gen_path)
     results = loop.evaluate(cfg, state, eval_step, test_loader)
-    print(f"fit: {state.step} steps of {cfg.batch_size} pairs in {fit_s:.1f} s wall on "
-          f"{device} ({state.step * cfg.batch_size / fit_s:.2f} pairs/s, the data's "
-          f"generation, validation, panels and checkpoints included)")
+    peak = (f"; peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+            if device.type == "cuda" else "")
+    print(f"fit: {steps} steps of {cfg.batch_size} pairs in {fit_s:.1f} s wall on "
+          f"{device} ({steps * cfg.batch_size / fit_s:.2f} pairs/s, the data's "
+          f"generation, validation, panels and checkpoints included){peak}")
     print("test:", results)
     return results
 

@@ -3,7 +3,8 @@
 
 A train state's checkpoint is a dict with top-level ``step``, ``params``
 (the model's ``state_dict``) and ``opt_state`` (the optimizer's
-``state_dict``), loaded with ``torch.load(weights_only=True)``.
+``state_dict``), loaded with ``torch.load(weights_only=True)``; a GAN run's
+is the tuple of its generator's and its discriminator's.
 ``CheckpointManager`` keeps the best ``max_to_keep`` on a monitored loss;
 ``load_subtree`` takes a '/'-separated part of a checkpoint (the staged
 trainings splice a pretrained network's ``params`` out of one).
@@ -21,10 +22,14 @@ from ocflow_torch.train.state import TrainState
 
 
 def state_tree(state: Any) -> Any:
-    """A ``TrainState`` as its checkpoint dict; anything else as it is."""
+    """A ``TrainState`` as its checkpoint dict, a tuple of them (a GAN run's
+    ``(gen_state, dis_state)``) as a tuple of those; anything else as it
+    is."""
     if isinstance(state, TrainState):
         return {"step": state.step, "params": state.model.state_dict(),
                 "opt_state": state.optimizer.state_dict()}
+    if isinstance(state, tuple):
+        return tuple(state_tree(s) for s in state)
     return state
 
 

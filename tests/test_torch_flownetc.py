@@ -25,7 +25,8 @@ from ocflow_torch.bench import perturb_batchnorm
 from ocflow_torch.kernels import cost_volume as cv_mod
 from ocflow_torch.models import (EFlowNet, EFlowNet2, FlowNet, FlowNetC, FlowNetCV,
                                  FlowNetS, FlowOccNet, FlowOccNetC, FlowOccNetCV,
-                                 FlowOccNetCV2, FlowOccNetS, InpaintingNet, OCFlowNet,
+                                 FlowOccNetCV2, FlowOccNetS, InpaintSADiscriminatorOrg,
+                                 InpaintSANet, InpaintingNet, OCFlowNet,
                                  OcclusionNetC, OcclusionNetS, PWCNet, SimpleFlowNet,
                                  SimpleFlowOccNet, SimpleOcclusionNet, available, build,
                                  flownetc_from_flax, flowoccnetc_from_flax, occnetc_from_flax)
@@ -185,7 +186,8 @@ def test_registry_builds_each_key_and_raises_on_unknown():
                  "simple"],
         "occ": ["occnetc", "occnets", "simple"],
         "flow_occ": ["flowoccnet", "flowoccnetc", "flowoccnets", "pwoc", "pwoc2", "simple"],
-        "inpainting": ["simple"], "pipeline": ["ocflownet"]}
+        "inpainting": ["gated", "gated_org", "simple"], "discriminator": ["gated", "gated_org"],
+        "pipeline": ["ocflownet"]}
     for (family, key), cls in want.items():
         assert type(build(family, key)) is cls
     a = build("flow", "flownetc", generator=torch.Generator().manual_seed(3))
@@ -194,12 +196,11 @@ def test_registry_builds_each_key_and_raises_on_unknown():
         assert ka == kb and torch.equal(va, vb)
     with pytest.raises(ValueError, match="ocflownet.*'occnetc'"):
         build("flow", "ocflownet")
-    # the inpainting and pipeline families are ported; the gated-conv GAN is
-    # ROADMAP A10.3
+    # the inpainting, discriminator and pipeline families are ported
     assert type(build("inpainting", "simple")) is InpaintingNet
     assert type(build("pipeline", "ocflownet")) is OCFlowNet
-    with pytest.raises(NotImplementedError, match="A10.3"):
-        build("inpainting", "gated")
+    assert type(build("inpainting", "gated")) is InpaintSANet
+    assert type(build("discriminator", "gated_org")) is InpaintSADiscriminatorOrg
     with pytest.raises(ValueError, match="'simple'"):
         build("occ", "gated")
 

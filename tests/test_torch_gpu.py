@@ -810,3 +810,86 @@ def test_evaluate_inpainting_on_gpu_matches_cpu(cuda_device, capsys):
     for k, v in on_cpu.items():
         assert abs(on_card[k] - v) <= 1e-5 * abs(v), (k, on_card[k], v)
     assert on_card["ssim"] <= 1.0
+
+
+def test_attention_on_gpu_matches_cpu(cuda_device):
+    """The blockwise attention (four KV blocks) and the dense one on the
+    card, TF32 off for the matmuls, against the same calls on the CPU:
+    outputs and the gradients of q, k and v within 1e-5 of max|.| (fp32
+    summation order), and blockwise against dense on the card."""
+    from ocflow_torch.ops import attention as att
+
+    rng = np.random.default_rng(0)
+    q, k = (rng.normal(size=(2, 4096, 16)).astype(np.float32) for _ in range(2))
+    v, g = (rng.normal(size=(2, 4096, 128)).astype(np.float32) for _ in range(2))
+    res = {}
+    for dev in ("cpu", cuda_device):
+        for name, fn in (("dense", att.dense_attention),
+                         ("blockwise", lambda a, b, c: att.blockwise_attention(a, b, c, 1024))):
+            ts = [torch.from_numpy(a).to(dev).requires_grad_() for a in (q, k, v)]
+            torch.backends.cuda.matmul.allow_tf32 = False
+            out = fn(*ts)
+            out.backward(torch.from_numpy(g).to(dev))
+            res[(str(dev), name)] = [t.detach().cpu() for t in (out, *(a.grad for a in ts))]
+    for (a, b) in ((("cuda", "blockwise"), ("cpu", "blockwise")),
+                   (("cuda", "dense"), ("cpu", "dense")),
+                   (("cuda", "blockwise"), ("cuda", "dense"))):
+        for got, want in zip(res[a], res[b]):
+            assert (got - want).abs().max() <= 1e-5 * want.abs().max(), (a, b)
+
+
+def test_gan_step_on_gpu_matches_cpu(cuda_device):
+    """One GAN step (projected nets, seeded, ``gamma`` 0.5, 2x64x128, SGD)
+    on the card against the CPU in fp64 (cuDNN's fp64 convolutions): every
+    metric within 1e-9 relative, every gradient within 1e-9 of its tensor's
+    max|grad| (tensors whose gradient is zero, within 1e-12 of the net's),
+    G's statistics and D's ``u`` and ``sigma`` within 1e-9; in fp32 the
+    losses within 1e-4 relative (printed). No kernel of the repository
+    launches."""
+    from ocflow_torch.models import InpaintSADiscriminator, InpaintSANet
+    from ocflow_torch.train import TrainState, make_gan_inpainting_step
+
+    rng = np.random.default_rng(7)
+    batch = {"image": torch.from_numpy(rng.uniform(-1, 1, (2, 64, 128, 3))),
+             "occ": torch.from_numpy((rng.uniform(size=(2, 64, 128, 1)) > 0.6) * 1.0)}
+    counters = (cv_mod.cost_volume, cv_mod.cost_volume_backward, conv_chain.conv_group,
+                conv_chain.conv_group_diff, conv_chain_q8.conv_group_q8)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for dev in ("cpu", cuda_device):
+            gen = InpaintSANet(generator=torch.Generator().manual_seed(1))
+            with torch.no_grad():
+                gen.refine_attn.gamma.fill_(0.5)
+            dis = InpaintSADiscriminator(generator=torch.Generator().manual_seed(2))
+            gen, dis = gen.to(dev, dtype), dis.to(dev, dtype)
+            states = (TrainState(gen, torch.optim.SGD(gen.parameters(), lr=0.05)),
+                      TrainState(dis, torch.optim.SGD(dis.parameters(), lr=0.05)))
+            for c in counters:
+                c.launches = 0
+            _, metrics = make_gan_inpainting_step({})(
+                states, {k: v.to(dev, dtype) for k, v in batch.items()})
+            assert [c.launches for c in counters] == [0] * 5
+            grads = {f"{n}.{k}": p.grad.cpu().double() for n, m in (("G", gen), ("D", dis))
+                     for k, p in m.named_parameters()}
+            stats = {f"{n}.{k}": v.cpu().double() for n, m in (("G", gen), ("D", dis))
+                     for k, v in m.state_dict().items()
+                     if k.endswith(("running_mean", "running_var", ".u", ".sigma"))}
+            out[(dtype, str(dev))] = ({k: v.item() for k, v in metrics.items()}, grads, stats)
+    (mc, gc, sc), (mg, gg, sg) = out[(torch.float64, "cpu")], out[(torch.float64, "cuda")]
+    for k, v in mc.items():
+        assert abs(mg[k] - v) <= 1e-9 * abs(v), k
+    for net in ("G", "D"):
+        scale = max(v.abs().max().item() for k, v in gc.items() if k.startswith(net))
+        for k, v in gc.items():
+            if not k.startswith(net):
+                continue
+            if v.abs().max() <= 1e-12 * scale:
+                assert gg[k].abs().max() <= 1e-12 * scale, k
+            else:
+                assert (gg[k] - v).abs().max() <= 1e-9 * v.abs().max(), k
+    for k, v in sc.items():
+        assert (sg[k] - v).abs().max() <= 1e-9 * v.abs().max(), k
+    (m32c, _, _), (m32g, _, _) = out[(torch.float32, "cpu")], out[(torch.float32, "cuda")]
+    gaps = {k: abs(m32g[k] - v) / abs(v) for k, v in m32c.items()}
+    print("fp32 GAN step, card vs CPU, metrics relative:", gaps)
+    assert gaps["d_loss"] <= 1e-4 and gaps["g_loss"] <= 1e-4, gaps

@@ -282,7 +282,9 @@ def test_port_imports_no_jax_opencv_yaml_imageio_or_pil():
         "       'ocflow_torch.infer', 'ocflow_torch.evaluate',\n"
         "       'ocflow_torch.data.occlusion', 'ocflow_torch.models.inpainting_net',\n"
         "       'ocflow_torch.models.ocflownet', 'ocflow_torch.losses.reconstruction',\n"
-        "       'ocflow_torch.metrics.image_metrics', 'ocflow_torch.train.steps_inpainting')\n"
+        "       'ocflow_torch.metrics.image_metrics', 'ocflow_torch.train.steps_inpainting',\n"
+        "       'ocflow_torch.ops.attention', 'ocflow_torch.models.gated_conv',\n"
+        "       'ocflow_torch.losses.gan')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -136,10 +136,9 @@ def test_infer_eager_family_and_checkpoint(sintel, tmp_path):
 
 
 def test_clis_refuse_what_is_not_ported(sintel, tmp_path):
-    # --task inpainting now runs (tests/test_torch_inpaint_cli.py); the
-    # gated-conv generators and FID are still queued
-    with pytest.raises(NotImplementedError, match="A10.3"):
-        tevaluate.main(["--device", "cpu", "--task", "inpainting", "--model", "gated"])
+    # --task inpainting runs, the gated-conv generators too
+    # (tests/test_torch_inpaint_cli.py, tests/test_torch_gan_cli.py); FID is
+    # still queued
     with pytest.raises(NotImplementedError, match="A10.5"):
         tevaluate.main(["--device", "cpu", "--with_fid"])
     with pytest.raises(ValueError, match="unknown model 'ocflownet' in family 'flow'"):

@@ -246,22 +246,41 @@ def _port_step(hp, seed=0, batch=None, dtype=torch.float32):
     return model, metrics
 
 
+def fused_and_eager_readings(seed=0):
+    """The fused fp32 step, the eager fp32 step and the eager fp64 step on
+    ``_model(seed)``: the fused model, both steps' metrics and, per
+    parameter, ``(rel(fused, fp64), rel(eager fp32, fp64))`` of its
+    gradient."""
+    fused, m_fused = _port_step(HP, seed=seed)
+    eager, _ = _port_step({**HP, "fast_forward": "off"}, seed=seed)
+    exact, m_exact = _port_step({**HP, "fast_forward": "off"}, seed=seed, dtype=torch.float64)
+    readings = {name: (_rel(p.grad.numpy(), q.grad.numpy()), _rel(e.grad.numpy(), q.grad.numpy()))
+                for (name, p), e, q in zip(fused.named_parameters(), eager.parameters(),
+                                           exact.parameters())}
+    return fused, m_fused, m_exact, readings
+
+
 def test_fused_step_equals_eager_step():
     """``fast_forward='both'`` in fp32 == ``'off'`` (the eager network under
-    autograd) in fp64: metrics rtol 5e-5; gradients within PAIR_GRAD_REL;
-    every parameter gets a non-zero gradient on the fused path. The fp64
-    step is the reference because the eager fp32 step carries rounding of
-    its own: on this seed (one thread) the fused step's worst tensor
-    (predict_flow3.bias, a sum of cancelling terms) reads 2.3e-4 from the
-    fp64 step and the eager fp32 step 1.27e-3 (1.04e-3 fused vs eager fp32);
-    metrics agree to 2e-7."""
-    fused, m_fused = _port_step(HP)
-    exact, m_exact = _port_step({**HP, "fast_forward": "off"}, dtype=torch.float64)
+    autograd) in fp64: metrics rtol 5e-5; every parameter gets a non-zero
+    gradient on the fused path; each tensor's gradient within
+    ``max(PAIR_GRAD_REL, 2 * rel(eager fp32, fp64))`` of the fp64 step's,
+    the eager fp32 step run here as the witness of the rounding fp32 brings
+    to that tensor: the fused path may be no noisier than twice it. The
+    fp64 step is the reference because the eager fp32 step carries rounding
+    of its own: with the warp's ``align_corners=False`` rescale rounded
+    once, as the reference rounds it, seed 0's worst tensor
+    (predict_flow3.bias, a sum of cancelling terms at the warp's kinks)
+    reads 1.40e-3 fused and 1.32e-3 eager fp32 from the fp64 step (one
+    thread); seeds 1 and 2 read 6.2e-4 and 6.0e-5 at worst (``python
+    tests/test_torch_train.py`` prints the readings of seeds 0-2)."""
+    fused, m_fused, m_exact, readings = fused_and_eager_readings()
     for k in m_fused:
         np.testing.assert_allclose(float(m_fused[k]), float(m_exact[k]), rtol=5e-5, err_msg=k)
-    for (name, p), q in zip(fused.named_parameters(), exact.parameters()):
+    for name, p in fused.named_parameters():
         assert p.grad is not None and p.grad.abs().max() > 0, name
-        assert _rel(p.grad.numpy(), q.grad.numpy()) <= PAIR_GRAD_REL, name
+        got, witness = readings[name]
+        assert got <= max(PAIR_GRAD_REL, 2 * witness), (name, got, witness)
 
 
 def test_backward_decode_sees_the_updated_weights():
@@ -334,3 +353,17 @@ def test_train_bench_runs_on_cpu():
     state, step, batch = bench.make_train_inputs(1, 64, 64, "cpu", 0, hp)
     res = bench.measure_train(state, step, batch, iters=1, warmup=0)
     assert res["ms_per_step"] > 0 and state.step == 1
+
+
+if __name__ == "__main__":
+    # the fused-vs-eager readings of seeds 0-2 (one thread), three worst
+    # tensors each and the one closest to its bound
+    torch.set_num_threads(1)
+    for seed in (0, 1, 2):
+        rows = fused_and_eager_readings(seed)[3]
+        top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:3]
+        tight = max(rows, key=lambda k: rows[k][0] / max(PAIR_GRAD_REL, 2 * rows[k][1]))
+        print(f"seed {seed}: " + ", ".join(f"{k} {f:.2e} (eager fp32 {e:.2e})"
+                                           for k, (f, e) in top)
+              + f"; closest to its bound: {tight} {rows[tight][0]:.2e} of "
+              f"{max(PAIR_GRAD_REL, 2 * rows[tight][1]):.2e}")

@@ -2,8 +2,8 @@
 the CPU: each ``network_type`` (``flow`` on SimpleFlowNet, ``occ`` on
 OcclusionNetC, ``flow-occ`` on FlowOccNetCV) on a tiny config (64x128, 20
 SyntheticFlow samples, B=4) through ``--device cpu``; ``find_best_lr``; the
-refusal of the gated-conv inpainting generators naming ROADMAP A10.3; no
-silent CPU fallback
+gated-conv inpainting generators built (refused until ROADMAP A10.3 was
+ported); no silent CPU fallback
 without ``--device``. The run against the repository's JAX ``train.py``:
 ``tests/test_torch_train_cli_jax.py``.
 """
@@ -94,13 +94,22 @@ def test_cli_with_find_best_lr_trains_at_the_suggestion(tmp_path, capsys, monkey
 
 
 def test_cli_refuses_inpainting_naming_a10(tmp_path):
-    """``network_type: inpainting`` trains ``model: simple`` now
-    (tests/test_torch_inpaint_cli.py); the gated-conv generators raise,
-    naming ROADMAP A10.3."""
-    for model in ("gated", "gated_org"):
-        with pytest.raises(NotImplementedError, match="A10.3"):
-            cli.main(["--config", _config(tmp_path, network_type="inpainting", model=model),
-                      "--device", "cpu"])
+    """``network_type: inpainting`` trains every generator of the registry
+    (``simple``: tests/test_torch_inpaint_cli.py): the gated-conv ones,
+    refused naming ROADMAP A10.3 until A10.3 was ported, are built seeded
+    from the config (their training run: tests/test_torch_gan_cli.py); a key
+    the family lacks raises, listing the family's keys."""
+    from ocflow_torch.models import InpaintSANet, InpaintSANetOrg
+    from ocflow_torch.train.config import load_config
+
+    for model, cls in (("gated", InpaintSANet), ("gated_org", InpaintSANetOrg)):
+        cfg = load_config(_config(tmp_path, network_type="inpainting", model=model))
+        a, b = cli.build_net(cfg), cli.build_net(cfg)
+        assert type(a) is cls
+        assert all(torch.equal(v, b.state_dict()[k]) for k, v in a.state_dict().items())
+    with pytest.raises(ValueError, match="gated_org"):
+        cli.main(["--config", _config(tmp_path, network_type="inpainting", model="vgg"),
+                  "--device", "cpu"])
 
 
 def test_cli_runs_on_cuda_unless_told(tmp_path):

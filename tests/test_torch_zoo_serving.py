@@ -8,28 +8,20 @@ from test_torch_ops import share_cores  # noqa: F401  (autouse)
 
 
 def test_registry_equals_the_jax_registry_less_the_a10_families():
-    """The port's registry has every key of the JAX registry but its
-    gated-conv generators (``inpainting/gated``, ``gated_org``) and its
-    ``discriminator`` family, which raise naming ROADMAP A10.3; the
-    inpainting and pipeline families are ported (``simple``,
-    ``ocflownet``)."""
+    """The port's registry has every key of the JAX registry: since A10.3
+    the gated-conv generators (``inpainting/gated``, ``gated_org``) and the
+    ``discriminator`` family too, each built as the JAX registry's class of
+    the same name."""
     from ocflow_torch.models import available, build
     from ocflow_tpu.models import registry as jregistry
 
-    queued = {("inpainting", "gated"), ("inpainting", "gated_org"),
-              ("discriminator", "gated"), ("discriminator", "gated_org")}
-    want = {}
-    for f, keys in jregistry.available().items():
-        kept = sorted(k for k in keys if (f, k) not in queued)
-        if kept:
-            want[f] = kept
+    want = {f: sorted(keys) for f, keys in jregistry.available().items()}
     assert available() == want
-    assert want["inpainting"] == ["simple"] and want["pipeline"] == ["ocflownet"]
-    assert {(f, k) for f, keys in jregistry.available().items() for k in keys} - {
-        (f, k) for f, keys in want.items() for k in keys} == queued
-    for family, key in sorted(queued):
-        with pytest.raises(NotImplementedError, match="A10.3"):
-            build(family, key)
+    assert want["inpainting"] == ["gated", "gated_org", "simple"]
+    assert want["discriminator"] == ["gated", "gated_org"]
+    for family in ("inpainting", "discriminator"):
+        for key in want[family]:
+            assert type(build(family, key)).__name__ == type(jregistry.build(family, key)).__name__
 
 
 @pytest.mark.parametrize("task,key", [("flow", "flownets"), ("flow", "eflownet2"),
