@@ -197,6 +197,33 @@ Phases (any failure raises and exits non-zero):
    ocflow_torch.evaluate --task inpainting --model gated`` on the exported
    generator (pairs/s).
 
+16. the two-stage and joint pipelines, the VGG loss and FID:
+   ``configs/two_stage_gc_fullres.yaml`` as shipped (SimpleOcclusionNet +
+   InpaintSANet with remat, B=2, 448x1024) cut to 24 samples, 2 epochs and
+   ``unfreeze_epoch: 1`` through ``train_unsupervised``'s ``main``: the
+   inpainter equal to the seeded one bit for bit after epoch 0 and moved
+   after epoch 1, the pair checkpoint, wall time, ms a step, peak memory;
+   one GC step card vs CPU at 2x64x128 (metrics 1e-4 relative); the GC
+   step at 448x1024 with ``pixel-wise`` and ``vgg`` (the seeded VGG16):
+   launches (none), TF32 read inside (off), ms, peak memory, the kernel
+   time split into the attention, convolutions, BatchNorm and the rest;
+   the joint flow+occlusion+inpainting step (BASELINE's configuration #5:
+   FlowOccNetCV + InpaintingNet, B=16, 320x1216, ~30% of the pixels valid)
+   in bf16: its launches (5 cost volumes, 5 backward, nothing else), every
+   call replayed against its plain version (2^-6) and timed beside its
+   bound; in fp32 (deterministic algorithms): every call replayed (1e-4),
+   the loss against the plain cost volume (1e-5), the gradients against
+   the plain backward on the kernel forward (1e-4 of each net's
+   max|grad|); the bf16 gradient against the fp32 one, relative L2 by part
+   (``JOINT_BF16_L2``), and the same reading without the occlusion head's
+   scale, printed; each step's ms and peak memory; ``configs/unsupervised.yaml`` as
+   shipped and its ``with_gt_flow: false`` copy, 2 epochs each, through
+   the CLI (processes of their own); ``evaluate --task inpainting --model
+   gated --with_fid --allow_random_fid`` on phase 15's exported generator,
+   card against CPU on the same 8 images (the pool features 1e-4 of
+   max|CPU|, the FIDs 1e-4 relative), then on 16 pairs at 448x1024 with
+   InceptionV3's ms a batch.
+
 Phases 6 and 8 hold their references (the eager fp32 forward, the eager
 step) on the plain cost volume; phase 6 also holds the eager forward on the
 cost-volume kernel (5 launches) against it.
@@ -3531,7 +3558,7 @@ def _gan_step_timing(card, dev="cuda"):
     return out
 
 
-def _gan_cli_phase(card, dev="cuda"):
+def _gan_cli_phase(card, dev="cuda", keep=None):
     """Phase 15 (d, e): ``configs/inpainting_gan_fullres.yaml`` through
     ``python -m ocflow_torch.train_unsupervised`` in a process of its own,
     cut by ``GAN_CLI_CUTS`` (width, batch, remat, learning rates as
@@ -3542,10 +3569,11 @@ def _gan_cli_phase(card, dev="cuda"):
     inpainting --model gated`` on the exported generator (SyntheticInpainting
     16 samples at 448x1024, B=2) in this process: launches (none), finite
     PSNR and SSIM <= 1, pairs/s over its wall (the data's generation
-    included)."""
+    included); ``keep``: a path the exported generator is copied to."""
     import csv
     import io
     import os
+    import shutil
     import subprocess
     import tempfile
 
@@ -3600,6 +3628,8 @@ def _gan_cli_phase(card, dev="cuda"):
         if not any(ln.startswith("test:") for ln in lines) \
                 or set(load_pytree(gen_path)) != {"params"}:
             raise AssertionError(f"gan CLI outputs: {lines}")
+        if keep:
+            shutil.copy(gen_path, keep)
 
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -3619,17 +3649,603 @@ def _gan_cli_phase(card, dev="cuda"):
     return {"cli_wall_s": wall, "eval_wall_s": ewall, "eval": results}
 
 
-def _phase15(card, dev="cuda"):
-    """Phase 15 (module docstring): the gated-conv GAN. Returns the launches
-    of its paths (none) and its numbers."""
+def _phase15(card, dev="cuda", keep=None):
+    """Phase 15 (module docstring): the gated-conv GAN (``keep``: where the
+    GAN run's exported generator is copied). Returns the launches of its
+    paths (none) and its numbers."""
     t0 = time.perf_counter()
     out = {"attention": _gan_attention_check(card, dev)}
     out["forward"] = _gan_forward_check(card, dev)
     out["step_vs_cpu"] = _gan_step_check(card, dev)
     out["step"] = _gan_step_timing(card, dev)
-    out["cli"] = _gan_cli_phase(card, dev)
+    out["cli"] = _gan_cli_phase(card, dev, keep)
     print(f"gan: phase 15 took {time.perf_counter() - t0:.1f} s wall [{card}]")
     launches = {"gan_step": out["step"]["remat"]["launches"]}
+    return launches, out
+
+
+# the two-stage pipelines, the joint step, the VGG loss and FID (phase 16)
+# configs/two_stage_gc_fullres.yaml through its CLI: these cuts only (every
+# step logged, a panel every epoch)
+GC_CLI_CUTS = {"dataset_size": 24, "max_epochs": 2, "unfreeze_epoch": 1,
+               "log_every_n_steps": 1, "log_image_every_epoch": 1}
+GC_SIZE = (2, 448, 1024)      # the GC config's batch and frames
+GC_CHECK_SIZE = (2, 64, 128)  # the GC step card vs CPU: the CPU takes seconds there
+GC_REL = 1e-4                 # card vs CPU: metrics relative
+# BASELINE.json configuration #5: the joint step on KITTI-2015, bf16, B=16
+JOINT_SIZE = (16, 320, 1216)
+JOINT_VALID = 0.3             # KITTI's sparse ground truth: ~30% of pixels valid
+JOINT_LOSS_REL = 1e-5         # fp32 kernel step vs the plain cost volume
+JOINT_GRAD_REL = 1e-4         # vs the plain backward on the kernel forward
+# the bf16 gradient vs the fp32 one, relative L2, by part: FlowOccNetCV,
+# InpaintingNet's last block (up6), the whole InpaintingNet (read 0.061,
+# 0.011, 0.407 on the H100; the inpainter's bf16 cotangent grows through its
+# train-mode BatchNorms block by block, as in the JAX package)
+JOINT_BF16_L2 = {"flow_occ": 0.1, "inpaint.up6": 0.05, "inpaint": 0.5}
+# FlowOccNetCV's last occlusion head scaled, a stand-in for trained weights:
+# seeded, it puts ~95% of the pixels within 1e-2 of 0.5, where bf16's
+# resolution (2^-8) flips the straight-through mask the inpainter reads;
+# scaled, ~0.7% (a trained net's occlusion is as clear of the threshold).
+# The seeded net's bf16-vs-fp32 reading is printed beside it (read 0.039,
+# 0.012, 0.479: the flipped mask moves the inpainter's part).
+JOINT_OCC_SCALE = 100.0
+UNSUP_TWOSTAGE_CUTS = {"max_epochs": 2}
+FID_CHECK = (8, 128, 256)     # evaluate --with_fid card vs CPU: samples, size
+FID_SIZE = (16, 448, 1024)
+FID_FEATURE_REL = 1e-4        # Inception features card vs CPU, of max|CPU|
+FID_REL = 1e-4                # the FID card vs CPU on the same images, relative
+
+
+def _gc_pair(key="gated", remat=True, seed=1, perturb=False):
+    """``nn.ModuleDict({'occ', 'inpaint'})`` seeded as the CLI seeds it
+    (occlusion from 42, inpainter from ``seed``) on the CPU; ``perturb``:
+    BatchNorm statistics perturbed, a gated generator's ``gamma`` 0.5."""
+    from torch import nn
+
+    from ocflow_torch.bench import perturb_batchnorm
+    from ocflow_torch.models import SimpleOcclusionNet, registry
+
+    kwargs = {"remat": remat} if "gated" in key else {}
+    inp = registry.build("inpainting", key, generator=torch.Generator().manual_seed(seed),
+                         **kwargs)
+    pair = nn.ModuleDict({"occ": SimpleOcclusionNet(generator=torch.Generator().manual_seed(42)),
+                          "inpaint": inp})
+    if perturb:
+        perturb_batchnorm(pair, torch.Generator().manual_seed(seed + 100))
+        if hasattr(inp, "refine_attn"):
+            with torch.no_grad():
+                inp.refine_attn.gamma.fill_(0.5)
+    return pair
+
+
+def _gc_batch(size, seed=6):
+    b, h, w = size
+    g = torch.Generator().manual_seed(seed)
+    return {"images": torch.rand((b, h, w, 6), generator=g) * 2 - 1,
+            "flow": torch.randn((b, h, w, 2), generator=g) * 3,
+            "occ": (torch.rand((b, h, w, 1), generator=g) > 0.7).float()}
+
+
+def _gc_step_check(card, dev="cuda"):
+    """Phase 16 (b): one GC step (gated generator, remat, pixel-wise) on the
+    card and on the CPU from the same seeded weights and batch at
+    ``GC_CHECK_SIZE``, fp32: every metric within ``GC_REL`` relative, the
+    largest per-tensor gradient gap printed (train-mode BatchNorms)."""
+    from ocflow_torch.train import TrainState
+    from ocflow_torch.train.steps_two_stage import (make_two_stage_gc_optimizer,
+                                                    make_two_stage_gc_step)
+
+    batch = _gc_batch(GC_CHECK_SIZE)
+    res = {}
+    for where in ("cpu", dev):
+        pair = _gc_pair(perturb=True).to(where)
+        state = TrainState(pair, make_two_stage_gc_optimizer(pair, 1e-4, 1e-5, 0))
+        t0 = time.perf_counter()
+        _, metrics = make_two_stage_gc_step({"photo_weight": 1.0})[0](state, batch)
+        grads = {k: p.grad.detach().cpu() for k, p in pair.named_parameters()}
+        res[where] = ({k: v.item() for k, v in metrics.items()}, grads,
+                      time.perf_counter() - t0)
+    (mc, gc, cpu_s), (mg, gg, _) = res["cpu"], res[dev]
+    rel = {k: abs(mg[k] - v) / max(abs(v), 1e-30) for k, v in mc.items()}
+    scale = max(v.abs().max().item() for v in gc.values())
+    gaps = {k: ((gg[k] - v).abs().max() / v.abs().max()).item() for k, v in gc.items()
+            if v.abs().max().item() > 1e-4 * scale}
+    worst = max(gaps, key=gaps.get)
+    print(f"check gc step card vs CPU at {'x'.join(map(str, GC_CHECK_SIZE))} (occlusion + "
+          f"gated, remat, pixel-wise, fp32): metrics relative "
+          f"{ {k: f'{v:.3e}' for k, v in rel.items()} } (tol {GC_REL}); largest per-tensor "
+          f"gradient gap {gaps[worst]:.3e} of max|grad| ({worst}; printed, not held: the "
+          f"train-mode BatchNorms), median {sorted(gaps.values())[len(gaps) // 2]:.3e}; the "
+          f"CPU step {cpu_s:.1f} s [{card}]")
+    if max(rel.values()) > GC_REL:
+        raise AssertionError(f"gc step card vs CPU: {rel}")
+    return {"metrics_rel": rel, "worst_grad": gaps[worst]}
+
+
+def _gc_step_timing(card, dev="cuda"):
+    """Phase 16 (b): the GC step at ``GC_SIZE`` on the card (gated, remat, as
+    the config ships), ``pixel-wise`` and ``vgg`` (the seeded VGG16): its
+    launches (none), both TF32 flags read inside every forward while the
+    caller's are on (off), the median of 5 warm steps' ms (CUDA events), the
+    peak memory, a ``torch.profiler`` split of two steps into the attention,
+    convolutions, BatchNorm and the rest, and the card's busy share."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ocflow_torch.bench import cuda_ms
+    from ocflow_torch.losses.perceptual import init_vgg16
+    from ocflow_torch.tools.flownetc_profile import profile_fn
+    from ocflow_torch.train import TrainState
+    from ocflow_torch.train.steps_two_stage import (make_two_stage_gc_optimizer,
+                                                    make_two_stage_gc_step)
+
+    batch = {k: v.to(dev) for k, v in _gc_batch(GC_SIZE, seed=7).items()}
+    out = {}
+    for loss_type in ("pixel-wise", "vgg"):
+        pair = _gc_pair().to(dev)
+        state = TrainState(pair, make_two_stage_gc_optimizer(pair, 1e-4, 1e-5, 0))
+        vgg = init_vgg16(device=dev) if loss_type == "vgg" else None
+        step = make_two_stage_gc_step({"loss_type": loss_type, "photo_weight": 1.0}, vgg)[0]
+        seen = []
+        hooks = [m.register_forward_pre_hook(lambda m, a: seen.append(
+            (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+            for m in (pair["occ"], pair["inpaint"], *([vgg] if vgg is not None else []))]
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            step(state, batch)  # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts, (_, metrics) = _count_launches(lambda: step(state, batch))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            for h in hooks:
+                h.remove()
+        runs = [cuda_ms(lambda: step(state, batch), 1) for _ in range(5)]
+        ms = statistics.median(runs)
+        losses = {k: round(v.item(), 6) for k, v in metrics.items()}
+        prof_all = profile_fn(lambda: step(state, batch), 2, 2)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step(state, batch)
+            torch.cuda.synchronize()
+        kinds = prof_all["by_kind"]
+        split = {"attention": _attention_range_ms(prof, 2),
+                 "convolutions": kinds.get("conv", 0.0), "batchnorm": kinds.get("batchnorm", 0.0)}
+        split["rest"] = prof_all["kernel_ms_per_batch"] - sum(split.values())
+        print(f"main path gc_step_{loss_type} (B=2 448x1024 fp32, occlusion + gated, remat) "
+              f"launches: {counts} (none expected: no kernel of this repository); TF32 read "
+              f"inside the step's {len(seen)} forwards (cudnn, matmul): {sorted(set(seen))} "
+              f"(the caller's True); metrics {losses}")
+        print(f"time gc_step {loss_type} B=2 448x1024: {ms:.3f} ms (median of 5, CUDA events; "
+              f"runs {', '.join(f'{r:.2f}' for r in runs)}), {2e3 / ms:.2f} pairs/s; peak "
+              f"memory {peak:.2f} GiB; kernel time {prof_all['kernel_ms_per_batch']:.3f} ms "
+              f"a step (busy {100 * prof_all['busy_share']:.1f}%), "
+              f"{ {k: round(v, 3) for k, v in split.items()} } ms; by kind "
+              f"{ {k: round(v, 3) for k, v in kinds.items()} } [{card}]")
+        if any(counts.values()) or set(seen) != {(False, False)} \
+                or not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"gc step {loss_type}: {counts} {seen} {losses}")
+        out[loss_type] = {"ms": ms, "peak_gib": peak, "split": split, "launches": counts,
+                          "busy_share": prof_all["busy_share"]}
+        del state, pair, vgg
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gc_cli_phase(card, dev="cuda"):
+    """Phase 16 (a): ``configs/two_stage_gc_fullres.yaml`` (SimpleOcclusionNet
+    and InpaintSANet with remat, B=2, 448x1024) through ``main`` of
+    ``python -m ocflow_torch.train_unsupervised``, cut by ``GC_CLI_CUTS``,
+    outputs in a temporary directory; the validation panel's function is
+    wrapped to keep the inpainter's weights at the end of each epoch: after
+    epoch 0 (gated) they equal the seeded ones bit for bit, after epoch 1
+    (unfrozen) they differ. The CSV's rows, the pair checkpoint, finite test
+    metrics, the wall time, the loop's ms a step and the peak memory."""
+    import csv
+    import io
+    import os
+    import tempfile
+
+    from ocflow_torch import train_unsupervised as tu
+    from ocflow_torch.models import registry
+    from ocflow_torch.train import config as config_lib
+    from ocflow_torch.utils.checkpoint import CheckpointManager
+
+    seeded = {k: v for k, v in registry.build(
+        "inpainting", "gated", remat=True, generator=torch.Generator().manual_seed(1)
+    ).state_dict().items() if not k.endswith(("running_mean", "running_var", "tracked"))}
+    snaps = []
+    panel = tu.pipeline_viz_fn
+
+    def keep(state, batch):
+        snaps.append({k: v.detach().cpu().clone()
+                      for k, v in state.model["inpaint"].state_dict().items() if k in seeded})
+        return panel(state, batch)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with open("configs/two_stage_gc_fullres.yaml") as f:
+            raw = config_lib.parse_flat_yaml(f.read())
+        raw.update(GC_CLI_CUTS)
+        raw.update({k: os.path.join(tmp, v) for k, v in (
+            ("metrics_csv", "metrics.csv"), ("log_dir", "tb"), ("checkpoint_dir", "ckpt"),
+            ("result_dir", "."))})
+        path = os.path.join(tmp, "gc.yaml")
+        with open(path, "w") as f:
+            f.write("".join(f"{k}: {_yaml_value(v)}\n" for k, v in raw.items()))
+        buf = io.StringIO()
+        tu.pipeline_viz_fn = keep
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                results = tu.main(["--config", path, "--device", dev])
+        finally:
+            tu.pipeline_viz_fn = panel
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(raw["metrics_csv"]) as f:
+            rows = list(csv.DictReader(f))
+        tree = CheckpointManager(raw["checkpoint_dir"]).restore()
+        panels = sorted(os.listdir(tmp))
+    phases = [r["phase"] for r in rows]
+    steps = phases.count("train") // raw["max_epochs"]
+    ips = [float(r["images_per_sec"]) for r in rows if r["phase"] == "train"]
+    frozen = len(snaps) == 2 and all(torch.equal(snaps[0][k], v) for k, v in seeded.items())
+    moved = len(snaps) == 2 and not all(torch.equal(snaps[1][k], v) for k, v in seeded.items())
+    halves = {k.split(".")[0] for k in tree["params"]}
+    fit = [ln for ln in buf.getvalue().splitlines() if ln.startswith(("fit:", "test:"))]
+    print(f"gc CLI (train_unsupervised main, two_stage_gc_fullres.yaml with {GC_CLI_CUTS}: "
+          f"448x1024, B=2, gated + remat, unfreeze at step {steps}): {fit}; CSV "
+          f"{phases.count('train')} train rows, {phases.count('val')} val rows; the "
+          f"inpainter after epoch 0 equals the seeded one bit for bit: {frozen}, after epoch 1 "
+          f"it moved: {moved}; checkpoint halves {sorted(halves)}; panels "
+          f"{[p for p in panels if p.startswith('val_')]}; the loop's rate at its last step "
+          f"{ips[-1] if ips else 0.0:.3f} images/s, "
+          f"{raw['batch_size'] * 1e3 / ips[-1] if ips else 0.0:.1f} ms a step (host clock, a "
+          f"metrics fetch every step); peak memory {peak:.2f} GiB; {wall:.1f} s wall (the "
+          f"data's generation, panels, TensorBoard included) [{card}]")
+    if not (frozen and moved) or halves != {"occ", "inpaint"} or phases.count("val") != 2 \
+            or not all(math.isfinite(v) for v in results.values()):
+        raise AssertionError(f"gc CLI: {frozen} {moved} {halves} {phases} {results}")
+    return {"wall_s": wall, "peak_gib": peak, "ms_per_step": raw["batch_size"] * 1e3 / ips[-1]}
+
+
+def _joint_batch(dev, seed=8):
+    b, h, w = JOINT_SIZE
+    g = torch.Generator().manual_seed(seed)
+    valid = (torch.rand((b, h, w, 1), generator=g) < JOINT_VALID).float()
+    flow = (torch.rand((b, h, w, 2), generator=g) * 40 - 20) * valid
+    imgs = torch.rand((b, h, w, 6), generator=g) * 2 - 1
+    return {"images": imgs.to(dev), "flow": flow.to(dev), "valid": valid.to(dev)}
+
+
+def _joint_pair(occ_scale=None):
+    """The joint step's seeded pair on the CPU: FlowOccNetCV (its last
+    occlusion head scaled by ``JOINT_OCC_SCALE``) and InpaintingNet
+    (BatchNorm statistics perturbed)."""
+    from torch import nn
+
+    from ocflow_torch.bench import perturb_batchnorm
+    from ocflow_torch.models import FlowOccNetCV, InpaintingNet
+
+    inp = InpaintingNet(generator=torch.Generator().manual_seed(1))
+    perturb_batchnorm(inp, torch.Generator().manual_seed(101))
+    flow_occ = FlowOccNetCV(generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        flow_occ.predict_occ2[0].weight.mul_(JOINT_OCC_SCALE if occ_scale is None else occ_scale)
+    return nn.ModuleDict({"flow_occ": flow_occ, "inpaint": inp})
+
+
+def _bf16_parts(g16, g32):
+    """The relative L2 of the bf16 gradient ``g16`` against the fp32 one
+    ``g32`` (``{name: tensor}`` of the joint pair) over each part of
+    ``JOINT_BF16_L2`` (a prefix of the names)."""
+    def rel_l2(prefix):
+        keys = [k for k in g32 if k.startswith(prefix + ".")]
+        num = sum(((g16[k] - g32[k]) ** 2).sum().item() for k in keys)
+        return (num / sum((g32[k] ** 2).sum().item() for k in keys)) ** 0.5
+
+    return {part: rel_l2(part) for part in JOINT_BF16_L2}
+
+
+def _joint_phase(card, max_err, dev="cuda"):
+    """Phase 16 (c): the joint flow + occlusion + inpainting step
+    (``train.steps_joint``, FlowOccNetCV + InpaintingNet, seeded) at
+    ``JOINT_SIZE`` on a seeded KITTI-like batch (``JOINT_VALID`` of the
+    pixels valid). bf16: its launches (5 cost volumes, 5 backward, nothing
+    else), every cost-volume call replayed against its plain version (2^-6
+    of max|plain|) and timed beside its bound, the master weights fp32.
+    fp32, deterministic algorithms: every call replayed (1e-4), the loss and
+    metrics against the same step on the plain cost volume
+    (``JOINT_LOSS_REL``), the gradients against the same step with the plain
+    backward on the kernel forward (``JOINT_GRAD_REL`` of the net's
+    max|grad|). The bf16 gradient against the fp32 one, relative L2 by part
+    within ``JOINT_BF16_L2``; the same reading on the seeded pair without
+    ``JOINT_OCC_SCALE``, printed. Each step's ms (median of 5, default
+    algorithms) and peak memory. Returns the bf16 step's launches and the
+    per-call times summed."""
+    from ocflow_torch.bench import cuda_ms
+    from ocflow_torch.kernels import cost_volume as cv_mod
+    from ocflow_torch.models import flow_occ_nets as fon
+    from ocflow_torch.train import TrainState
+    from ocflow_torch.train.steps_joint import make_joint_step
+
+    batch = _joint_batch(dev)
+    base = _joint_pair()
+    targets = [(fon, "cost_volume"), (cv_mod, "cost_volume_backward")]
+
+    def fresh():
+        pair = copy.deepcopy(base).to(dev)
+        return TrainState(pair, torch.optim.Adam(pair.parameters(), lr=1e-4))
+
+    def grads_of(state):
+        return {k: p.grad.detach().float().clone() for k, p in state.model.named_parameters()}
+
+    out, failures = {}, []
+    # bf16: launches, every call replayed, the master weights
+    state = fresh()
+    step = make_joint_step({"dtype": "bfloat16"})[0]
+    box = {}
+    _zero_counts()
+    calls = _record(targets, lambda: box.update(out=step(state, batch)))
+    counts = _read_counts()
+    g16, m16 = grads_of(state), {k: v.item() for k, v in box["out"][1].items()}
+    fp32_masters = all(p.dtype == torch.float32 for p in state.model.parameters())
+    expect = {k: 0 for k in counts}
+    expect.update(cost_volume=5, cost_volume_bwd=5)
+    print(f"main path joint_step_bf16 (B=16 320x1216, FlowOccNetCV + InpaintingNet, "
+          f"dtype bfloat16) launches: {counts} (expected {expect}); master weights fp32: "
+          f"{fp32_masters}; metrics { {k: round(v, 6) for k, v in m16.items()} }")
+    if counts != expect or len(calls) != 10 or not fp32_masters:
+        failures.append(f"joint bf16 launches {counts}, {len(calls)} calls")
+    per = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}, {"ms": 0.0, "plain_ms": 0.0,
+                                                            "bound_ms": 0.0}
+    for k, (name, args) in enumerate(calls):
+        kind = "cost_volume" if name == "cost_volume" else "cost_volume_bwd"
+        _check_float(kind, args, torch.bfloat16, max_err, f"joint bf16 call {k} ")
+        fwd = kind == "cost_volume"
+        k_ms = cuda_ms(lambda: (cv_mod.cost_volume if fwd else cv_mod.cost_volume_backward)(
+            *args), 10)
+        p_ms = cuda_ms(lambda: (cv_mod.cost_volume_plain if fwd
+                                else cv_mod.cost_volume_backward_plain)(*args), 2)
+        nbytes, ops = (_cv_cost if fwd else _cv_bwd_cost)(args[0], args[-1])
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[torch.bfloat16]) * 1e3
+        p = per[0 if fwd else 1]
+        p["ms"] += k_ms
+        p["plain_ms"] += p_ms
+        p["bound_ms"] += bound
+        print(f"time joint {kind} bf16 {tuple(args[0].shape)} d={args[-1]}: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({100 * bound / k_ms:.2f}% of bound) [{card}]")
+    del calls, state
+    for name, p in zip(("cost_volume", "cost_volume_bwd"), per):
+        print(f"time joint {name} sum over one bf16 step's 5 calls: kernel {p['ms']:.4f} ms, "
+              f"plain {p['plain_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms [{card}]")
+
+    # fp32, deterministic: the kernel step, the plain cost volume, the plain
+    # backward on the kernel forward
+    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    step32 = make_joint_step({})[0]
+    runs = {}
+    try:
+        for label, fn in (("kernel", None), ("plain", cv_mod.cost_volume_plain),
+                          ("plain backward", lambda f1, f2, d: _PlainBackward.apply(
+                              f1, f2, d, cv_mod.cost_volume))):
+            state = fresh()
+            saved = fon.cost_volume
+            if fn is not None:
+                fon.cost_volume = fn
+            try:
+                if label == "kernel":
+                    box = {}
+                    calls = _record(targets, lambda: box.update(out=step32(state, batch)))
+                    metrics = box["out"][1]
+                else:
+                    _, metrics = step32(state, batch)
+            finally:
+                fon.cost_volume = saved
+            runs[label] = ({k: v.item() for k, v in metrics.items()}, grads_of(state))
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = det[0]
+        torch.use_deterministic_algorithms(det[1], warn_only=det[2])
+    for k, (name, args) in enumerate(calls):
+        _check_float("cost_volume" if name == "cost_volume" else "cost_volume_bwd", args,
+                     torch.float32, max_err, f"joint fp32 call {k} ")
+    del calls
+    (m32, g32), (mp, _), (_, gpb) = runs["kernel"], runs["plain"], runs["plain backward"]
+    merr = {k: abs(m32[k] - v) / max(abs(v), 1e-30) for k, v in mp.items() if v}
+    gerr = {}
+    for net in ("flow_occ", "inpaint"):
+        scale = max(v.abs().max().item() for k, v in gpb.items() if k.startswith(net))
+        gerr[net] = max((g32[k] - v).abs().max().item() for k, v in gpb.items()
+                        if k.startswith(net)) / scale
+    l2 = _bf16_parts(g16, g32)
+    del runs, g16, g32, gpb
+    # the seeded pair as drawn (no JOINT_OCC_SCALE): bf16 against fp32, printed
+    seeded = {}
+    for dtype in ("bfloat16", None):
+        pair = _joint_pair(occ_scale=1.0).to(dev)
+        make_joint_step({"dtype": dtype})[0](
+            TrainState(pair, torch.optim.Adam(pair.parameters(), lr=1e-4)), batch)
+        seeded[dtype] = {k: p.grad.detach().float().clone() for k, p in pair.named_parameters()}
+        del pair
+    l2_seeded = _bf16_parts(seeded["bfloat16"], seeded[None])
+    del seeded
+    print(f"e2e joint_step fp32: loss {m32['loss']:.6e}, on the plain cost volume "
+          f"{mp['loss']:.6e}, metrics relative {_worst(merr)} (tol {JOINT_LOSS_REL}); "
+          f"gradients against the plain backward on the kernel forward {gerr} of each net's "
+          f"max|grad| (tol {JOINT_GRAD_REL}; deterministic algorithms); the bf16 step's "
+          f"gradient against the fp32 one, relative L2 by part "
+          f"{ {k: round(v, 4) for k, v in l2.items()} } (tol {JOINT_BF16_L2}); the seeded pair "
+          f"without the occlusion head's x{JOINT_OCC_SCALE:g} (printed, not held) "
+          f"{ {k: round(v, 4) for k, v in l2_seeded.items()} }; loss {m16['loss']:.6e} "
+          f"[{card}]")
+    if max(merr.values()) > JOINT_LOSS_REL or max(gerr.values()) > JOINT_GRAD_REL \
+            or not all(l2[k] <= tol for k, tol in JOINT_BF16_L2.items()):
+        failures.append(f"joint step: metrics {merr}, gradients {gerr}, bf16 l2 {l2}")
+
+    # each step's time and peak memory (PyTorch's default algorithms)
+    torch.backends.cudnn.deterministic = False
+    torch.use_deterministic_algorithms(False)
+    for dtype in ("bfloat16", "float32"):
+        state = fresh()
+        step = make_joint_step({"dtype": dtype})[0]
+        step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs_ms = [cuda_ms(lambda: step(state, batch), 1) for _ in range(5)]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = sorted(runs_ms)[2]
+        print(f"time joint_step {dtype} B=16 320x1216: {ms:.3f} ms (median of 5, CUDA "
+              f"events; runs {', '.join(f'{r:.2f}' for r in runs_ms)}), {16e3 / ms:.2f} "
+              f"pairs/s; peak memory {peak:.2f} GiB [{card}]")
+        out[dtype] = {"ms": ms, "peak_gib": peak}
+        del state
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = det[0]
+    torch.use_deterministic_algorithms(det[1], warn_only=det[2])
+    if failures:
+        raise AssertionError("; ".join(failures))
+    out["per_call"] = {"cost_volume": per[0], "cost_volume_bwd": per[1]}
+    out["bf16_l2"], out["bf16_l2_seeded"] = l2, l2_seeded
+    out["grad_err"], out["metrics_err"] = gerr, merr
+    return counts, out
+
+
+def _unsup_twostage_cli_phase(card, dev="cuda"):
+    """Phase 16 (d): ``configs/unsupervised.yaml`` as shipped (TwoStageModelGC:
+    the gated generator at 96x128, B=16, SyntheticFlow) and its ``with_gt_flow:
+    false`` copy (TwoStageModel: frozen seeded SimpleFlowNet and
+    InpaintingNet), each cut by ``UNSUP_TWOSTAGE_CUTS`` through ``python -m
+    ocflow_torch.train_unsupervised`` in a process of its own, outputs in a
+    temporary directory: exit 0, the CSV's rows, finite test metrics, the
+    wall time."""
+    import csv
+    import os
+    import subprocess
+    import tempfile
+
+    from ocflow_torch.train import config as config_lib
+
+    out = {}
+    for gt in (True, False):
+        with tempfile.TemporaryDirectory() as tmp:
+            with open("configs/unsupervised.yaml") as f:
+                raw = config_lib.parse_flat_yaml(f.read())
+            raw.update(UNSUP_TWOSTAGE_CUTS, with_gt_flow=gt)
+            raw.update({k: os.path.join(tmp, v) for k, v in (
+                ("metrics_csv", "metrics.csv"), ("log_dir", "tb"), ("checkpoint_dir", "ckpt"),
+                ("result_dir", "."))})
+            path = os.path.join(tmp, "unsup.yaml")
+            with open(path, "w") as f:
+                f.write("".join(f"{k}: {_yaml_value(v)}\n" for k, v in raw.items()))
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "ocflow_torch.train_unsupervised",
+                                   "--config", path, "--device", dev], capture_output=True,
+                                  text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            rows = []
+            if os.path.exists(raw["metrics_csv"]):
+                with open(raw["metrics_csv"]) as f:
+                    rows = list(csv.DictReader(f))
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("fit:", "test:"))]
+        phases = [r["phase"] for r in rows]
+        label = "gc" if gt else "no_gt_flow"
+        finite = all(math.isfinite(float(r["loss"])) for r in rows)
+        print(f"unsupervised.yaml twostage {label} CLI (a process of its own, with "
+              f"{UNSUP_TWOSTAGE_CUTS}: 96x128, B=16): exit {proc.returncode}; {lines}; CSV "
+              f"{phases.count('train')} train rows, {phases.count('val')} val rows (finite "
+              f"{finite}); {wall:.1f} s wall [{card}]")
+        if proc.returncode != 0 or phases.count("val") != raw["max_epochs"] or not finite \
+                or not any(ln.startswith("test:") for ln in lines):
+            raise AssertionError(f"unsupervised.yaml {label}: {proc.returncode} {phases} "
+                                 f"{proc.stderr[-3000:]}")
+        out[label] = wall
+    return out
+
+
+def _fid_phase(card, generator, dev="cuda"):
+    """Phase 16 (e): ``python -m ocflow_torch.evaluate --task inpainting
+    --model gated --checkpoint <phase 15's exported generator> --with_fid
+    --allow_random_fid``: on the card and on the CPU on the same
+    ``FID_CHECK`` images (the FIDs within ``FID_REL`` relative; the seeded
+    InceptionV3's pool features of one batch card vs CPU within
+    ``FID_FEATURE_REL`` of max|CPU|); then on the card at ``FID_SIZE`` (launches: none; wall,
+    pairs/s) with the Inception's ms a batch of 2 (the resize to 299x299
+    included)."""
+    import io
+
+    from ocflow_torch import evaluate
+    from ocflow_torch.bench import cuda_ms
+    from ocflow_torch.metrics import init_inception
+
+    def run(where, n, h, w):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            counts, results = _count_launches(lambda: evaluate.main(
+                ["--task", "inpainting", "--model", "gated", "--checkpoint", generator,
+                 "--dataset", "SyntheticInpainting", "--dataset_size", str(n), "--image_size",
+                 str(h), str(w), "--batch_size", "2", "--with_fid", "--allow_random_fid",
+                 "--device", where]))
+        return counts, results, time.perf_counter() - t0
+
+    n, h, w = FID_CHECK
+    _, cpu, cpu_s = run("cpu", n, h, w)
+    counts, card_res, card_s = run(dev, n, h, w)
+    x = torch.rand((2, h, w, 3), generator=torch.Generator().manual_seed(9)) * 2 - 1
+    feats = {}
+    for where in ("cpu", dev):
+        extract = evaluate.inception_features(init_inception(device=where))
+        feats[where] = extract(x.to(where)).cpu()
+    ferr = ((feats[dev] - feats["cpu"]).abs().max() / feats["cpu"].abs().max()).item()
+    gap = abs(card_res["fid"] - cpu["fid"]) / abs(cpu["fid"])
+    print(f"check evaluate --with_fid --allow_random_fid (the exported gated generator, "
+          f"SyntheticInpainting {n} at {h}x{w}, B=2) card vs CPU: card {card_res}, CPU {cpu} "
+          f"(FID relative gap {gap:.3e}, tol {FID_REL}; the seeded network's features are "
+          f"~3e-3, its FID ~1e-6); pool features of one batch {ferr:.3e} of max|CPU| (tol "
+          f"{FID_FEATURE_REL}); launches {counts} (none expected); wall card {card_s:.1f} s, "
+          f"CPU {cpu_s:.1f} s [{card}]")
+    if any(counts.values()) or ferr > FID_FEATURE_REL or not gap <= FID_REL:
+        raise AssertionError(f"evaluate --with_fid: {counts} {ferr} {card_res}")
+    n, h, w = FID_SIZE
+    counts, res, wall = run(dev, n, h, w)
+    net = evaluate.inception_features(init_inception(device=dev))
+    xb = (torch.rand((2, h, w, 3), generator=torch.Generator().manual_seed(10)) * 2 - 1).to(dev)
+    inc_ms = cuda_ms(lambda: net(xb), 10)
+    print(f"main path evaluate_fid (--task inpainting --model gated --with_fid "
+          f"--allow_random_fid, {n} pairs {h}x{w}, B=2) launches: {counts} (none expected); "
+          f"{res}; {wall:.1f} s wall, {n / wall:.2f} pairs/s (the data's generation and the "
+          f"host's sqrtm of a 2048x2048 product included); InceptionV3 {inc_ms:.3f} ms a "
+          f"batch of 2 (the resize to 299x299 included) [{card}]")
+    if any(counts.values()) or not math.isfinite(res["fid"]):
+        raise AssertionError(f"evaluate --with_fid at {h}x{w}: {counts} {res}")
+    return {"fid_card_cpu": (card_res["fid"], cpu["fid"]), "feature_err": ferr,
+            "wall_s": wall, "inception_ms": inc_ms}
+
+
+def _phase16(card, max_err, generator, dev="cuda"):
+    """Phase 16 (module docstring): the two-stage pipelines, the joint step,
+    the VGG loss and FID. Returns the launches of its paths and its
+    numbers."""
+    t0 = time.perf_counter()
+    out = {"gc_cli": _gc_cli_phase(card, dev)}
+    out["gc_check"] = _gc_step_check(card, dev)
+    out["gc_step"] = _gc_step_timing(card, dev)
+    joint_launches, out["joint"] = _joint_phase(card, max_err, dev)
+    out["unsup_cli"] = _unsup_twostage_cli_phase(card, dev)
+    out["fid"] = _fid_phase(card, generator, dev)
+    print(f"two-stage, joint, VGG, FID: phase 16 took {time.perf_counter() - t0:.1f} s wall "
+          f"[{card}]")
+    launches = {"joint_step_bf16": joint_launches,
+                "gc_step": out["gc_step"]["pixel-wise"]["launches"],
+                "gc_step_vgg": out["gc_step"]["vgg"]["launches"]}
     return launches, out
 
 
@@ -3923,9 +4539,17 @@ def main() -> int:
 
     launches.update(_files_phase(card, max_err, then=after_files))
 
-    # 15. the gated-conv GAN at the flagship config's width
-    gan_launches, _ = _phase15(card)
-    launches.update(gan_launches)
+    # 15. the gated-conv GAN at the flagship config's width; 16. the
+    # two-stage pipelines, the joint step, the VGG loss, FID (on phase 15's
+    # exported generator)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as keep:
+        generator = f"{keep}/generator"
+        gan_launches, _ = _phase15(card, keep=generator)
+        launches.update(gan_launches)
+        more, p16 = _phase16(card, max_err, generator)
+        launches.update(more)
 
     # per kernel: its source, the TPU kernel it replaces, and the path whose
     # calls its times sum (its "launches" are that path's count)
@@ -3979,6 +4603,10 @@ def main() -> int:
             # per dtype at each of CV_NEW_SHAPES
             kernels[-1].update(displacements=list(cv_mod.FORWARD_DISPLACEMENTS),
                                other_d={"shapes": CV_NEW_SHAPES, **p12["per_d"][name]})
+            # phase 16: the 5 calls of one bf16 joint step (B=16, 320x1216),
+            # summed
+            kernels[-1].update({f"{k}_joint_bf16": v
+                                for k, v in p16["joint"]["per_call"][name].items()})
     # the general kernels (d > 10): their path is a FlowNetC built with
     # displacement 12 (forward and input gradient); times at its fp32
     # 8x256x56x128 call; the other d and shapes beside them

@@ -21,15 +21,22 @@ with occlusion masks, of its ``occlusion_f1``. ``--task inpainting`` applies
 the inpainting net to each batch's complete ``image`` and its mask ``occ``
 (the net zeroes the hole itself), as the JAX CLI does, and prints the mean
 over batches of each batch's PSNR and SSIM of ``recon * occ + image * (1 -
-occ)`` (``metrics.calculate_psnr``, ``calculate_ssim``). Runs on ``cuda``
-unless ``--device`` says otherwise. ``--with_fid`` (an Inception network's
-features) is ROADMAP A10.5.
+occ)`` (``metrics.calculate_psnr``, ``calculate_ssim``); with ``--with_fid``
+also the FID between the real and the completed images on InceptionV3's
+pool features (the images resized to 299x299, bilinear): the pytorch-fid
+network from ``--inception_weights`` (the ``.npz`` of
+``metrics.inception.convert_torch_inception``), or, with
+``--allow_random_fid``, a seeded network whose FID only ranks runs against
+each other (a warning says so on stderr). ``--with_fid`` with neither
+refuses, as the JAX CLI does. Runs on ``cuda`` unless ``--device`` says
+otherwise.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import numpy as np
 
@@ -37,8 +44,10 @@ import torch
 
 from ocflow_torch import data as data_lib
 from ocflow_torch import full_fp32_convs, resolve_device
-from ocflow_torch.metrics import calculate_psnr, calculate_ssim, evaluate_flow, occlusion_f1
+from ocflow_torch.metrics import (calculate_fid, calculate_psnr, calculate_ssim, evaluate_flow,
+                                  init_inception, occlusion_f1)
 from ocflow_torch.models import load_model, predict
+from ocflow_torch.ops.resize import resize_bilinear
 
 
 def inpaint_fn(model):
@@ -52,6 +61,19 @@ def inpaint_fn(model):
         return out[1] if isinstance(out, tuple) else out
 
     return inpaint
+
+
+def inception_features(net):
+    """``[B, H, W, 3]`` -> InceptionV3's pool features ``[B, 2048]`` of the
+    images resized to 299x299 (bilinear, ``align_corners=False``), fp32,
+    no gradients."""
+
+    def extract(imgs):
+        with torch.no_grad(), full_fp32_convs(torch.float32):
+            x = resize_bilinear(imgs.float().permute(0, 3, 1, 2), 299, 299)
+            return net(x.permute(0, 2, 3, 1))[0]
+
+    return extract
 
 
 def main(argv=None) -> dict:
@@ -68,13 +90,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--dataset_seed", type=int, default=None,
                     help="generation seed for Synthetic* datasets (a seed other than "
                     "training's gives a held-out set)")
-    ap.add_argument("--with_fid", action="store_true", help="ROADMAP A10.5, not ported")
+    ap.add_argument("--with_fid", action="store_true")
+    ap.add_argument("--inception_weights", default="",
+                    help="npz from ocflow_torch.metrics.inception.convert_torch_inception "
+                    "(the pytorch-fid weights); required for --with_fid")
+    ap.add_argument("--allow_random_fid", action="store_true",
+                    help="compute FID on RANDOM inception features (relative comparisons "
+                    "only; absolute values are meaningless)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.with_fid:
-        raise NotImplementedError(
-            "--with_fid: FID needs the Inception network, ROADMAP A10.5; the port "
-            "evaluates PSNR and SSIM")
+    if args.with_fid and not args.inception_weights and not args.allow_random_fid:
+        ap.error("--with_fid needs --inception_weights (convert the pytorch-fid checkpoint "
+                 "with ocflow_torch.metrics.inception.convert_torch_inception); pass "
+                 "--allow_random_fid to knowingly compute a random-feature FID")
     dev = resolve_device(args.device)
 
     # as the JAX CLI: the procedural datasets take a size and a seed (and
@@ -98,6 +126,12 @@ def main(argv=None) -> dict:
         batches = list(data_lib.device_iterator(loader, dev))
         results = {"psnr": calculate_psnr(inpaint_fn(model), batches),
                    "ssim": calculate_ssim(inpaint_fn(model), batches)}
+        if args.with_fid:
+            if not args.inception_weights:
+                print("WARNING: computing FID with RANDOM inception features "
+                      "(--allow_random_fid); the absolute value is meaningless", file=sys.stderr)
+            net = init_inception(weights_path=args.inception_weights or None, device=dev)
+            results["fid"] = calculate_fid(inpaint_fn(model), batches, inception_features(net))
         print(json.dumps(results))
         return results
     epes, f1s = [], []

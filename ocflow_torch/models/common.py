@@ -58,8 +58,11 @@ class BatchNorm(nn.BatchNorm2d):
     def __init__(self, num_features: int, eps: float = 1e-5, device=None, dtype=None):
         super().__init__(num_features, eps=eps, momentum=0.1, device=device, dtype=dtype)
         self.update_stats = True
+        self.policy_dtype = None
 
     def forward(self, x):
+        if self.policy_dtype is not None:
+            return self._mixed(x)
         if not self.training:
             return super().forward(x)
         n = x.numel() // x.shape[1]
@@ -75,21 +78,67 @@ class BatchNorm(nn.BatchNorm2d):
                 self.num_batches_tracked.add_(1)
         return y
 
+    def _mixed(self, x):
+        """flax's BatchNorm on the variables cast to ``policy_dtype``
+        (``models.precision.apply_mixed``; ``weight`` and ``bias`` arrive
+        cast, the running statistics are the fp32 buffers), as XLA compiles
+        it under ``jax.jit``: the chain in fp32 from the cast values, one
+        rounding of the output (XLA keeps the excess precision of fused
+        intermediates), the weak-typed constants cast (``bf16(0.9)`` =
+        0.8984375, ``bf16(eps)``). Train mode: the batch's mean and biased
+        variance in fp32 (``E[x^2] - E[x]^2``, clipped at 0); the update
+        ``bf16(0.9) * bf16(ra) + 0.1 * batch`` in fp32 into the buffers.
+        Eval mode: the cast running statistics."""
+        half = self.policy_dtype
+        shape = (1, -1, 1, 1)
+
+        def cast(v):
+            return v.to(half).float()
+
+        eps = float(torch.tensor(self.eps, dtype=half))
+        x32 = x.float()
+        if self.training:
+            mean = x32.mean((0, 2, 3))
+            var = ((x32 * x32).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            if self.update_stats:
+                keep = float(torch.tensor(1.0 - self.momentum, dtype=half))
+                with torch.no_grad():
+                    for stat, batch in ((self.running_mean, mean), (self.running_var, var)):
+                        stat.copy_(cast(stat) * keep + self.momentum * batch)
+                    self.num_batches_tracked.add_(1)
+        else:
+            mean, var = cast(self.running_mean), cast(self.running_var)
+        mul = torch.rsqrt(var + eps) * self.weight.float()
+        y = (x32 - mean.reshape(shape)) * mul.reshape(shape) + self.bias.float().reshape(shape)
+        return y.to(half)
+
 
 @contextlib.contextmanager
-def frozen_stats(module: nn.Module):
-    """Inside, every :class:`BatchNorm` of ``module`` leaves its running
-    statistics alone in train mode (``update_stats`` false); each flag is
-    given back on exit."""
+def _norms_set(module: nn.Module, name: str, value):
+    """Inside, every :class:`BatchNorm` of ``module`` has its attribute
+    ``name`` set to ``value``; each one is given back on exit."""
     norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
-    saved = [m.update_stats for m in norms]
+    saved = [getattr(m, name) for m in norms]
     for m in norms:
-        m.update_stats = False
+        setattr(m, name, value)
     try:
         yield
     finally:
-        for m, flag in zip(norms, saved):
-            m.update_stats = flag
+        for m, v in zip(norms, saved):
+            setattr(m, name, v)
+
+
+def policy_stats(module: nn.Module, dtype):
+    """Inside, every :class:`BatchNorm` of ``module`` runs flax's
+    BatchNorm under the mixed-precision policy of ``dtype``
+    (:meth:`BatchNorm._mixed`)."""
+    return _norms_set(module, "policy_dtype", dtype)
+
+
+def frozen_stats(module: nn.Module):
+    """Inside, every :class:`BatchNorm` of ``module`` leaves its running
+    statistics alone in train mode (``update_stats`` false)."""
+    return _norms_set(module, "update_stats", False)
 
 
 class ConvBlock(nn.Sequential):

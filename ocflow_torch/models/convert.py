@@ -558,3 +558,72 @@ def q8_scales_from_numpy(tree: Mapping) -> dict:
             return [conv(e) for e in v]
         return float(np.float32(np.asarray(v)))
     return conv(tree)
+
+
+def pair_from_flax(variables: Mapping, **bridges) -> dict[str, torch.Tensor]:
+    """flax ``{"params": {name: ...}, "batch_stats": {name: ...}}`` of a
+    pipeline's nets -> the ``state_dict`` of ``nn.ModuleDict({name: net})``:
+    each part through its bridge (``bridges[name]``, given the part's
+    ``{"params", "batch_stats"}``), its keys under ``<name>.``."""
+    p, st = variables["params"], variables.get("batch_stats") or {}
+    sd: dict[str, torch.Tensor] = {}
+    for name, fn in bridges.items():
+        part = fn({"params": p[name], "batch_stats": st.get(name) or {}})
+        sd.update({f"{name}.{k}": v for k, v in part.items()})
+    return sd
+
+
+def two_stage_from_flax(variables: Mapping, inpaint=None) -> dict[str, torch.Tensor]:
+    """The TwoStageModelGC state's ``{"params", "batch_stats"}`` (``occ``:
+    SimpleOcclusionNet, ``inpaint``: the inpainter, by default
+    InpaintingNet; pass its bridge, e.g. :func:`inpaintsanet_from_flax`) ->
+    the ``state_dict`` of ``nn.ModuleDict({'occ', 'inpaint'})``."""
+    return pair_from_flax(variables, occ=simpleoccnet_from_flax,
+                          inpaint=inpaint or inpaintingnet_from_flax)
+
+
+def joint_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The joint step's ``{"params", "batch_stats"}`` (``flow_occ``:
+    FlowOccNetCV, ``inpaint``: InpaintingNet) -> the ``state_dict`` of
+    ``nn.ModuleDict({'flow_occ', 'inpaint'})``."""
+    return pair_from_flax(variables, flow_occ=flowoccnetcv_from_flax,
+                          inpaint=inpaintingnet_from_flax)
+
+
+def vgg16_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``params`` (or ``{"params": ...}``) of ``VGG16Features``
+    (``Conv_0..Conv_9``) -> the port's ``state_dict`` (torchvision's
+    ``features.<index>``)."""
+    from ocflow_torch.losses.perceptual import VGG16Features
+
+    p = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {}
+    convs = [i for i, m in enumerate(VGG16Features().features) if isinstance(m, torch.nn.Conv2d)]
+    for j, idx in enumerate(convs):
+        _conv(sd, f"features.{idx}", p[f"Conv_{j}"])
+    return sd
+
+
+def inception_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of InceptionV3 -> the port's
+    ``state_dict`` (torchvision's names): ``BasicConv_i`` of the stem and
+    each block's ``BasicConv_j`` in the branch order of
+    ``metrics.inception.TORCH_BRANCHES``, ``Dense_0`` -> ``fc``. A missing
+    tensor raises ``KeyError``."""
+    from ocflow_torch.metrics.inception import TORCH_BRANCHES, TORCH_MIXED, TORCH_STEM
+
+    p, st = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+
+    def basic(name: str, node: Mapping, stats: Mapping) -> None:
+        _conv(sd, f"{name}.conv", node["Conv_0"])
+        _bn(sd, f"{name}.bn", node["BatchNorm_0"], stats["BatchNorm_0"])
+
+    for tname, fname in TORCH_STEM:
+        basic(tname, p[fname], st[fname])
+    for tname, fname in TORCH_MIXED:
+        for i, branch in enumerate(TORCH_BRANCHES[fname.rsplit("_", 1)[0]]):
+            basic(f"{tname}.{branch}", p[fname][f"BasicConv_{i}"], st[fname][f"BasicConv_{i}"])
+    sd["fc.weight"] = torch.from_numpy(np.ascontiguousarray(_arr(p["Dense_0"]["kernel"]).T))
+    sd["fc.bias"] = torch.from_numpy(_arr(p["Dense_0"]["bias"]).copy())
+    return sd

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ocflow_torch import full_fp32_convs, losses
+from ocflow_torch.models.precision import resolve_dtype
 from ocflow_torch.models.pwc_fast import fast_apply, fast_apply_pair
 from ocflow_torch.ops import (occlusion_fb_consistency, occlusion_from_back_flow,
                               resize_bilinear, warp)
@@ -43,14 +44,6 @@ def _area_down(x: torch.Tensor, f: int) -> torch.Tensor:
 
 def _nchw(t: torch.Tensor | None) -> torch.Tensor | None:
     return None if t is None else t.permute(0, 3, 1, 2)
-
-
-def resolve_dtype(name) -> torch.dtype | None:
-    """``'bfloat16'`` / ``'float32'`` / None / a dtype -> the compute dtype,
-    None for fp32."""
-    if name is None or name == "float32" or name == torch.float32:
-        return None
-    return getattr(torch, name) if isinstance(name, str) else name
 
 
 # flow keys the JAX package cannot train: EFlowNet's bottlenecks apply

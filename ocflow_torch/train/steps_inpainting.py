@@ -10,8 +10,9 @@ mode (BatchNorm on the batch's statistics, running ones updated, as the
 JAX step's ``mutable=['batch_stats']``) and takes one Adam step;
 ``eval_step`` runs it in eval mode without gradients. Both run in fp32
 with full fp32 cuDNN convolutions and matmuls (``full_fp32_convs``), as the
-JAX steps compute. ``loss_type: vgg`` (a perceptual loss on a VGG16) is
-ROADMAP A10.5.
+JAX steps compute. ``loss_type: vgg`` adds (the stage step) or takes the
+place of (the GAN step's content term) the VGG16 perceptual loss
+(``losses.perceptual``) on the frozen VGG16 the factory is given.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import contextlib
 import torch
 
 from ocflow_torch import full_fp32_convs, losses
+from ocflow_torch.losses.perceptual import vgg_perceptual_loss
 from ocflow_torch.models.common import frozen_stats
 from ocflow_torch.ops import warp
 
@@ -34,29 +36,31 @@ def _apply_generator(model, imgs: torch.Tensor, masks: torch.Tensor):
 
 
 def _build_steps(loss_fn):
-    """``(train_step, eval_step)`` around ``loss_fn(model, batch) -> (loss,
-    metrics)``, the batch's tensors moved to the state's device."""
+    """``(train_step, eval_step)`` around ``loss_fn(model, *args, batch) ->
+    (loss, metrics)``, the batch's tensors moved to the state's device;
+    ``args`` are the steps' positional arguments between the state and the
+    batch (``fit``'s ``step_args``)."""
 
-    def run(state, batch):
-        dev = state.device
-        batch = {k: v.to(dev) for k, v in batch.items()}
+    def run(state, args):
+        *args, batch = args
+        batch = {k: v.to(state.device) for k, v in batch.items()}
         with full_fp32_convs(torch.float32):
-            return loss_fn(state.model, batch)
+            return loss_fn(state.model, *args, batch)
 
-    def train_step(state, batch):
+    def train_step(state, *args):
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = run(state, batch)
+        loss, metrics = run(state, args)
         with full_fp32_convs(torch.float32):
             loss.backward()
         state.optimizer.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
-    def eval_step(state, batch):
+    def eval_step(state, *args):
         state.model.eval()
         with torch.no_grad():
-            return run(state, batch)[1]
+            return run(state, args)[1]
 
     return train_step, eval_step
 
@@ -80,28 +84,35 @@ def make_supervised_inpainting_step(hparams: dict | None = None):
     return _build_steps(loss_fn)
 
 
-def check_loss_type(loss_type: str) -> None:
-    """Refuse a stage loss the port does not have: ``vgg`` needs the VGG16
-    perceptual loss, ROADMAP A10.5."""
-    if loss_type != "pixel-wise":
-        raise NotImplementedError(
-            f"loss_type {loss_type!r}: the VGG perceptual loss is ROADMAP A10.5; the port "
-            "trains the stage step with loss_type 'pixel-wise'")
+def check_vgg(loss_type: str, vgg) -> None:
+    """``loss_type: vgg`` needs the VGG16 (``losses.perceptual.init_vgg16``);
+    any other loss type is the pixel-wise loss, as in the JAX steps."""
+    if loss_type == "vgg" and vgg is None:
+        raise ValueError("loss_type='vgg' requires vgg=init_vgg16(...)")
 
 
-def make_inpainting_stage_step(hparams: dict):
+def make_inpainting_stage_step(hparams: dict, vgg=None):
     """Inpainting pre-training on synthetic occlusions: the generator
     completes the batch's ``image`` under its ``occ`` (it zeroes the hole
     itself); the loss is ``losses.recon_loss`` (the hole and un-hole L1,
     each over the image's mask share; a coarse output's terms too).
-    ``hparams['loss_type']``: ``pixel-wise`` (the default); ``vgg`` raises.
-    Metrics: ``loss``, ``rhole``, ``runhole``."""
-    check_loss_type(hparams.get("loss_type", "pixel-wise"))
+    ``hparams['loss_type']``: ``pixel-wise`` (the default; metrics
+    ``loss``, ``rhole``, ``runhole``) or ``vgg``: the perceptual loss of the
+    reconstruction against the frame on ``vgg`` plus ``reconst_weight``
+    times ``recon_loss`` (metrics ``loss``, ``vgg_loss``,
+    ``reconst_loss``)."""
+    loss_type = hparams.get("loss_type", "pixel-wise")
+    reconst_weight = hparams.get("reconst_weight", 1.0)
+    check_vgg(loss_type, vgg)
 
     def loss_fn(model, batch):
         imgs, masks = batch["image"], batch["occ"]
         coarse, recon = _apply_generator(model, imgs, masks)
         total, rhole, runhole = losses.recon_loss(imgs, recon, masks, coarse)
+        if loss_type == "vgg":
+            vgg_loss = vgg_perceptual_loss(vgg, recon, imgs)
+            loss = vgg_loss + reconst_weight * total
+            return loss, {"loss": loss, "vgg_loss": vgg_loss, "reconst_loss": total}
         return total, {"loss": total, "rhole": rhole, "runhole": runhole}
 
     return _build_steps(loss_fn)
@@ -121,7 +132,7 @@ def _no_param_grads(model: torch.nn.Module):
             p.requires_grad_(True)
 
 
-def make_gan_inpainting_step(hparams: dict):
+def make_gan_inpainting_step(hparams: dict, vgg=None):
     """SN-PatchGAN training, the discriminator first, then the generator
     against the updated discriminator, in the reference's order
     (``ocflow_tpu/train/steps_inpainting.py:make_gan_inpainting_step``).
@@ -146,8 +157,12 @@ def make_gan_inpainting_step(hparams: dict):
     Metrics: ``whole_loss``, ``d_loss``, ``g_loss``, ``content_loss``,
     ``occluded``, ``non_occluded``. fp32 with full fp32 convolutions and
     matmuls (``full_fp32_convs``). ``hparams['loss_type']``: ``pixel-wise``
-    (the default); ``vgg`` raises (ROADMAP A10.5)."""
-    check_loss_type(hparams.get("loss_type", "pixel-wise"))
+    (the default: the content term is ``recon_loss``) or ``vgg`` (the
+    content term is the perceptual loss of the reconstruction on ``vgg``;
+    ``occluded`` and ``non_occluded`` are ``recon_loss``'s terms all the
+    same)."""
+    loss_type = hparams.get("loss_type", "pixel-wise")
+    check_vgg(loss_type, vgg)
 
     def train_step(state_pair, batch):
         gen_state, dis_state = state_pair
@@ -178,6 +193,8 @@ def make_gan_inpainting_step(hparams: dict):
                 with _no_param_grads(dis):
                     g_loss = losses.sn_gen_loss(dis(torch.cat([complete, masks], -1)))
                     content, rhole, runhole = losses.recon_loss(imgs, recon, masks, coarse)
+                    if loss_type == "vgg":
+                        content = vgg_perceptual_loss(vgg, recon, imgs)
                     whole = g_loss + content
                     whole.backward()
             finally:

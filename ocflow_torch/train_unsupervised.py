@@ -1,8 +1,8 @@
-"""Unsupervised trainer CLI of the port: the ``network_type: flow`` regime
-of the repository's ``train_unsupervised.py``, occlusion-aware through the
-config's hparams, for every flow net of the registry that the JAX package
-can train; and its ``network_type: inpainting`` stage regime without the
-GAN.
+"""Unsupervised trainer CLI of the port (the repository's
+``train_unsupervised.py``): the ``network_type: flow`` regime,
+occlusion-aware through the config's hparams, for every flow net of the
+registry that the JAX package can train; the ``network_type: inpainting``
+stage and GAN regimes; and the ``network_type: twostage`` pipelines.
 
     python -m ocflow_torch.train_unsupervised --config configs/longrun_synthetic.yaml \\
         [--max_epochs N] [--device cuda|cpu]
@@ -36,10 +36,32 @@ pixel-wise stage step on the generator, which is saved alone after the run
 to ``checkpoint_dir/generator`` (``{"params": state_dict}``, what
 ``evaluate --checkpoint`` loads). The validation panel ``inpaint`` (the
 masked input, the raw reconstruction, the frame, the composite) comes from
-the generator in eval mode. ``loss_type: vgg`` (ROADMAP A10.5) and
-``network_type: twostage`` (A10.4) raise. Runs on ``cuda`` unless
-``--device`` says otherwise; on the card the run ends by printing its peak
-memory.
+the generator in eval mode. ``loss_type: vgg`` adds the perceptual loss on
+a frozen VGG16 (``losses.perceptual.init_vgg16``, seeded from 0 or loaded
+from ``vgg_weights``) to the stage step and makes it the GAN step's content
+term.
+
+``network_type: twostage`` trains the occlusion net of a two-stage pipeline
+(:func:`build_two_stage`). With ``with_gt_flow: true`` (TwoStageModelGC,
+``train.steps_two_stage.make_two_stage_gc_step``): the ground-truth flow
+warps frame 2, a ``SimpleOcclusionNet`` (seeded from ``cfg.seed``) predicts
+the occlusion and the inpainter of ``inpainting_stage`` (``simple``,
+``gated`` (the default), ``gated_org``; seeded from 1; ``remat`` for the
+gated ones) completes the warp; the state's model is ``nn.ModuleDict({'occ',
+'inpaint'})`` with the gated Adam of ``make_two_stage_gc_optimizer``, the
+inpainter frozen for ``unfreeze_epoch`` epochs, then trained at
+``finetune_lr``; ``using_pretrained_inpainting`` with ``inpainting_root``
+splices the ``params`` of a port checkpoint (a GAN run's exported
+``generator``) into the inpainter. The validation panel ``pipeline`` (the
+frames, the true flow, the warp, the occlusion, the completed frame) comes
+from both nets in eval mode. With ``with_gt_flow: false`` (TwoStageModel):
+a frozen ``SimpleFlowNet`` (seeded from ``cfg.seed``, or the ``params`` of
+the port checkpoint at ``flow_root``) and a trainable ``SimpleOcclusionNet``
+seeded from 2, on ``make_two_stage_step`` with the frozen net passed
+through ``fit``'s ``step_args`` (the reference's frozen inpainter feeds no
+number, so none is built and ``inpainting_root`` is not read). Runs on
+``cuda`` unless ``--device`` says otherwise; on the card the run ends by
+printing its peak memory.
 """
 
 from __future__ import annotations
@@ -49,31 +71,29 @@ import os
 import time
 
 import torch
+from torch import nn
 
 from ocflow_torch import resolve_device
+from ocflow_torch.losses.perceptual import init_vgg16
 from ocflow_torch.models import registry
+from ocflow_torch.models.occlusion_nets import SimpleOcclusionNet
 from ocflow_torch.models.pwc_net import FlowNetCV
 from ocflow_torch.ops import warp
 from ocflow_torch.train import config as config_lib
 from ocflow_torch.train import loop
-from ocflow_torch.train.state import create_train_state
+from ocflow_torch.train.state import TrainState, create_train_state
 from ocflow_torch.train.steps import (_apply_flow_net, check_trainable,
                                      make_unsupervised_flow_step)
-from ocflow_torch.train.steps_inpainting import (_apply_generator, check_loss_type,
-                                                 make_gan_inpainting_step,
+from ocflow_torch.train.steps_inpainting import (_apply_generator, make_gan_inpainting_step,
                                                  make_inpainting_stage_step)
+from ocflow_torch.train.steps_two_stage import (_warp_nhwc, make_two_stage_gc_optimizer,
+                                                make_two_stage_gc_step, make_two_stage_step)
 from ocflow_torch.utils import panels
-from ocflow_torch.utils.checkpoint import save_pytree
-
+from ocflow_torch.utils.checkpoint import load_pytree, save_pytree
 
 def check_supported(cfg: config_lib.Config) -> None:
-    """Refuse what the port cannot train, saying why or where it is
-    queued."""
-    if cfg.network_type == "twostage":
-        raise NotImplementedError(
-            "network_type 'twostage': the two-stage pipelines are ROADMAP A10.4")
-    if cfg.network_type == "inpainting":
-        check_loss_type(cfg.loss_type)
+    """Refuse what the port cannot train, saying why."""
+    if cfg.network_type in ("inpainting", "twostage"):
         return
     if cfg.network_type != "flow":
         raise ValueError(f"network_type {cfg.network_type!r}: want 'flow', 'inpainting' "
@@ -84,7 +104,7 @@ def check_supported(cfg: config_lib.Config) -> None:
 def build_net(cfg: config_lib.Config) -> torch.nn.Module:
     """The config's flow net (or inpainting generator: ``gated_org`` with
     ``org``, ``remat`` for the gated ones), seeded from ``cfg.seed``."""
-    gen = torch.Generator().manual_seed(cfg.seed)
+    gen = _seeded(cfg.seed)
     if cfg.network_type == "inpainting":
         key = "gated_org" if cfg.org else cfg.model
         kwargs = {"remat": True} if cfg.remat and "gated" in key else {}
@@ -145,6 +165,71 @@ def inpaint_viz_fn(state, batch) -> dict:
                                                complete)}
 
 
+def _seeded(seed: int) -> torch.Generator:
+    return torch.Generator().manual_seed(seed)
+
+
+def load_params(path: str) -> dict:
+    """The ``params`` (a ``state_dict``) of a port checkpoint: a train
+    state's, an exported generator's, or the generator's of a GAN run's
+    pair checkpoint."""
+    tree = load_pytree(path)
+    return (tree[0] if isinstance(tree, (list, tuple)) else tree)["params"]
+
+
+def build_two_stage(cfg: config_lib.Config, steps_per_epoch: int, device, vgg=None):
+    """``(state, train_step, eval_step, step_args)`` of ``network_type:
+    twostage`` (the module docstring)."""
+    hparams = cfg.as_hparams()
+    if not cfg.with_gt_flow:
+        # the reference's frozen inpainter feeds nothing of the loss (dead
+        # under jax.jit): no inpainter is built here, so inpainting_root
+        # changes nothing in this branch, as it changes no number there
+        flow_net = registry.build("flow", "simple", generator=_seeded(cfg.seed))
+        if cfg.flow_root:
+            flow_net.load_state_dict(load_params(cfg.flow_root))
+        frozen = {"flow": flow_net.to(device).eval()}
+        state = create_train_state(SimpleOcclusionNet(generator=_seeded(2)),
+                                   cfg.learning_rate, device=device)
+        train_step, eval_step = make_two_stage_step(hparams)
+        return state, train_step, eval_step, (frozen,)
+    key = cfg.get("inpainting_stage", "gated")  # the inpainter's registry key
+    # the GC step backprops through the (gated) inpainter from the first
+    # step: remat matters here as in the inpainting regime
+    kwargs = {"remat": True} if cfg.remat and "gated" in key else {}
+    inp_net = registry.build("inpainting", key, generator=_seeded(1), **kwargs)
+    if cfg.using_pretrained_inpainting and cfg.inpainting_root:
+        inp_net.load_state_dict(load_params(cfg.inpainting_root))
+    pair = nn.ModuleDict({"occ": SimpleOcclusionNet(generator=_seeded(cfg.seed)),
+                          "inpaint": inp_net}).to(device=device, dtype=torch.float32)
+    state = TrainState(pair, make_two_stage_gc_optimizer(
+        pair, cfg.learning_rate, cfg.finetune_lr,
+        unfreeze_step=cfg.unfreeze_epoch * max(steps_per_epoch, 1)))
+    train_step, eval_step = make_two_stage_gc_step(hparams, vgg)
+    return state, train_step, eval_step, ()
+
+
+def pipeline_viz_fn(state, batch) -> dict:
+    """The validation panel ``pipeline`` of the first pair of a batch
+    (TwoStageModelGC): the frames, the true flow's colours, frame 2 warped
+    by it, the occlusion and the completed frame, from both nets in eval
+    mode without gradients (the model's mode is given back)."""
+    imgs, flow = batch["images"][:1].float(), batch["flow"][:1].float()
+    model = state.model
+    training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            warped = _warp_nhwc(imgs[..., 3:], flow)
+            occ = model["occ"](imgs)
+            completed = _apply_generator(model["inpaint"], warped, occ)[1]
+    finally:
+        model.train(training)
+    host = [t[0].float().cpu().numpy() for t in (imgs[..., :3], imgs[..., 3:], flow, warped,
+                                                 occ, completed)]
+    return {"pipeline": panels.pipeline_panel(*host)}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description="Unsupervised trainer (PyTorch port)")
     ap.add_argument("--config", default="configs/longrun_synthetic.yaml")
@@ -160,14 +245,22 @@ def main(argv=None) -> dict:
 
     t0 = time.perf_counter()
     train_loader, val_loader, test_loader = loop.make_loaders(cfg, device)
-    state = create_train_state(build_net(cfg), cfg.learning_rate, device=device)
+    vgg = (init_vgg16(_seeded(0), cfg.vgg_weights or None, device)
+           if cfg.loss_type == "vgg" else None)
+    step_args = ()
     gan = cfg.network_type == "inpainting" and cfg.adversarial_loss
+    if cfg.network_type == "twostage":
+        state, train_step, eval_step, step_args = build_two_stage(
+            cfg, len(train_loader), device, vgg)
+        show = pipeline_viz_fn if cfg.with_gt_flow else None
+    else:
+        state = create_train_state(build_net(cfg), cfg.learning_rate, device=device)
     if gan:
         dis = registry.build("discriminator", "gated_org" if cfg.org else "gated",
-                             generator=torch.Generator().manual_seed(1))
+                             generator=_seeded(1))
         # D trains at 4x the G learning rate, as the JAX CLI sets it
         state = (state, create_train_state(dis, 4 * cfg.learning_rate, device=device))
-        train_step = make_gan_inpainting_step(cfg.as_hparams())
+        train_step = make_gan_inpainting_step(cfg.as_hparams(), vgg)
         _, stage_eval = make_inpainting_stage_step({**cfg.as_hparams(), "loss_type": "pixel-wise"})
 
         def eval_step(pair, batch):
@@ -175,20 +268,20 @@ def main(argv=None) -> dict:
 
         show = inpaint_viz_fn
     elif cfg.network_type == "inpainting":
-        train_step, eval_step = make_inpainting_stage_step(cfg.as_hparams())
+        train_step, eval_step = make_inpainting_stage_step(cfg.as_hparams(), vgg)
         show = inpaint_viz_fn
-    else:
+    elif cfg.network_type == "flow":
         train_step, eval_step = make_unsupervised_flow_step(cfg.as_hparams())
         show = viz_fn
     state = loop.fit(cfg, state, train_step, eval_step, train_loader, val_loader,
-                     viz_fn=show)
+                     step_args=step_args, viz_fn=show)
     fit_s = time.perf_counter() - t0
     steps = (state[0] if gan else state).step
     if gan:
         gen_path = os.path.join(cfg.checkpoint_dir, "generator")
         save_pytree(gen_path, {"params": state[0].model.state_dict()})
         print("generator checkpoint:", gen_path)
-    results = loop.evaluate(cfg, state, eval_step, test_loader)
+    results = loop.evaluate(cfg, state, eval_step, test_loader, step_args)
     peak = (f"; peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
             if device.type == "cuda" else "")
     print(f"fit: {steps} steps of {cfg.batch_size} pairs in {fit_s:.1f} s wall on "

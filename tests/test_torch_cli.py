@@ -1,7 +1,7 @@
 """The port's trainer CLI, ``python -m ocflow_torch.train_unsupervised``, on
 the CPU: a run on a tiny config (64x128, 20 samples) through ``--device
-cpu``, its refusals of what the port cannot train yet, and no silent CPU
-fallback without ``--device``."""
+cpu``, the two-stage pipeline on it, its refusal of what the JAX package
+cannot train either, and no silent CPU fallback without ``--device``."""
 
 import csv
 import os
@@ -66,11 +66,23 @@ def test_cli_trains_on_the_cpu(tmp_path):
     FlowNetCV().load_state_dict(tree["params"])
 
 
-@pytest.mark.parametrize("over,match", [({"model": "eflownet"}, "dropout rng"),
-                                        ({"network_type": "twostage"}, "A10.4")])
+@pytest.mark.parametrize("over,match", [({"model": "eflownet"}, "dropout rng")])
 def test_cli_refuses_what_the_port_cannot_train(tmp_path, over, match):
     with pytest.raises(NotImplementedError, match=match):
         cli_main(["--config", _tiny_config(tmp_path, **over), "--device", "cpu"])
+
+
+def test_cli_trains_the_two_stage_pipeline(tmp_path):
+    """``network_type: twostage`` on the same tiny config (refused until
+    the two-stage pipelines were ported): the GC pipeline with its defaults
+    (ground-truth flow, the gated inpainter, gated until epoch 23) trains
+    its 4 steps and prints the GC step's test metrics."""
+    results = cli_main(["--config", _tiny_config(tmp_path, network_type="twostage"),
+                        "--device", "cpu"])
+    assert set(results) == {"loss", "photometric", "photometric_occluded", "reconst",
+                            "smoothness", "pixelwise"}
+    rows = _read_csv(tmp_path / "run" / "metrics.csv")
+    assert [r["phase"] for r in rows] == ["train", "train", "val"]
 
 
 def test_cli_runs_on_cuda_unless_told(tmp_path):

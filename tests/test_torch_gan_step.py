@@ -131,11 +131,13 @@ def hold_tensors(what, got, want, rel=REL, zero=None):
 
 
 def run_gan_steps(key, kind="fp64", jax_tx=capture_sgd, port_opt=torch.optim.SGD,
-                  dis_lr_scale=1.0):
+                  dis_lr_scale=1.0, vgg=None):
     """One GAN step of both packages from the same weights and batch in
     ``kind``; the optimizers ``jax_tx(lr)`` / ``port_opt(params, lr=lr)``,
-    D's learning rate ``dis_lr_scale * LR``. Returns the port's
-    ``(gen_state, dis_state)`` and metrics, the JAX states and metrics."""
+    D's learning rate ``dis_lr_scale * LR``; with ``vgg`` (``(JAX apply,
+    JAX variables, port VGG16Features)``) the ``loss_type: vgg`` step.
+    Returns the port's ``(gen_state, dis_state)`` and metrics, the JAX
+    states and metrics."""
     jgcls, _, _, _ = NETS[key]
     jdcls, tdcls, projected = DIS[key]
     fp64 = kind == "fp64"
@@ -149,7 +151,9 @@ def run_gan_steps(key, kind="fp64", jax_tx=capture_sgd, port_opt=torch.optim.SGD
         jdis = JTrainState.create(apply_fn=jdcls().apply, params=cast(dv["params"]),
                                   tx=jax_tx(dis_lr_scale * LR),
                                   batch_stats=cast(dv["batch_stats"]))
-        step = jsteps.make_gan_inpainting_step({"loss_type": "pixel-wise"})
+        hparams = {"loss_type": "pixel-wise" if vgg is None else "vgg"}
+        step = jsteps.make_gan_inpainting_step(
+            hparams, vgg=None if vgg is None else (vgg[0], cast(vgg[1])))
         jgen, jdis, jmetrics = step(jgen, jdis, {k: jnp.asarray(v) for k, v in batch.items()})
         jmetrics = {k: float(v) for k, v in jmetrics.items()}
     gen = port_model(key, gv, dt)
@@ -158,7 +162,7 @@ def run_gan_steps(key, kind="fp64", jax_tx=capture_sgd, port_opt=torch.optim.SGD
     dis = dis.to(dt)
     states = (TrainState(gen, port_opt(gen.parameters(), lr=LR)),
               TrainState(dis, port_opt(dis.parameters(), lr=dis_lr_scale * LR)))
-    train_step = make_gan_inpainting_step({"loss_type": "pixel-wise"})
+    train_step = make_gan_inpainting_step(hparams, None if vgg is None else vgg[2].to(dt))
     states, metrics = train_step(states, {k: torch.from_numpy(v) for k, v in batch.items()})
     assert states[0].step == states[1].step == 1
     return states, {k: v.item() for k, v in metrics.items()}, (jgen, jdis), jmetrics

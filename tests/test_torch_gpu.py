@@ -893,3 +893,98 @@ def test_gan_step_on_gpu_matches_cpu(cuda_device):
     gaps = {k: abs(m32g[k] - v) / abs(v) for k, v in m32c.items()}
     print("fp32 GAN step, card vs CPU, metrics relative:", gaps)
     assert gaps["d_loss"] <= 1e-4 and gaps["g_loss"] <= 1e-4, gaps
+
+
+def _joint_batch(dev, b=2, h=64, w=128, seed=11):
+    g = torch.Generator().manual_seed(seed)
+    valid = (torch.rand((b, h, w, 1), generator=g) < 0.3).float()
+    return {"images": (torch.rand((b, h, w, 6), generator=g) * 2 - 1).to(dev),
+            "flow": ((torch.rand((b, h, w, 2), generator=g) * 10 - 5) * valid).to(dev),
+            "valid": valid.to(dev)}
+
+
+def test_bf16_joint_step_on_gpu_launches_the_cost_volume(cuda_device):
+    """One bf16 joint step (``train.steps_joint``: FlowOccNetCV + InpaintingNet,
+    seeded, 2x64x128, valid on ~30% of the pixels) on the card: 5 cost-volume
+    launches and 5 backward (no conv-group kernel), the master weights fp32;
+    against the same bf16 step on the plain cost volume (forward and
+    backward), every metric within 2e-2 relative."""
+    import copy
+
+    from torch import nn
+
+    from ocflow_torch.models import InpaintingNet
+    from ocflow_torch.train import TrainState
+    from ocflow_torch.train.steps_joint import make_joint_step
+
+    base = nn.ModuleDict({"flow_occ": FlowOccNetCV(generator=torch.Generator().manual_seed(0)),
+                          "inpaint": InpaintingNet(generator=torch.Generator().manual_seed(1))})
+    batch = _joint_batch(cuda_device)
+    step = make_joint_step({"dtype": "bfloat16"})[0]
+    out = {}
+    for plain in (False, True):
+        pair = copy.deepcopy(base).to(cuda_device)
+        state = TrainState(pair, torch.optim.Adam(pair.parameters(), lr=1e-4))
+        for c in (cv_mod.cost_volume, cv_mod.cost_volume_backward, conv_chain.conv_group,
+                  conv_chain.conv_group_diff):
+            c.launches = 0
+        saved = fon.cost_volume
+        if plain:
+            fon.cost_volume = cv_mod.cost_volume_plain
+        try:
+            _, metrics = step(state, batch)
+        finally:
+            fon.cost_volume = saved
+        torch.cuda.synchronize()
+        launches = (cv_mod.cost_volume.launches, cv_mod.cost_volume_backward.launches,
+                    conv_chain.conv_group.launches, conv_chain.conv_group_diff.launches)
+        assert launches == ((0, 0, 0, 0) if plain else (5, 5, 0, 0)), launches
+        assert all(p.dtype == torch.float32 for p in pair.parameters())
+        out[plain] = {k: v.item() for k, v in metrics.items()}
+    rel = {k: abs(out[False][k] - v) / max(abs(v), 1e-30) for k, v in out[True].items() if v}
+    print("bf16 joint step, kernel vs plain cost volume, metrics relative:", rel)
+    assert max(rel.values()) <= 2e-2, rel
+
+
+def test_gc_step_on_gpu_matches_cpu(cuda_device):
+    """One TwoStageModelGC step (SimpleOcclusionNet + InpaintingNet, seeded,
+    2x64x128, ground-truth flow, pixel-wise, the gated Adam) on the card
+    against the CPU in fp64 (cuDNN's fp64 convolutions): every metric within
+    1e-9 relative, every gradient within 1e-9 of its tensor's max|grad|
+    (those zero but for rounding within 1e-12 of the net's); no kernel of
+    the repository launches."""
+    from torch import nn
+
+    from ocflow_torch.models import InpaintingNet, SimpleOcclusionNet
+    from ocflow_torch.train import TrainState
+    from ocflow_torch.train.steps_two_stage import (make_two_stage_gc_optimizer,
+                                                    make_two_stage_gc_step)
+
+    g = torch.Generator().manual_seed(12)
+    batch = {"images": torch.rand((2, 64, 128, 6), generator=g) * 2 - 1,
+             "flow": torch.randn((2, 64, 128, 2), generator=g) * 3}
+    out = {}
+    for dev in ("cpu", cuda_device):
+        pair = nn.ModuleDict({
+            "occ": SimpleOcclusionNet(generator=torch.Generator().manual_seed(2)),
+            "inpaint": InpaintingNet(generator=torch.Generator().manual_seed(3))}).to(
+            dev, torch.float64)
+        state = TrainState(pair, make_two_stage_gc_optimizer(pair, 1e-3, 1e-4, 0))
+        cv_mod.cost_volume.launches = cv_mod.cost_volume_backward.launches = 0
+        _, metrics = make_two_stage_gc_step({})[0](
+            state, {k: v.to(dev, torch.float64) for k, v in batch.items()})
+        assert cv_mod.cost_volume.launches == cv_mod.cost_volume_backward.launches == 0
+        out[str(dev)] = ({k: v.item() for k, v in metrics.items()},
+                         {k: p.grad.cpu() for k, p in pair.named_parameters()})
+    (mc, gc), (mg, gg) = out["cpu"], out["cuda"]
+    for k, v in mc.items():
+        assert abs(mg[k] - v) <= 1e-9 * abs(v), k
+    for net in ("occ", "inpaint"):
+        scale = max(v.abs().max().item() for k, v in gc.items() if k.startswith(net))
+        for k, v in gc.items():
+            if not k.startswith(net):
+                continue
+            if v.abs().max() <= 1e-12 * scale:
+                assert gg[k].abs().max() <= 1e-12 * scale, k
+            else:
+                assert (gg[k] - v).abs().max() <= 1e-9 * v.abs().max(), k

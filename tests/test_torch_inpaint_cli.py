@@ -7,9 +7,9 @@
 - ``python -m ocflow_torch.train_unsupervised`` with ``network_type:
   inpainting``, ``model: simple`` on ``SyntheticInpainting``: the stage
   step's rows and the ``inpaint`` panel (4 rows of 64x128), equal to the
-  panel of the stepped net; its refusals of the VGG loss (ROADMAP A10.5,
-  with the GAN too) and the two-stage pipelines (A10.4). The gated
-  generators and the GAN run (``tests/test_torch_gan_cli.py``).
+  panel of the stepped net; the VGG loss (with the GAN too) and the
+  two-stage pipelines on the same config. The gated generators and the GAN
+  run (``tests/test_torch_gan_cli.py``).
 - ``python -m ocflow_torch.evaluate --task inpainting --model simple`` on
   ``SyntheticInpainting`` and ``MpiSintelCleanInpainting``: PSNR and SSIM
   within 1e-5 relative of the JAX package's ``calculate_psnr`` /
@@ -105,14 +105,22 @@ def test_unsupervised_cli_trains_the_stage_step(tmp_path):
     assert np.array_equal(panel, again)
 
 
-@pytest.mark.parametrize("over,match", [({"loss_type": "vgg"}, "A10.5"),
-                                        ({"adversarial_loss": "true", "loss_type": "vgg"},
-                                         "A10.5"),
-                                        ({"network_type": "twostage"}, "A10.4")])
-def test_unsupervised_cli_refuses_what_is_queued(tmp_path, over, match):
-    cfg = _config(tmp_path, "no", dataset_name="SyntheticInpainting", **over)
-    with pytest.raises(NotImplementedError, match=match):
-        ucli.main(["--config", cfg, "--device", "cpu"])
+@pytest.mark.parametrize("over,metrics", [
+    ({"loss_type": "vgg"}, {"loss", "vgg_loss", "reconst_loss"}),
+    ({"adversarial_loss": "true", "loss_type": "vgg"}, {"loss", "rhole", "runhole"}),
+    ({"network_type": "twostage", "dataset_name": "SyntheticFlowWarp",
+      "inpainting_stage": "simple"},
+     {"loss", "photometric", "photometric_occluded", "reconst", "smoothness", "pixelwise"})])
+def test_unsupervised_cli_runs_what_was_queued(tmp_path, over, metrics):
+    """The three configs the CLI refused until the VGG loss and the
+    two-stage pipelines were ported, on the same tiny config: the stage step
+    and the GAN step with ``loss_type: vgg`` (the seeded VGG16), and
+    ``network_type: twostage`` (on a flow dataset) train and print their
+    test metrics (the GAN run's are its pixel-wise stage eval's)."""
+    cfg = _config(tmp_path, "queued", **{"dataset_name": "SyntheticInpainting", "dataset_size": 10,
+                                         **over})
+    results = ucli.main(["--config", cfg, "--device", "cpu"])
+    assert set(results) == metrics and all(np.isfinite(v) for v in results.values())
 
 
 def _jax_metrics(dataset, batch_size):

@@ -135,12 +135,18 @@ def test_infer_eager_family_and_checkpoint(sintel, tmp_path):
     assert imageio.imread(written[0]).shape == (64, 128, 3)
 
 
-def test_clis_refuse_what_is_not_ported(sintel, tmp_path):
+def test_clis_refuse_what_is_not_ported(sintel, tmp_path, capsys):
     # --task inpainting runs, the gated-conv generators too
-    # (tests/test_torch_inpaint_cli.py, tests/test_torch_gan_cli.py); FID is
-    # still queued
-    with pytest.raises(NotImplementedError, match="A10.5"):
+    # (tests/test_torch_inpaint_cli.py, tests/test_torch_gan_cli.py); so does
+    # --with_fid, on random Inception features only with --allow_random_fid
+    # (tests/test_torch_fid*.py)
+    with pytest.raises(SystemExit):
         tevaluate.main(["--device", "cpu", "--with_fid"])
+    assert "--allow_random_fid" in capsys.readouterr().err
+    fid = tevaluate.main(["--device", "cpu", "--task", "inpainting", "--model", "simple",
+                          "--dataset", "MpiSintelCleanInpainting", "--root", sintel,
+                          "--with_fid", "--allow_random_fid"])
+    assert set(fid) == {"psnr", "ssim", "fid"} and np.isfinite(fid["fid"])
     with pytest.raises(ValueError, match="unknown model 'ocflownet' in family 'flow'"):
         tevaluate.main(["--device", "cpu", "--model", "ocflownet", "--dataset",
                         "MpiSintelClean", "--root", sintel])
