@@ -26,7 +26,7 @@ Phases (any failure raises and exits non-zero):
    forward (as ``launch_counts()`` reckons: its six stride-2 encoder convs
    and four dilated context convs on the int8 gather kernel) and the GEMM
    probe ``ocflow_torch.tools.spike_int8`` (2048^3, int8 exact, bf16 within
-   1e-2);
+   1e-2; timed with its calls queued behind a spin kernel);
 6. hold fp32 ``fast_apply`` against the eager fp32 ``FlowNetCV`` (cuDNN,
    TF32 off), also with PyTorch's default TF32 flags, bf16 against fp32,
    W8A8 against the eager fp32 forward;
@@ -3226,8 +3226,8 @@ def _inpainting_eval_phase(card, trees):
         seen, stamps = [], []
         saved = image_metrics.completed_images
 
-        def recording(fn, batches):
-            for complete, imgs in saved(fn, batches):
+        def recording(fn, batches, device=None):
+            for complete, imgs in saved(fn, batches, device):
                 torch.cuda.synchronize()
                 stamps.append(time.perf_counter())
                 if len(seen) < len(batches):
@@ -4492,10 +4492,15 @@ def main() -> int:
               f"({100 * p['bound_ms'] / p['ms']:.2f}% of bound), cuDNN "
               f"{p.get('yard_ms', p['library_ms']):.4f} ms [{card}]")
     for name, r in gemm_res.items():
-        print(f"time gemm_probe {name} {spike_int8.SIZE}^3: kernel {r['ms']:.4f} ms "
-              f"({r['tops']:.1f} TOP/s), library {r['library_ms']:.4f} ms "
-              f"({r['library_tops']:.1f} TOP/s), plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+        same = r["library_same_output_ms"]
+        print(f"time gemm_probe {name} {spike_int8.SIZE}^3 (calls queued behind a spin "
+              f"kernel): kernel {r['ms']:.4f} ms ({r['tops']:.1f} TOP/s, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound), library {r['library_ms']:.4f} "
+              f"ms ({r['library_tops']:.1f} TOP/s)"
+              + (f", library with the kernel's fp32 output {same:.4f} ms" if same else "")
+              + f", plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), the output written alone {r['store_ms']:.4f} ms, host "
+              f"issue {r['host_us']:.1f} us a call [{card}]")
 
     # end to end in turns: bf16, W8A8, W8A8, bf16
     e2e = {"bf16": [], "w8a8": []}
@@ -4589,6 +4594,11 @@ def main() -> int:
             **({"library_reason": NO_LIBRARY[name]} if name in NO_LIBRARY else {}),
             **{k: p[k] for k in ("bwd_ms", "library_bwd_ms", "yard_ms") if k in p},
         })
+        if name == "gemm_probe":
+            # the numbers above are int8's; bf16's beside them
+            kernels[-1].update({f"{k}_bf16": v for k, v in gemm_res["bfloat16"].items()
+                                if k not in ("max_abs_err", "tops", "library_tops")},
+                               max_abs_err_bf16=gemm_res["bfloat16"]["max_abs_err"])
         if name == "cost_volume":
             # the numbers above are the d=4 calls of the bf16 forward; the
             # d=10 call of one FlowNetC forward, fp32, beside them

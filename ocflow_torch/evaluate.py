@@ -123,15 +123,19 @@ def main(argv=None) -> dict:
     model = load_model(args.task, args.model, args.checkpoint, dev)
 
     if args.task == "inpainting":
-        batches = list(data_lib.device_iterator(loader, dev))
-        results = {"psnr": calculate_psnr(inpaint_fn(model), batches),
-                   "ssim": calculate_ssim(inpaint_fn(model), batches)}
+        # host batches, as the JAX CLI's list(loader): each goes to the card
+        # only while the metrics run the net on it (the procedural datasets,
+        # made on the card, come back as they are made)
+        batches = [{k: v.cpu() for k, v in b.items()} for b in loader]
+        results = {"psnr": calculate_psnr(inpaint_fn(model), batches, device=dev),
+                   "ssim": calculate_ssim(inpaint_fn(model), batches, device=dev)}
         if args.with_fid:
             if not args.inception_weights:
                 print("WARNING: computing FID with RANDOM inception features "
                       "(--allow_random_fid); the absolute value is meaningless", file=sys.stderr)
             net = init_inception(weights_path=args.inception_weights or None, device=dev)
-            results["fid"] = calculate_fid(inpaint_fn(model), batches, inception_features(net))
+            results["fid"] = calculate_fid(inpaint_fn(model), batches, inception_features(net),
+                                           device=dev)
         print(json.dumps(results))
         return results
     epes, f1s = [], []

@@ -4,13 +4,13 @@ Replaces ``tools/spike_int8.py:make_pallas`` (the TPU's int8 / bf16 matrix
 unit probe). ``gemm(a, b)`` computes ``a @ b`` for row-major ``[M, K]`` and
 ``[K, N]`` matrices: int8 inputs give an exact int32 product, bf16 inputs
 an fp32 product with fp32 accumulation. A CPU tensor goes to the plain
-version ``gemm_plain``; a CUDA tensor launches the kernel
-(``gemm.launches`` counts the launches) or raises. The kernel takes M and N
-in multiples of 128 and K in multiples of 32.
+version ``gemm_plain``; any other raises unless it is a CUDA tensor on the
+kernel's tile grid (``TILE``), which launches the kernel (``gemm.launches``
+counts the launches).
 
 Not on a model path: ``ocflow_torch.tools.spike_int8`` times it against
-the library GEMMs to show what a plain tensor-core kernel reaches on the
-card (bound: operations, see the source note).
+the library GEMMs to show what a hand-written tensor-core kernel reaches
+on the card (bound: operations, see the source note).
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ import torch
 from ocflow_torch.kernels import _build
 
 _DTYPES = {torch.int8: (0, torch.int32), torch.bfloat16: (1, torch.float32)}
+# the kernel's tile grid: M, N and K multiples (K: 128 bytes)
+TILE = {torch.int8: (256, 128, 128), torch.bfloat16: (128, 256, 64)}
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -37,9 +39,8 @@ def _lib():
     lib = _build.load("gemm_probe")
     fn = lib.ocf_gemm
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -53,19 +54,21 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gemm: shapes {tuple(a.shape)} x {tuple(b.shape)}")
     if a.device.type == "cpu" and b.device.type == "cpu":
         return gemm_plain(a, b)
+    (m, k), n = a.shape, b.shape[1]
+    tm, tn, tk = TILE[a.dtype]
+    if m % tm or n % tn or k % tk or not (m and n and k):
+        raise ValueError(f"gemm: the kernel takes M % {tm}, N % {tn} and K % {tk} == 0 "
+                         f"for {a.dtype}, got {m}x{k}x{n}")
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"gemm: unsupported devices {a.device}, {b.device}")
-    (m, k), n = a.shape, b.shape[1]
-    if m % 128 or n % 128 or k % 32:
-        raise ValueError(f"gemm: the kernel takes M, N % 128 == 0 and K % 32 == 0, "
-                         f"got {m}x{k}x{n}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("gemm: operands must be contiguous row-major")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("gemm: operands must start on 16 bytes (TMA)")
     code_dt, out_dt = _DTYPES[a.dtype]
     c = torch.empty((m, n), dtype=out_dt, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    code = _lib()(code_dt, a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                  stream)
+    code = _lib()(code_dt, a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, stream)
     _build.check(code, "gemm_probe")
     gemm.launches += 1
     return c

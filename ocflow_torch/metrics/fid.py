@@ -48,17 +48,25 @@ def _host(t) -> np.ndarray:
     return t.detach().float().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-def get_activations(extract_fn: Callable, imgs, batch_size: int = 64) -> np.ndarray:
+def get_activations(extract_fn: Callable, imgs, batch_size: int = 64,
+                    device=None) -> np.ndarray:
     """``extract_fn(batch) -> [B, D]`` over ``[N, H, W, 3]`` images in
-    batches, as one fp32 ``[N, D]`` array on the host."""
-    return np.concatenate([_host(extract_fn(imgs[i:i + batch_size]))
-                           for i in range(0, len(imgs), batch_size)], axis=0)
+    batches (each moved to ``device`` alone, when given), as one fp32
+    ``[N, D]`` array on the host."""
+    def chunk(i):
+        part = imgs[i:i + batch_size]
+        return part if device is None else part.to(device)
+
+    return np.concatenate([_host(extract_fn(chunk(i))) for i in range(0, len(imgs), batch_size)],
+                          axis=0)
 
 
-def calculate_fid_given_imgs(imgs1, imgs2, extract_fn: Callable, batch_size: int = 64) -> float:
-    """FID between two sets of ``[N, H, W, 3]`` images in [-1, 1]."""
-    m1, s1 = activation_statistics(get_activations(extract_fn, imgs1, batch_size))
-    m2, s2 = activation_statistics(get_activations(extract_fn, imgs2, batch_size))
+def calculate_fid_given_imgs(imgs1, imgs2, extract_fn: Callable, batch_size: int = 64,
+                             device=None) -> float:
+    """FID between two sets of ``[N, H, W, 3]`` images in [-1, 1]
+    (``get_activations``)."""
+    m1, s1 = activation_statistics(get_activations(extract_fn, imgs1, batch_size, device))
+    m2, s2 = activation_statistics(get_activations(extract_fn, imgs2, batch_size, device))
     return frechet_distance(m1, s1, m2, s2)
 
 
@@ -82,12 +90,16 @@ def inception_score(imgs, logits_fn: Callable, batch_size: int = 32, splits: int
     return float(np.mean(scores)), float(np.std(scores))
 
 
-def calculate_fid(inpaint_fn, batches, extract_fn: Callable, batch_size: int = 64) -> float:
+def calculate_fid(inpaint_fn, batches, extract_fn: Callable, batch_size: int = 64,
+                  device=None) -> float:
     """FID between the real and the completed images of a loader's batches
-    (``completed_images``)."""
+    (``completed_images``, each batch on ``device``). The two image stacks
+    are kept on the host, as the JAX package keeps them in numpy; with
+    ``device``, Inception's chunks of ``batch_size`` go there one at a
+    time."""
     completes, reals = [], []
-    for complete, imgs in completed_images(inpaint_fn, batches):
-        completes.append(complete)
-        reals.append(imgs)
+    for complete, imgs in completed_images(inpaint_fn, batches, device):
+        completes.append(complete.cpu())
+        reals.append(imgs.cpu())
     return calculate_fid_given_imgs(torch.cat(reals), torch.cat(completes), extract_fn,
-                                    batch_size)
+                                    batch_size, device)

@@ -64,22 +64,30 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 4,
     return ssim_map.mean()
 
 
-def completed_images(inpaint_fn, batches):
+def completed_images(inpaint_fn, batches, device=None):
     """Per batch of ``{'image', 'occ'}``: ``(complete, image)`` with
     ``complete = recon * mask + image * (1 - mask)``, ``recon =
-    inpaint_fn(image, mask)`` (the net zeroes the hole itself)."""
+    inpaint_fn(image, mask)`` (the net zeroes the hole itself). With
+    ``device``, each batch moves there only as it is reached, so host
+    batches (``evaluate --task inpainting``) put one batch at a time on the
+    card."""
     for batch in batches:
         imgs, masks = batch["image"], batch["occ"]
+        if device is not None:
+            imgs, masks = imgs.to(device), masks.to(device)
         recon = inpaint_fn(imgs, masks)
         yield recon * masks + imgs * (1 - masks), imgs
 
 
-def calculate_psnr(inpaint_fn, batches) -> float:
-    """The mean over batches of each batch's PSNR of the completed images."""
-    return float(np.mean([float(psnr(c, i)) for c, i in completed_images(inpaint_fn, batches)]))
+def calculate_psnr(inpaint_fn, batches, device=None) -> float:
+    """The mean over batches of each batch's PSNR of the completed images
+    (each batch on ``device``, ``completed_images``)."""
+    return float(np.mean([float(psnr(c, i))
+                          for c, i in completed_images(inpaint_fn, batches, device)]))
 
 
-def calculate_ssim(inpaint_fn, batches, window_size: int = 4) -> float:
-    """The mean over batches of each batch's SSIM of the completed images."""
+def calculate_ssim(inpaint_fn, batches, window_size: int = 4, device=None) -> float:
+    """The mean over batches of each batch's SSIM of the completed images
+    (each batch on ``device``, ``completed_images``)."""
     return float(np.mean([float(ssim(c, i, window_size=window_size))
-                          for c, i in completed_images(inpaint_fn, batches)]))
+                          for c, i in completed_images(inpaint_fn, batches, device)]))

@@ -352,19 +352,45 @@ def test_conv_group_q8_kernel_matches_plain(cuda_device):
                 _close(g, r, torch.bfloat16)
 
 
-def test_gemm_probe_matches_plain(cuda_device):
+# (M, N, K) per dtype, on each one's tile grid (kernels.gemm.TILE: int8
+# 256 x 128, bf16 128 x 256, K in blocks of 128 bytes; a ring of 4 stages)
+GEMM_SHAPES = {
+    "2048^3": {torch.int8: (2048, 2048, 2048), torch.bfloat16: (2048, 2048, 2048)},
+    "one K block": {torch.int8: (256, 128, 128), torch.bfloat16: (128, 256, 64)},
+    "5 K blocks, not a multiple of the stages": {torch.int8: (512, 256, 640),
+                                                  torch.bfloat16: (256, 512, 320)},
+    "153 tiles on 132 SMs, 7 K blocks": {torch.int8: (2304, 2176, 896),
+                                         torch.bfloat16: (2176, 2304, 448)},
+    "M, N, K all different": {torch.int8: (768, 384, 1152), torch.bfloat16: (384, 768, 1152)},
+}
+
+
+@pytest.mark.parametrize("case", list(GEMM_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_gemm_probe_matches_plain(cuda_device, dtype, case):
+    """The GEMM probe's kernel: int8 -> int32 equal to the exact product bit
+    for bit, bf16 -> fp32 within 1e-2 of max|plain|. The cases drive the
+    ring's phases through K counts that are not a multiple of its stages,
+    a persistent block through more than one tile, and a shape whose three
+    sizes differ."""
+    m, n, k = GEMM_SHAPES[case][dtype]
     gen = torch.Generator().manual_seed(3)
-    a = torch.randint(-127, 128, (512, 512), generator=gen, dtype=torch.int8)
-    b = torch.randint(-127, 128, (512, 512), generator=gen, dtype=torch.int8)
+    if dtype == torch.int8:
+        a, b = (torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+                for shape in ((m, k), (k, n)))
+    else:
+        a, b = (torch.randn(shape, generator=gen).bfloat16() for shape in ((m, k), (k, n)))
     a, b = a.to(cuda_device), b.to(cuda_device)
+    before = gemm_mod.gemm.launches
     got = gemm_mod.gemm(a, b)
     torch.cuda.synchronize()
-    assert got.dtype == torch.int32 and torch.equal(got, gemm_mod.gemm_plain(a, b))
-    af, bf = (torch.randn(512, 512, generator=gen).bfloat16().to(cuda_device)
-              for _ in range(2))
-    got, ref = gemm_mod.gemm(af, bf), gemm_mod.gemm_plain(af, bf)
-    torch.cuda.synchronize()
-    assert (got - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    ref = gemm_mod.gemm_plain(a, b)
+    assert gemm_mod.gemm.launches == before + 1 and got.shape == (m, n)
+    if dtype == torch.int8:
+        assert got.dtype == torch.int32 and torch.equal(got, ref)
+    else:
+        assert got.dtype == torch.float32
+        assert (got - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
 
 
 def test_fast_apply_q8_on_gpu_goes_through_the_kernels(cuda_device):
@@ -810,6 +836,38 @@ def test_evaluate_inpainting_on_gpu_matches_cpu(cuda_device, capsys):
     for k, v in on_cpu.items():
         assert abs(on_card[k] - v) <= 1e-5 * abs(v), (k, on_card[k], v)
     assert on_card["ssim"] <= 1.0
+
+
+def test_evaluate_inpainting_memory_stays_flat(cuda_device, capsys):
+    """ROADMAP C6: ``evaluate --task inpainting --with_fid --allow_random_fid``
+    keeps its batches and FID's image stacks on the host, so the card's peak
+    memory for 16 batches stays within a quarter of one batch's bytes
+    (B=16 at 256x512: occluded, image and mask in fp32, 58.7 MB) of the peak
+    for 4 batches. Holding every batch on the card, as before, added 12
+    batches and their two image stacks. Both runs feed Inception whole
+    chunks of 64 images, so its activations are the same."""
+    import gc
+
+    from ocflow_torch import evaluate as tevaluate
+
+    batch, (h, w) = 16, (256, 512)
+    peaks = {}
+    for batches in (4, 16):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tevaluate.main(["--task", "inpainting", "--model", "simple", "--dataset",
+                        "SyntheticInpainting", "--dataset_size", str(batch * batches),
+                        "--image_size", str(h), str(w), "--batch_size", str(batch),
+                        "--with_fid", "--allow_random_fid"])
+        torch.cuda.synchronize()
+        peaks[batches] = torch.cuda.max_memory_allocated() - base
+    batch_bytes = batch * h * w * 7 * 4
+    print(f"peak device bytes above the start, 4 and 16 batches: {peaks}; one batch "
+          f"{batch_bytes}")
+    assert peaks[16] <= peaks[4] + batch_bytes / 4, (peaks, batch_bytes)
 
 
 def test_attention_on_gpu_matches_cpu(cuda_device):

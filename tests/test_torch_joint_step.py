@@ -5,13 +5,14 @@ CPU at 2x64x64: FlowOccNetCV (``pwoc``) and InpaintingNet seeded in the port
 converters; a numpy-seeded KITTI-like batch (ground-truth flow valid on
 ~70% of the pixels, as ``tests/test_bf16_joint.py`` draws it) with ``occ``.
 One train step with the gradient recorded (Adam behind); the helpers
-serve ``tests/test_torch_joint_step_bf16.py`` too.
+serve ``tests/test_torch_joint_step_{fp32,bf16}.py`` too.
 
 In fp64 in both packages: the loss and every metric within 1e-5 relative,
 each gradient within 1e-4 of its max|grad| (one zero but for rounding within
 1e-12 of its net's max), the running statistics within 1e-5 of max|stat|
 (read: metrics 9e-8, gradients 9e-8 of FlowOccNetCV's max|grad|, 3e-12 of
-InpaintingNet's). The fp32 and bf16 steps: ``tests/test_torch_joint_step_bf16.py``.
+InpaintingNet's). The fp32 and bf16 steps: ``tests/test_torch_joint_step_fp32.py``,
+``tests/test_torch_joint_step_bf16.py``.
 Six bf16 steps of the port alone lower the loss, keep the master
 parameters fp32 and leave the eval step finite. ``masked_flow_l1`` with and
 without ``valid``, and the pair's bridge ``joint_from_flax``, are held too.

@@ -355,6 +355,46 @@ def test_gemm_probe_plain():
     assert np.abs(got.numpy() - ref).max() <= 1e-2 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_gemm_probe_wrapper_holds_the_tile_grid(dtype):
+    """Off the CPU the wrapper takes only the kernel's tile grid
+    (``kernels.gemm.TILE``: int8 M % 256, N % 128, bf16 M % 128, N % 256, K
+    in 128 bytes) and raises on any other shape before it looks for a card
+    (meta tensors stand in for CUDA ones here); on the grid a tensor that is
+    not on a card still raises. On the CPU the plain version answers a grid
+    shape: int8 equal to numpy's ``a @ b``, bf16 within 1e-6 of max|a @ b|
+    (fp32 sums of the bf16 values against float64 ones). Nothing launches."""
+    tm, tn, tk = gemm_mod.TILE[dtype]
+    assert tk * torch.tensor([], dtype=dtype).element_size() == 128
+
+    def meta(m, n, k):
+        return (torch.empty((m, k), dtype=dtype, device="meta"),
+                torch.empty((k, n), dtype=dtype, device="meta"))
+
+    before = gemm_mod.gemm.launches
+    for m, n, k in ((tm, tn, tk // 2), (tm // 2, tn, tk), (tm, tn + 64, tk),
+                    (tm + tm // 2, 2 * tn, 3 * tk)):
+        with pytest.raises(ValueError, match="the kernel takes"):
+            gemm_mod.gemm(*meta(m, n, k))
+    with pytest.raises(ValueError, match="unsupported devices"):
+        gemm_mod.gemm(*meta(2 * tm, tn, 3 * tk))
+    rng = np.random.default_rng(6)
+    m, n, k = tm, tn, 2 * tk
+    if dtype == torch.int8:
+        a, b = rng.integers(-127, 128, (m, k)), rng.integers(-127, 128, (k, n))
+        got = gemm_mod.gemm(torch.tensor(a, dtype=dtype), torch.tensor(b, dtype=dtype))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), a @ b)
+    else:
+        at, bt = (torch.tensor(rng.normal(size=shape)).bfloat16()
+                  for shape in ((m, k), (k, n)))
+        ref = at.double().numpy() @ bt.double().numpy()
+        got = gemm_mod.gemm(at, bt)
+        assert got.dtype == torch.float32
+        assert np.abs(got.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
+    assert gemm_mod.gemm.launches == before
+
+
 def test_bench_q8_calibrates_on_a_held_out_batch():
     """``bench --q8``'s pieces on the CPU at a tiny size: the held-out
     batch differs from the measured one, and the W8A8 timing loop runs."""
