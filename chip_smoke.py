@@ -151,15 +151,20 @@ Phases (any failure raises and exits non-zero):
    ms per forward.
 
 14. the cost volume past d = 10 on the general kernels
-   (``csrc/cost_volume_any.cu``) at d = 11, 12 and 16, at 8x64x112x256 and
+   (``csrc/cost_volume_any.cu``) at d = 11, 12, 16 and 20, at 8x64x112x256 and
    8x196x7x16, forward and backward, fp32 and bf16, each call against its
    plain version (fp32 1e-4 of max|plain|, bf16 2^-6) and timed beside its
    bound (bytes at 3.35 TB/s or operations at 67 TFLOP/s) and the plain
    version; a FlowNetC built with displacement 12 (B=8, 448x1024, fp32,
    eval): the launches of its forward and input gradient (one general
    forward, one general backward), its 8x256x56x128 call replayed and
-   timed. Then the inpainting slice at full width (448x1024, B=8, fp32, TF32
-   off): ``SyntheticInpainting`` made on the card against the CPU (frames
+   timed; a FlowNetCV with displacement 12 built as the supervised CLI
+   builds it (``model: pwc``), one fp32 flow train step at B=8 448x1024:
+   its launches (five general forward, five general backward, nothing
+   else), each of the ten calls replayed against its plain version, the
+   warm step's ms and the general kernels' share of it. Then the
+   inpainting slice at full width (448x1024, B=8, fp32, TF32 off):
+   ``SyntheticInpainting`` made on the card against the CPU (frames
    1e-4, masks bit for bit) and its ms per sample; the three file-backed
    inpainting datasets on phase 11's trees (keys, shapes, coverage, zeroed
    holes); InpaintingNet's eval forward (card vs CPU at 2x64x128, 1e-4; ms),
@@ -413,6 +418,17 @@ def _cg_cost(inputs, group, outs):
     nbytes += sum(o.numel() for o in outs) * item
     flops = sum(2 * w.numel() * b * ho * wo for w in group.weights)
     return nbytes, flops
+
+
+def _cg_bwd_cost(inputs, group, outs):
+    """Bytes and operations of a conv group's backward (B3's cuDNN conv
+    VJPs): every conv's dX and dW, each as many multiply-adds as its
+    forward; the output cotangents, inputs and weights read once, dX and
+    dW written once."""
+    nbytes, flops = _cg_cost(inputs, group, outs)
+    item = inputs[0].element_size()
+    nbytes += (sum(t.numel() for t in inputs) + sum(w.numel() for w in group.weights)) * item
+    return nbytes, 2 * flops
 
 
 def _q8_cost(inputs, group, outs):
@@ -934,14 +950,23 @@ def _train_phase(card, max_err, per, add, failures):
             nbytes, flops = _cg_cost(inputs, group, outs)
             bound, by = add("conv_group_diff", k_ms, p_ms, nbytes, flops,
                             PEAK_FLOPS[torch.bfloat16], lib_ms)
+            b_bytes, b_ops = _cg_bwd_cost(inputs, group, outs)
+            b_bound = max(b_bytes / HBM_BYTES_PER_S, b_ops / PEAK_FLOPS[torch.bfloat16]) * 1e3
             per["conv_group_diff"]["bwd_ms"] += bwd_ms
             per["conv_group_diff"]["library_bwd_ms"] += lib_bwd_ms
+            per["conv_group_diff"]["bwd_bound_ms"] += b_bound
             print(f"time conv_group_diff bf16 {tuple(inputs[0].shape)} ({n} convs): "
                   f"forward kernel {k_ms:.4f} ms ({_rate(flops, k_ms, bound)}), "
                   f"plain {p_ms:.4f} ms, library "
                   f"(cuDNN over the concat) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
                   f"{nbytes} B, {flops} flop); backward (cuDNN conv VJPs) {bwd_ms:.4f} ms, "
-                  f"library autograd {lib_bwd_ms:.4f} ms [{card}]")
+                  f"library autograd {lib_bwd_ms:.4f} ms, backward bound {b_bound:.4f} ms "
+                  f"({b_bytes} B, {b_ops} flop: dX and dW) [{card}]")
+    p = per["conv_group_diff"]
+    print(f"time conv_group_diff sum over the bf16 step's groups: forward kernel "
+          f"{p['ms']:.4f} ms, bound {p['bound_ms']:.4f} ms; backward {p['bwd_ms']:.4f} ms, "
+          f"bound {p['bwd_bound_ms']:.4f} ms ({100 * p['bwd_bound_ms'] / p['bwd_ms']:.2f}% of "
+          f"it), library autograd {p['library_bwd_ms']:.4f} ms [{card}]")
     return launches
 
 
@@ -2682,8 +2707,13 @@ def _phase13(card, max_err, dev="cuda"):
 # fp32 and bf16; and a FlowNetC built with displacement 12 (its correlation
 # 8x256x56x128 at B=8 448x1024), whose forward and input gradient launch
 # them once each
-CV_GENERAL_DISPLACEMENTS = (11, 12, 16)
+CV_GENERAL_DISPLACEMENTS = (11, 12, 16, 20)
 CV_FLOWNETC_D = 12
+# and a FlowNetCV built as the supervised CLI builds it for `model: pwc` with
+# this displacement (configs/supervised.yaml), one fp32 flow step at B=8
+# 448x1024 on SyntheticFlow: its five levels' calls launch the general
+# kernels forward and backward
+PWC_GENERAL_D = 12
 # phase 14: the inpainting slice at full width (B=8, 448x1024), fp32, TF32
 # off; card against CPU at INPAINT_SMALL
 INPAINT_SMALL = (2, 64, 128)
@@ -2821,6 +2851,73 @@ def _general_d_phase(card, max_err):
     del model, x, out, calls, fwd_args, bwd_args
     torch.cuda.empty_cache()
     return per_d, launches, records
+
+
+def _pwc_general_step(card, max_err, dev="cuda"):
+    """Phase 14 (b): a FlowNetCV built by ``train.__main__.build_net`` for
+    ``configs/supervised.yaml`` with ``model: pwc`` and ``displacement:
+    PWC_GENERAL_D`` (seeded), one supervised flow train step at B=8
+    448x1024, fp32, on SyntheticFlow: its launches (5 general forward, 5
+    general backward, no other kernel), each of its 10 cost-volume calls
+    replayed against the plain version, the loss finite; then the warm
+    step's ms (median of 5, CUDA events) and the general kernels' share of
+    it (each call timed alone, summed). Returns the launch counts and the
+    numbers."""
+    import math
+
+    from ocflow_torch.bench import BATCH, HEIGHT, WIDTH, cuda_ms
+    from ocflow_torch.data import DataLoader, build_dataset
+    from ocflow_torch.kernels import cost_volume as cv_mod
+    from ocflow_torch.models import pwc_net
+    from ocflow_torch.train import config as config_lib
+    from ocflow_torch.train import create_train_state
+    from ocflow_torch.train.__main__ import REGIMES, build_net
+
+    cfg = config_lib.load_config("configs/supervised.yaml")
+    cfg.network_type, cfg.model, cfg.displacement = "flow", "pwc", PWC_GENERAL_D
+    model = build_net(cfg)
+    data = build_dataset("SyntheticFlow", size=BATCH, image_size=(HEIGHT, WIDTH), device=dev)
+    batch = {k: v.to(dev) for k, v in next(iter(DataLoader(data, BATCH))).items()}
+    train_step, _ = REGIMES["flow"][1]({"model": "pwc", "compute_dtype": "float32"})
+    state = create_train_state(model, cfg.learning_rate, device=dev)
+    box = {}
+    _zero_counts()
+    cv_mod.cost_volume.general_launches = cv_mod.cost_volume_backward.general_launches = 0
+    calls = _record([(pwc_net, "cost_volume"), (cv_mod, "cost_volume_backward")],
+                    lambda: box.update(out=train_step(state, batch)))
+    counts = _read_counts()
+    counts.update(cost_volume_general=cv_mod.cost_volume.general_launches,
+                  cost_volume_bwd_general=cv_mod.cost_volume_backward.general_launches)
+    loss = box.pop("out")[1]["loss"].item()
+    expect = {k: 0 for k in counts}
+    expect.update(cost_volume=5, cost_volume_bwd=5, cost_volume_general=5,
+                  cost_volume_bwd_general=5)
+    label = f"supervised_pwc_d{PWC_GENERAL_D}"
+    print(f"main path {label} (FlowNetCV displacement {PWC_GENERAL_D} as the supervised CLI "
+          f"builds it, one fp32 flow train step, B={BATCH} {HEIGHT}x{WIDTH}) launches: "
+          f"{counts} (expected {expect}); loss {loss:.6e}")
+    if counts != expect or len(calls) != 10 or not math.isfinite(loss):
+        raise AssertionError(f"{label}: launches {counts}, {len(calls)} calls, loss {loss}")
+    general_ms = 0.0
+    for k, (name, args) in enumerate(calls):
+        kind = "cost_volume_general" if name == "cost_volume" else "cost_volume_bwd_general"
+        if args[-1] != PWC_GENERAL_D:
+            raise AssertionError(f"{label} call {k}: d={args[-1]}")
+        _hold_general(kind, args, max_err, f"{label} call {k} ")
+        fn = cv_mod.cost_volume if name == "cost_volume" else cv_mod.cost_volume_backward
+        general_ms += cuda_ms(lambda: fn(*args), 3)  # noqa: B023
+    del calls
+    train_step(state, batch)
+    each = [_timed_once(lambda: train_step(state, batch))[1] for _ in range(5)]
+    step_ms = sorted(each)[2]
+    print(f"time {label} train step B={BATCH} {HEIGHT}x{WIDTH} fp32: {step_ms:.3f} ms (median "
+          f"of 5 warm steps, CUDA events; runs {[round(e, 3) for e in each]}), "
+          f"{BATCH * 1e3 / step_ms:.2f} pairs/s; its 10 general-kernel calls timed alone "
+          f"{general_ms:.3f} ms, {100 * general_ms / step_ms:.1f}% of the step [{card}]")
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": step_ms, "general_ms": general_ms,
+                    "general_share": general_ms / step_ms}
 
 
 def _inpaint_step(card, label, factory, model, batch):
@@ -3273,6 +3370,8 @@ def _phase14(card, max_err, trees):
     t0 = time.perf_counter()
     per_d, fnetc_launches, records = _general_d_phase(card, max_err)
     launches = {f"flownetc_d{CV_FLOWNETC_D}": fnetc_launches}
+    launches[f"supervised_pwc_d{PWC_GENERAL_D}"], records["pwc_step"] = _pwc_general_step(
+        card, max_err)
     synth_ms = _synthetic_inpainting_check(card)
     _inpainting_files_check(trees)
     found, fwd_ms, step_ms, _ = _inpainting_net_phase(card, trees)
@@ -4422,7 +4521,7 @@ def main() -> int:
                "bound_ms": 0.0, "library_ms": 0.0}
            for k in ("cost_volume", "cost_volume_bwd", "conv_group",
                      "conv_group_diff", "conv_group_q8")}
-    per["conv_group_diff"].update(bwd_ms=0.0, library_bwd_ms=0.0)
+    per["conv_group_diff"].update(bwd_ms=0.0, library_bwd_ms=0.0, bwd_bound_ms=0.0)
 
     def add(kind, k_ms, p_ms, nbytes, ops, peak, lib_ms):
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4592,7 +4691,8 @@ def main() -> int:
             "library_ms": p["library_ms"] if name in (
                 "conv_group", "conv_group_diff", "gemm_probe") else None,
             **({"library_reason": NO_LIBRARY[name]} if name in NO_LIBRARY else {}),
-            **{k: p[k] for k in ("bwd_ms", "library_bwd_ms", "yard_ms") if k in p},
+            **{k: p[k] for k in ("bwd_ms", "library_bwd_ms", "bwd_bound_ms", "yard_ms")
+               if k in p},
         })
         if name == "gemm_probe":
             # the numbers above are int8's; bf16's beside them
@@ -4621,12 +4721,15 @@ def main() -> int:
     # displacement 12 (forward and input gradient); times at its fp32
     # 8x256x56x128 call; the other d and shapes beside them
     path = f"flownetc_d{CV_FLOWNETC_D}"
+    pwc_path = f"supervised_pwc_d{PWC_GENERAL_D}"
     for name, source_line in (("cost_volume_general", 91), ("cost_volume_bwd_general", 187)):
         rec = p14["records"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": "ocflow_torch/csrc/cost_volume_any.cu",
             "replaces": f"ocflow_tpu/ops/pallas/cost_volume_kernel.py:{source_line}",
             "path": path, "launches": launches[path][name], "d": CV_FLOWNETC_D,
+            "launches_by_path": {p: launches[p][name] for p in (path, pwc_path)},
+            "pwc_step": p14["records"]["pwc_step"],
             "max_abs_err": max_err[name], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
             "library_reason": NO_LIBRARY["cost_volume" if "bwd" not in name

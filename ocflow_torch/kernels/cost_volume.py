@@ -14,9 +14,11 @@ kernel or raises. The tuned kernels are compiled for every d from 1 to
 nets; d = 10, 441 shifts, the FlowNetC family; the others for a net built
 with another ``displacement``): a thread there keeps (2d+1) x 4 fp32 values
 in registers, and at d = 10 the fp32 kernels already spill. Every d above
-goes to the general kernels (one thread per output element, the backward in
-gather form), as the reference takes its XLA cost volume wherever its
-Pallas block does not fit; d < 1 raises before a launch.
+goes to the general kernels, as the reference takes its XLA cost volume
+wherever its Pallas block does not fit: staged tiles with the shift rows
+and shift columns in groups (the backward in gather form, no atomics), d a
+runtime argument, so one build serves every d; d < 1 raises before a
+launch.
 
 Under autograd (an input that requires grad, grad mode on) ``cost_volume``
 runs through ``_CostVolume``, whose backward is ``cost_volume_backward``:

@@ -4,29 +4,39 @@ them, as they are and in variants.
 Cases: the forward at d=4 on the five FlowNetCV levels (B=8 448x1024, bf16),
 at d=10 on the FlowNetC family's call (8x256x56x128, fp32); the backward at
 d=4 on the five levels (bf16, one training step's calls) and at d=10 on
-8x256x56x128 in fp32 and bf16. Inputs are seeded normal noise.
+8x256x56x128 in fp32 and bf16. The general kernels (``csrc/cost_volume_any.cu``,
+every d > 10): d 11, 12, 16 and 20 on 8x64x112x256 and d 12 on
+8x256x56x128 (a FlowNetC built with displacement 12), fp32 and bf16,
+forward and backward; and at d=10 on 8x256x56x128, fp32 ("general at
+d=10"), beside the tuned kernels' own d=10 case, which the wrapper never
+sends there; and the five calls of a FlowNetCV built with displacement 12
+(its levels at B=8 448x1024, fp32: the supervised step's "level" cases).
+Inputs are seeded normal noise.
 
 Variants, each built aside with nvcc under ``build/``:
 
-- ``kernel``: ``csrc/cost_volume.cu`` and ``csrc/cost_volume_bwd.cu`` as
-  they are;
-- ``--source NAME=DIR``: the two sources (and their headers) from DIR, for
-  example an older tree's ``ocflow_torch/csrc``; a d a source is not built
-  for is reported as refused;
+- ``kernel``: ``csrc/cost_volume.cu``, ``csrc/cost_volume_bwd.cu`` and
+  ``csrc/cost_volume_any.cu`` as they are;
+- ``--source NAME=DIR``: the three sources (and their headers) from DIR,
+  for example an older tree's ``ocflow_torch/csrc``; a d a source is not
+  built for is reported as refused;
 - ``--config NAME=MACRO:VALUES[;MACRO:VALUES]``: the sources with a
   configuration line replaced, e.g. ``rows=CV_FWD_D10:4,7,16,1,1`` (the
   ``#define`` lines name the template arguments: the forward's one line per
-  d, the backward's ``CV_BWD`` one line for every d).
+  d, the backward's ``CV_BWD`` one line for every d, the general kernels'
+  ``CV_ANY_FWD``, ``CV_ANY_BWD`` and ``CV_ANY_SKIP``).
 
 ``--order`` lists the variants in the order they are timed, names may
-repeat (``parent,kernel,kernel,parent``). Each call is timed with CUDA
-events over 20 launches after a warm-up, L2-warm, and checked against the
-plain version (max-abs error over max|plain|). Prints one line per
-(variant, case) and the sums per path beside the card's name and power
-limit, then one JSON line of all numbers.
+repeat (``parent,kernel,kernel,parent``); ``--only REGEX`` keeps the cases
+whose path matches. Each call is timed with CUDA events over 20 launches
+after a warm-up, L2-warm, and checked against the plain version (max-abs
+error over max|plain|). Prints each variant's registers, spills and static
+shared memory (``-Xptxas -v``), one line per (variant, case) and the sums
+per path beside the card's name and power limit, then one JSON line of all
+numbers.
 
 Usage: ``python -m ocflow_torch.tools.cost_volume_ablation [--source
-NAME=DIR ...] [--config NAME=SPEC ...] [--order A,B,...]``.
+NAME=DIR ...] [--config NAME=SPEC ...] [--order A,B,...] [--only REGEX]``.
 """
 
 from __future__ import annotations
@@ -52,14 +62,26 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 LEVELS = [(8, 196, 7, 16), (8, 128, 14, 32), (8, 96, 28, 64), (8, 64, 56, 128),
           (8, 32, 112, 256)]
 FNETC = (8, 256, 56, 128)
-# (path, kind, d, dtype, shape)
+LEVEL2 = (8, 64, 112, 256)
+GENERAL_D = (11, 12, 16, 20)
+_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+# (path, kind, d, dtype, shape); kinds ending in "_any" run csrc/cost_volume_any.cu
 CASES = ([("fwd d=4 bf16", "fwd", 4, torch.bfloat16, s) for s in LEVELS]
          + [("fwd d=10 fp32", "fwd", 10, torch.float32, FNETC)]
          + [("bwd d=4 bf16", "bwd", 4, torch.bfloat16, s) for s in LEVELS]
          + [("bwd d=10 fp32", "bwd", 10, torch.float32, FNETC),
-            ("bwd d=10 bf16", "bwd", 10, torch.bfloat16, FNETC)])
+            ("bwd d=10 bf16", "bwd", 10, torch.bfloat16, FNETC)]
+         + [(f"{k} d={d} {_NAMES[t]} general", f"{k}_any", d, t, s)
+            for s, ds in ((LEVEL2, GENERAL_D), (FNETC, (12,)))
+            for d in ds for t in (torch.float32, torch.bfloat16) for k in ("fwd", "bwd")]
+         + [(f"{k} d=10 fp32 general", f"{k}_any", 10, torch.float32, FNETC)
+            for k in ("fwd", "bwd")]
+         + [(f"{k} d=12 fp32 general level", f"{k}_any", 12, torch.float32, s)
+            for s in LEVELS for k in ("fwd", "bwd")])
 SOURCES = {"fwd": ("cost_volume", "ocf_cost_volume_fwd", 3),
-           "bwd": ("cost_volume_bwd", "ocf_cost_volume_bwd", 5)}
+           "bwd": ("cost_volume_bwd", "ocf_cost_volume_bwd", 5),
+           "fwd_any": ("cost_volume_any", "ocf_cost_volume_any_fwd", 3),
+           "bwd_any": ("cost_volume_any", "ocf_cost_volume_any_bwd", 5)}
 
 
 def cost(kind, d, dtype, shape):
@@ -70,7 +92,7 @@ def cost(kind, d, dtype, shape):
     k = (2 * d + 1) ** 2
     item = torch.tensor([], dtype=dtype).element_size()
     px = b * h * w
-    if kind == "fwd":
+    if kind.startswith("fwd"):
         nbytes, ops = (2 * c + k) * px * item, 2 * k * c * px
     else:
         nbytes, ops = (k + 4 * c) * px * item, 4 * k * c * px
@@ -105,7 +127,7 @@ def _variant_dir(name: str, src_dir: Path, spec: str | None) -> Path:
     out.mkdir(parents=True)
     for p in src_dir.glob("*.cuh"):
         shutil.copy(p, out / p.name)
-    for src, _, _ in SOURCES.values():
+    for src in {s for s, _, _ in SOURCES.values()}:
         text = (src_dir / f"{src}.cu").read_text()
         if spec:
             text = _configured(text, spec)
@@ -113,27 +135,45 @@ def _variant_dir(name: str, src_dir: Path, spec: str | None) -> Path:
     return out
 
 
-def _compile(directory: Path) -> dict:
-    fns = {}
-    for kind, (src, _, _) in SOURCES.items():
-        lib = directory / f"lib{src}.so"
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(directory),
-                               "-o", str(lib), str(directory / f"{src}.cu")],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"{directory}: nvcc exited {proc.returncode}\n"
-                               f"{proc.stdout}{proc.stderr}")
-        regs = re.findall(r"Used (\d+) registers.*?(\d+) bytes smem", proc.stdout + proc.stderr)
-        spills = re.findall(r"(\d+) bytes spill stores", proc.stdout + proc.stderr)
-        print(f"built {directory.name}/{src}: registers/smem {regs}, spill stores {spills}")
-        fns[kind] = _bind(ctypes.CDLL(str(lib)), kind)
+def _ptxas(log: str) -> list:
+    """Per compiled kernel: (template arguments, registers, spill stores,
+    static shared memory bytes) from ``-Xptxas -v``."""
+    out = []
+    for block in re.split(r"Compiling entry function", log)[1:]:
+        name = re.search(r"'(\S+)'", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        out.append((re.sub(r"^.*?_(\w{3})_kernelI", r"\1 ", name.group(1) if name else "?")[:64],
+                    int(regs.group(1)) if regs else None,
+                    int(spill.group(1)) if spill else 0, int(smem.group(1)) if smem else 0))
+    return out
+
+
+def _compile(directory: Path, kinds) -> dict:
+    fns, libs = {}, {}
+    for kind in kinds:
+        src = SOURCES[kind][0]
+        if src not in libs:
+            lib = directory / f"lib{src}.so"
+            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(directory),
+                                   "-o", str(lib), str(directory / f"{src}.cu")],
+                                  capture_output=True, text=True)
+            if proc.returncode:
+                raise RuntimeError(f"{directory}: nvcc exited {proc.returncode}\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            for entry in _ptxas(proc.stdout + proc.stderr):
+                print(f"built {directory.name}/{src}: {entry[0]}: {entry[1]} registers, "
+                      f"{entry[2]} B spill stores, {entry[3]} B static smem")
+            libs[src] = ctypes.CDLL(str(lib))
+        fns[kind] = _bind(libs[src], kind)
     return fns
 
 
 def _inputs(kind, d, dtype, shape, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     f1, f2 = (torch.randn(*shape, device="cuda", generator=gen).to(dtype) for _ in range(2))
-    if kind == "fwd":
+    if kind.startswith("fwd"):
         return (f1, f2)
     b, _, h, w = shape
     g = torch.randn(b, (2 * d + 1) ** 2, h, w, device="cuda", generator=gen).to(dtype)
@@ -145,7 +185,7 @@ def _call(fn, kind, d, args):
     outputs and a thunk that launches it again, or None if it refuses d."""
     f1 = args[0]
     b, c, h, w = f1.shape
-    if kind == "fwd":
+    if kind.startswith("fwd"):
         outs = [torch.empty((b, (2 * d + 1) ** 2, h, w), dtype=f1.dtype, device=f1.device)]
     else:
         outs = [torch.empty_like(f1), torch.empty_like(f1)]
@@ -167,6 +207,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--source", nargs="*", default=[], metavar="NAME=DIR")
     ap.add_argument("--config", nargs="*", default=[], metavar="NAME=SPEC")
     ap.add_argument("--order", default=None)
+    ap.add_argument("--only", default=None, metavar="REGEX")
     args = ap.parse_args(argv)
     dirs = {"kernel": _variant_dir("kernel", _build._CSRC, None)}
     for item in args.source:
@@ -175,17 +216,22 @@ def main(argv=None) -> dict:
     for item in args.config:
         name, spec = item.split("=", 1)
         dirs[name] = _variant_dir(name, _build._CSRC, spec)
+    cases = [c for c in CASES if not args.only or re.search(args.only, c[0])]
+    kinds = sorted({c[1] for c in cases})
     with ThreadPoolExecutor(len(dirs)) as pool:
-        fns = dict(zip(dirs, pool.map(_compile, dirs.values())))
+        fns = dict(zip(dirs, pool.map(lambda d: _compile(d, kinds), dirs.values())))
     order = args.order.split(",") if args.order else list(dirs)
 
     card = gpu_info()
     rows = []
     for n, (path, kind, d, dtype, shape) in enumerate(CASES):
+        if (path, kind, d, dtype, shape) not in cases:
+            continue
         inputs = _inputs(kind, d, dtype, shape, seed=n)
-        plain = (cv_mod.cost_volume_plain(*inputs, d) if kind == "fwd"
+        fwd = kind.startswith("fwd")
+        plain = (cv_mod.cost_volume_plain(*inputs, d) if fwd
                  else cv_mod.cost_volume_backward_plain(*inputs, d))
-        plain = [plain] if kind == "fwd" else list(plain)
+        plain = [plain] if fwd else list(plain)
         scale = max(p.float().abs().max().item() for p in plain)
         nbytes, ops, bound, by = cost(kind, d, dtype, shape)
         for turn, name in enumerate(order):

@@ -758,16 +758,13 @@ def test_unsupervised_zoo_step_on_gpu_launches_the_cost_volume_without_tf32(
     assert all(torch.isfinite(v).all() for v in metrics.values())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [11, 12, 16])
-def test_cost_volume_general_kernels_match_plain(cuda_device, d, dtype):
-    """C3: every d above 10 on ``csrc/cost_volume_any.cu``, forward and
-    backward, at a map narrower and shorter than the shift window and W not
-    a multiple of a warp; the general counters count those launches only."""
-    gen = torch.Generator(device=cuda_device).manual_seed(d)
-    f1, f2 = (torch.randn(2, 20, 13, 45, device=cuda_device, generator=gen).to(dtype)
-              for _ in range(2))
-    g = torch.randn(2, (2 * d + 1) ** 2, 13, 45, device=cuda_device, generator=gen).to(dtype)
+def _general_case(device, shape, d, dtype, seed):
+    """One general-kernel forward and backward at ``shape`` against the
+    plain versions; the general counters count those launches only."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f1, f2 = (torch.randn(*shape, device=device, generator=gen).to(dtype) for _ in range(2))
+    b, _, h, w = shape
+    g = torch.randn(b, (2 * d + 1) ** 2, h, w, device=device, generator=gen).to(dtype)
     cv_mod.cost_volume.general_launches = cv_mod.cost_volume_backward.general_launches = 0
     _close(cv_mod.cost_volume(f1, f2, d), cv_mod.cost_volume_plain(f1, f2, d), dtype)
     for got, ref in zip(cv_mod.cost_volume_backward(f1, f2, g, d),
@@ -776,6 +773,24 @@ def test_cost_volume_general_kernels_match_plain(cuda_device, d, dtype):
     cv_mod.cost_volume(f1, f2, 4)
     assert (cv_mod.cost_volume.general_launches,
             cv_mod.cost_volume_backward.general_launches) == (1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [11, 12, 16, 20])
+def test_cost_volume_general_kernels_match_plain(cuda_device, d, dtype):
+    """Every d above 10 on ``csrc/cost_volume_any.cu``, forward and
+    backward, at a map narrower and shorter than the shift window: W = 45
+    (not a multiple of 4: the staging's element path) and W = 64 (its
+    16-byte vector path), 20 channels (not a multiple of a chunk)."""
+    for w in (45, 64):
+        _general_case(cuda_device, (2, 20, 13, w), d, dtype, seed=d + w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cost_volume_general_kernels_have_no_limit_on_d(cuda_device, dtype):
+    """d = 40 (6561 shifts) on a small map: the backward's ring is sized at
+    launch, with no new limit on d."""
+    _general_case(cuda_device, (1, 8, 5, 24), 40, dtype, seed=40)
 
 
 def test_inpainting_train_step_on_gpu_runs_in_full_fp32(cuda_device, monkeypatch):
