@@ -229,6 +229,28 @@ Phases (any failure raises and exits non-zero):
    max|CPU|, the FIDs 1e-4 relative), then on 16 pairs at 448x1024 with
    InceptionV3's ms a batch.
 
+17. trained weights from outside the port and the user's own frames:
+   seeded checkpoints in the original code's layouts (a Lightning
+   FlowNetCV under ``model.`` with the original's dead ``deconv2``; a
+   combined Lightning GAN, ``generator.`` InpaintSANet + ``discriminator.``
+   with torch's ``weight_orig`` / ``weight_u`` / ``weight_v``) through
+   ``python -m ocflow_torch.tools.import_weights`` (a process of its own:
+   its wall time, the manifest, every sha256, the imported tensors equal to
+   the seeded nets' bit for bit); the imported FlowNetCV served by
+   ``fast_apply`` at B=8 448x1024, bf16 and W8A8 (scales from the seed-1
+   batch): every kernel call replayed against its plain version at phase
+   3's and 4's tolerances, the launches (5 / 59 bf16, 5 / 24 / 35 W8A8,
+   staged 53, 18, 35), fp32 ``fast_apply`` against the eager fp32 forward
+   (1e-4 of max), both forwards' ms in turns; the imported generator loaded
+   by ``load_model`` on the card against the CPU at 1x256x512 (1e-4);
+   ``python -m ocflow_torch.infer --iext jpg --save_flo --checkpoint
+   <imported>`` on the committed 436x1024 JPEG frames
+   (``tests/data/jpeg_frames.json``): each frame's decode against its
+   recorded sha256 of the JAX ``read_gen`` decode, each ``.flo`` within
+   1e-4 of max|flow| of the eager forward on the decoded pair, launches per
+   pair; the host decode ms of a 436x1024 frame as JPEG, as an Adam7 PNG
+   (written by this file's writer) and as a plain PNG, on 1 and 6 threads.
+
 Phases 6 and 8 hold their references (the eager fp32 forward, the eager
 step) on the plain cost volume; phase 6 also holds the eager forward on the
 cost-volume kernel (5 launches) against it.
@@ -4348,6 +4370,341 @@ def _phase16(card, max_err, generator, dev="cuda"):
     return launches, out
 
 
+# phase 17: trained weights from the original OCFlow checkpoints, imported
+# and served; the user's own frames as JPEG and as interlaced PNG
+IMPORT_SEED = 17
+IMPORT_GAN_SIZE = (1, 256, 512)  # the imported generator, card vs CPU
+IMPORT_GAN_REL = 1e-4            # outputs, max-abs over max|CPU|
+JPEG_FRAMES = "tests/data/jpeg_frames.json"  # committed frames, their decode sha256
+DECODE_PASSES = 12               # frames decoded per timing pass and thread
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))  # x0, y0, dx, dy
+
+
+def _adam7_png(img, seed=0) -> bytes:
+    """An interlaced (Adam7) 8-bit PNG of ``img`` ``[H, W, C]``: each pass's
+    rows filtered with a seeded mix of the five filter types."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from ocflow_torch.utils import png
+
+    rng = np.random.default_rng(seed)
+    h, w, c = img.shape
+    raw = []
+    for x0, y0, dx, dy in ADAM7:
+        sub = img[y0::dy, x0::dx]
+        if sub.size:
+            rows = np.ascontiguousarray(sub).reshape(sub.shape[0], -1)
+            raw.append(png.filter_rows(rows, c, rng.integers(0, 5, len(rows))).tobytes())
+    header = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 2: 4, 3: 2, 4: 6}[c], 0, 0, 1)
+    return (png.PNG_SIGNATURE + png._chunk(b"IHDR", header)
+            + png._chunk(b"IDAT", zlib.compress(b"".join(raw))) + png._chunk(b"IEND", b""))
+
+
+def _torch_spectral_norm(sd, generator):
+    """The port's ``SNConv2d`` tensors (``weight``, ``u``, ``sigma``) in
+    ``torch.nn.utils.spectral_norm``'s layout (``weight_orig``,
+    ``weight_u``, and a unit ``weight_v``), as the original discriminators'
+    checkpoints hold them."""
+    out = {}
+    for k, v in sd.items():
+        base = k.rsplit(".", 1)[0]
+        if k.endswith(".sigma"):
+            continue
+        if k.endswith(".u"):
+            out[f"{base}.weight_u"] = v.reshape(-1)
+        elif k.endswith(".weight") and f"{base}.u" in sd:
+            out[f"{base}.weight_orig"] = v
+            vec = torch.randn(v[0].numel(), generator=generator)
+            out[f"{base}.weight_v"] = vec / vec.norm()
+        else:
+            out[k] = v
+    return out
+
+
+def _original_checkpoints(src):
+    """Seeded checkpoints in the original code's layouts (the port's init
+    scale): a Lightning FlowNetCV (``model.``, with the original's dead
+    ``deconv2``) and a combined Lightning gated-conv GAN (``generator.`` +
+    ``discriminator.``, spectral norms as torch stores them). Returns the
+    seeded nets."""
+    import os
+
+    from ocflow_torch.models.pwc_net import FlowNetCV
+
+    g = torch.Generator().manual_seed(IMPORT_SEED)
+    flow = FlowNetCV(generator=g)
+    sd = {f"model.{k}": v for k, v in flow.state_dict().items()}
+    sd["model.deconv2.weight"] = torch.randn(2, 2, 4, 4, generator=g) * 0.1
+    sd["model.deconv2.bias"] = torch.zeros(2)
+    torch.save({"state_dict": sd, "epoch": 41, "hyper_parameters": {"lr": 1e-4}},
+               os.path.join(src, "flownetcv_trained.ckpt"))
+    gen, dis = _gan_nets("gated", seed=IMPORT_SEED)
+    sd = {f"generator.{k}": v for k, v in gen.state_dict().items()}
+    sd.update({f"discriminator.{k}": v for k, v in _torch_spectral_norm(
+        dis.state_dict(), torch.Generator().manual_seed(IMPORT_SEED + 2)).items()})
+    torch.save({"state_dict": sd, "epoch": 7}, os.path.join(src, "inpainting_gan.ckpt"))
+    return flow, gen, dis
+
+
+def _import_check(card, src, out):
+    """``python -m ocflow_torch.tools.import_weights`` on ``src`` as a
+    process; the manifest checked and the imported tensors held against
+    the seeded nets' (the import's two maps are transposes: bit for bit).
+    Returns ``{network: port checkpoint}`` and the tool's wall seconds."""
+    import hashlib
+    import json
+    import os
+    import subprocess
+
+    from ocflow_torch.utils.checkpoint import load_pytree
+
+    flow, gen, dis = _original_checkpoints(src)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ocflow_torch.tools.import_weights",
+                           "--src", src, "--out", out], capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"import_weights exited {proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    manifest = json.load(open(os.path.join(out, "manifest.json")))
+    got = sorted((e["network"], e["role"], e["family"], e["key"]) for e in manifest)
+    want = [("flownetcv", "", "flow", "pwc"),
+            ("sa_discriminator", "discriminator", "discriminator", "gated"),
+            ("sanet", "generator", "inpainting", "gated")]
+    sha = {e["output"]: hashlib.sha256(open(e["output"], "rb").read()).hexdigest() == e[
+        "output_sha256"] and hashlib.sha256(open(e["source"], "rb").read()).hexdigest() == e[
+        "source_sha256"] for e in manifest}
+    ckpt = {e["network"]: e["output"] for e in manifest}
+    same = {}
+    for name, net in (("flownetcv", flow), ("sanet", gen)):
+        imported, ref = load_pytree(ckpt[name])["params"], net.state_dict()
+        same[name] = set(imported) == set(ref) and all(
+            torch.equal(imported[k], v) for k, v in ref.items() if "num_batches_tracked" not in k)
+    imported, ref = load_pytree(ckpt["sa_discriminator"])["params"], dis.state_dict()
+    same["sa_discriminator"] = set(imported) == set(ref) and all(
+        torch.equal(imported[k], v) if not k.endswith(".sigma") else float(imported[k]) == 1.0
+        for k, v in ref.items())
+    sizes = {os.path.basename(p): os.path.getsize(p) for p in sorted(
+        os.path.join(src, f) for f in os.listdir(src))}
+    print(f"import: python -m ocflow_torch.tools.import_weights on {sizes} (B) took {wall:.2f} s "
+          f"wall (a process of its own: Python, torch and the port imported; host); manifest "
+          f"{got} (expected {want}); sha256 of every source and output as recorded {sha}; "
+          f"the imported tensors equal the seeded nets' {same} (spectral norms: sigma 1, "
+          f"as flax starts it) [{card}]")
+    if got != want or not all(sha.values()) or not all(same.values()):
+        raise AssertionError(f"import: manifest {got}, sha {sha}, same {same}")
+    return ckpt, wall
+
+
+def _serve_imported(card, max_err, ckpt, dev="cuda"):
+    """The imported FlowNetCV served by ``fast_apply`` at B=8, 448x1024:
+    every kernel call of the bf16 and the W8A8 forward replayed against its
+    plain version, each path's launches counted, fp32 ``fast_apply``
+    against the eager fp32 forward on the plain cost volume, the bf16 and
+    W8A8 forwards timed in turns. Returns the launches and the ms."""
+    from ocflow_torch.bench import (BATCH, HEIGHT, SEED, WIDTH, calibration_batch,
+                                    make_inputs, measure)
+    from ocflow_torch.models import load_model, pwc_fast
+
+    model = load_model("flow", "pwc", ckpt, dev)
+    _, x32 = make_inputs(BATCH, HEIGHT, WIDTH, torch.float32, dev, SEED)
+    model_b, xb = copy.deepcopy(model).bfloat16(), x32.bfloat16()
+    serving = [(pwc_fast, n) for n in ("cost_volume", "conv_group", "conv_group_q8")]
+    for kind, args in _record(serving, lambda: pwc_fast.fast_apply(model_b, xb)):
+        _check_float(kind, args, torch.bfloat16, max_err, "imported ")
+    scales = pwc_fast.calibrate_q8(model_b, calibration_batch(xb))
+    for kind, args in _record(serving, lambda: pwc_fast.fast_apply(model_b, xb, q8=scales)):
+        if kind == "conv_group_q8":
+            _check_q8(args, max_err, "imported w8a8 ")
+        else:
+            _check_float(kind, args, torch.bfloat16, max_err, "imported w8a8 ")
+    launches = {}
+    for path, q8 in (("imported_bf16", None), ("imported_w8a8", scales)):
+        launches[path], _ = _count_launches(
+            lambda: pwc_fast.fast_apply(model_b, xb, q8=q8))  # noqa: B023
+        want = {"cost_volume": 5, "cost_volume_bwd": 0, "conv_group_diff": 0, "gemm_probe": 0,
+                **pwc_fast.prepare(model_b, torch.bfloat16, dev, q8).launch_counts()}
+        print(f"main path {path} (the imported FlowNetCV, fast_apply, B={BATCH} "
+              f"{HEIGHT}x{WIDTH}) launches: {launches[path]} (expected {want})")
+        if launches[path] != want:
+            raise AssertionError(f"{path} launch counts {launches[path]}")
+    counted = ("cost_volume", "conv_group", "conv_group_staged", "conv_group_q8",
+               "conv_group_q8_staged")
+    got = [launches[p][k] for p in ("imported_bf16", "imported_w8a8") for k in counted]
+    if got != [5, 59, 53, 0, 0, 5, 24, 18, 35, 35]:
+        raise AssertionError(f"imported launches {got}, want 5 / 59 / 53 / 0 / 0 and "
+                             f"5 / 24 / 18 / 35 / 35")
+    out_f = pwc_fast.fast_apply(model, x32)
+    with torch.no_grad(), _plain_eager_cost_volume():
+        ref = model(x32)
+    for name, o, r in zip(("full", "quarter"), out_f, ref):
+        scale = r.abs().max().item()
+        e = (o - r).abs().max().item()
+        print(f"e2e imported {name}: fp32 fast_apply vs the eager fp32 forward (plain cost "
+              f"volume) max_abs_err {e:.3e} (tol {E2E_FP32_TOL * scale:.3e}, max|eager| "
+              f"{scale:.3e})")
+        if not (o.shape == r.shape and torch.isfinite(o).all() and e <= E2E_FP32_TOL * scale):
+            raise AssertionError(f"imported {name}: fp32 fast_apply vs eager {e}")
+    runs = {"bf16": [], "w8a8": []}
+    for path in ("bf16", "w8a8", "w8a8", "bf16"):
+        runs[path].append(measure(model_b, xb, scales if path == "w8a8" else None)["ms_per_batch"])
+    ms = {p: sum(r) / len(r) for p, r in runs.items()}
+    for path, each in runs.items():
+        print(f"e2e imported {path} fast_apply B={BATCH} {HEIGHT}x{WIDTH}: {ms[path]:.3f} "
+              f"ms/batch, {BATCH * 1e3 / ms[path]:.2f} pairs/s (runs {each} ms; phase 7's seeded "
+              f"forward runs the same kernels at the same shapes) [{card}]")
+    return launches, ms
+
+
+def _imported_generator_check(card, ckpt, dev="cuda"):
+    """The imported InpaintSANet loaded by ``load_model`` on the card and on
+    the CPU: one eval forward each at ``IMPORT_GAN_SIZE``."""
+    from ocflow_torch.models import load_model
+
+    batch = _gan_batch(IMPORT_GAN_SIZE)
+    cpu = load_model("inpainting", "gated", ckpt, "cpu")
+    with torch.no_grad():
+        ref = cpu(batch["image"], batch["occ"])
+    card_gen = load_model("inpainting", "gated", ckpt, dev)
+    counts, got = _count_launches(lambda: _gen_no_grad(
+        card_gen, {k: v.to(dev) for k, v in batch.items()}))
+    errs = [((g.cpu() - r).abs().max() / r.abs().max()).item() for g, r in zip(got, ref)]
+    print(f"check imported generator (InpaintSANet from the combined GAN checkpoint) card vs "
+          f"CPU at {'x'.join(map(str, IMPORT_GAN_SIZE))}: coarse {errs[0]:.3e}, refined "
+          f"{errs[1]:.3e} of max|CPU| (tol {IMPORT_GAN_REL}); launches {counts} (none "
+          f"expected) [{card}]")
+    if max(errs) > IMPORT_GAN_REL or any(counts.values()):
+        raise AssertionError(f"imported generator: {errs} {counts}")
+
+
+def _jpeg_infer_check(card, tmp, ckpt, dev="cuda"):
+    """``python -m ocflow_torch.infer --checkpoint <imported> --iext jpg
+    --save_flo`` over the committed JPEG frames: each frame's decode against
+    its recorded sha256 (the JAX package's ``read_gen``), each ``.flo``
+    against the eager fp32 forward of the imported net on the same decoded
+    pair, launches per pair. Returns the launches of the first pair."""
+    import hashlib
+    import json
+    import os
+    import shutil
+
+    from ocflow_torch import infer
+    from ocflow_torch.data import build_dataset, read_flo, read_gen
+    from ocflow_torch.models import load_model, pwc_fast
+
+    meta = json.load(open(JPEG_FRAMES))
+    frames = os.path.join(tmp, "jpeg_frames")
+    os.makedirs(frames)
+    decoded = {}
+    for e in meta["frames"]:
+        path = shutil.copy(os.path.join(os.path.dirname(JPEG_FRAMES), e["file"]), frames)
+        im = read_gen(path)
+        decoded[e["file"]] = hashlib.sha256(im.tobytes()).hexdigest() == e["decode_sha256"] \
+            and im.shape == (e["height"], e["width"], 3)
+    print(f"jpeg frames: {len(decoded)} committed {meta['frames'][0]['height']}x"
+          f"{meta['frames'][0]['width']} frames decoded by the port to the recorded sha256 of "
+          f"the JAX read_gen decode {decoded}")
+    if not all(decoded.values()):
+        raise AssertionError(f"JPEG decode sha256 {decoded}")
+    dst = os.path.join(tmp, "infer_jpg")
+    with _Timed(infer, "fast_apply", keep=True) as timed:
+        t0 = time.perf_counter()
+        paths = infer.main(["--input", frames, "--output", dst, "--iext", "jpg", "--save_flo",
+                            "--checkpoint", ckpt])
+        wall = time.perf_counter() - t0
+    model = load_model("flow", "pwc", ckpt, dev)
+    ds = build_dataset("ImagesFromFolder", root=frames, iext="jpg")
+    errs = []
+    for i in range(len(ds)):
+        x = torch.from_numpy(ds[i]["images"])[None].to(dev)
+        with torch.no_grad():
+            ref = model(x)[0][0].cpu().numpy()
+        flo = read_flo(paths[2 * i + 1])
+        scale = float(abs(ref).max())
+        errs.append(float(abs(flo - ref).max()) / scale if flo.shape == ref.shape else 1.0)
+    want = {"cost_volume": 5, "cost_volume_bwd": 0, "conv_group_diff": 0, "gemm_probe": 0,
+            **pwc_fast.prepare(model, torch.float32, dev).launch_counts()}
+    print(f"main path infer_jpg (python -m ocflow_torch.infer --iext jpg --save_flo "
+          f"--checkpoint <imported FlowNetCV>, {len(ds)} pairs of {ds.render_size}) launches per "
+          f"pair: {timed.counts} (expected {want} each); each .flo vs the eager fp32 forward "
+          f"on the decoded pair {[f'{e:.3e}' for e in errs]} of max|flow| (tol "
+          f"{E2E_FP32_TOL}); {len(ds)} pairs in {wall:.2f} s wall (the model's build "
+          f"included) [{card}]")
+    if len(timed.counts) != len(ds) or any(c != want for c in timed.counts) \
+            or len(paths) != 2 * len(ds) or max(errs) > E2E_FP32_TOL:
+        raise AssertionError(f"infer --iext jpg: {timed.counts}, {errs}")
+    return timed.counts[0]
+
+
+def _decode_timing(card, tmp):
+    """Host decode of one 436x1024 frame as JPEG (the first committed frame),
+    as an interlaced PNG of the same pixels (this file's writer) and as a
+    plain PNG (the port's writer, phase 11's format): ms per frame on one
+    thread and on the loader's 6; the PNGs read back bit for bit."""
+    import os
+    import shutil
+
+    from ocflow_torch.data import native_io, read_gen
+    from ocflow_torch.utils.png import encode_png
+
+    jpg = shutil.copy(os.path.join(os.path.dirname(JPEG_FRAMES), "frame_0000.jpg"), tmp)
+    img = read_gen(jpg)
+    paths = {"jpeg": jpg, "adam7 png": os.path.join(tmp, "a7.png"),
+             "png": os.path.join(tmp, "plain.png")}
+    with open(paths["adam7 png"], "wb") as f:
+        f.write(_adam7_png(img))
+    with open(paths["png"], "wb") as f:
+        f.write(encode_png(img, 4))
+    exact = {k: bool((native_io.read_image(p) == img).all()) for k, p in paths.items()
+             if k != "jpeg"}
+    ms = {}
+    with ThreadPoolExecutor(6) as pool:
+        for kind, path in paths.items():
+            native_io.read_image(path)
+            t0 = time.perf_counter()
+            for _ in range(DECODE_PASSES):
+                native_io.read_image(path)
+            one = (time.perf_counter() - t0) * 1e3 / DECODE_PASSES
+            list(pool.map(native_io.read_image, [path] * 6))
+            t0 = time.perf_counter()
+            list(pool.map(native_io.read_image, [path] * (6 * DECODE_PASSES)))
+            six = (time.perf_counter() - t0) * 1e3 / (6 * DECODE_PASSES)
+            ms[kind] = (one, six)
+    sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+    print(f"decode {img.shape[0]}x{img.shape[1]} frame (host clock, {os.cpu_count()} CPUs): "
+          + "; ".join(f"{k} ({sizes[k]} B) {a:.2f} ms on one thread, {b:.2f} ms per frame on 6"
+                      for k, (a, b) in ms.items())
+          + f"; the PNGs read back bit for bit {exact} [{card}]")
+    if not all(exact.values()):
+        raise AssertionError(f"decode round trip {exact}")
+    return ms
+
+
+def _phase17(card, max_err, dev="cuda"):
+    """Phase 17 (module docstring): original checkpoints imported and
+    served, JPEG and interlaced PNG frames. Returns the launches of its
+    paths and its numbers."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "original"), os.path.join(tmp, "imported")
+        os.makedirs(src)
+        ckpt, import_s = _import_check(card, src, out)
+        launches, ms = _serve_imported(card, max_err, ckpt["flownetcv"], dev)
+        _imported_generator_check(card, ckpt["sanet"], dev)
+        launches["infer_jpg"] = _jpeg_infer_check(card, tmp, ckpt["flownetcv"], dev)
+        decode = _decode_timing(card, tmp)
+    print(f"import and frames: phase 17 took {time.perf_counter() - t0:.1f} s wall [{card}]")
+    return launches, {"import_s": import_s, "ms": ms, "decode_ms": decode}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4654,6 +5011,11 @@ def main() -> int:
         launches.update(gan_launches)
         more, p16 = _phase16(card, max_err, generator)
         launches.update(more)
+
+    # 17. trained weights from original checkpoints, imported and served;
+    # JPEG and interlaced PNG frames
+    more, _ = _phase17(card, max_err)
+    launches.update(more)
 
     # per kernel: its source, the TPU kernel it replaces, and the path whose
     # calls its times sum (its "launches" are that path's count)

@@ -11,18 +11,15 @@ from ocflow_torch.data.flow_io import read_flo, read_pfm
 
 
 def read_gen(path) -> np.ndarray:
-    """Dispatch on the extension: ``.png`` / ``.ppm`` / ``.pgm`` -> an image
-    ``[H, W, C]`` (uint8, or uint16 for 16-bit PNGs) with C 1 or 3 (alpha
-    dropped), ``.flo`` -> flow, ``.pfm`` -> its data, ``.bin`` / ``.raw`` ->
-    ``np.load``. JPEG frames raise: the port has no JPEG decoder."""
+    """Dispatch on the extension: ``.png`` / ``.jpg`` / ``.jpeg`` / ``.ppm``
+    / ``.pgm`` -> an image ``[H, W, C]`` (uint8, or uint16 for 16-bit PNGs)
+    with C 1 or 3 (alpha dropped; the host decoder of ``native_io``, baseline
+    JPEG only), ``.flo`` -> flow, ``.pfm`` -> its data, ``.bin`` / ``.raw``
+    -> ``np.load``."""
     ext = os.path.splitext(path)[-1].lower()
-    if ext in (".png", ".ppm", ".pgm"):
+    if ext in (".png", ".jpg", ".jpeg", ".ppm", ".pgm"):
         im = native_io.read_image(path)
         return im[..., :3] if im.shape[-1] > 3 else im
-    if ext in (".jpg", ".jpeg"):
-        raise NotImplementedError(
-            f"{path}: JPEG frames need a JPEG decoder, which the port does not have "
-            "(ROADMAP A8 lists the gap); convert the frames to PNG")
     if ext == ".flo":
         return read_flo(path)
     if ext == ".pfm":

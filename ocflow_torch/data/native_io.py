@@ -1,13 +1,20 @@
 """The port's host decoders (``_native/decode.cc``), loaded with ctypes:
-``.flo``, ``.ppm`` / ``.pgm`` (P5, P6) and PNG, with no library linked.
+``.flo``, ``.ppm`` / ``.pgm`` (P5, P6), PNG and baseline JPEG, with no
+library linked.
 
 A PNG's chunks are walked here and its IDAT stream inflated with the
-standard library's ``zlib``; the C++ side undoes the five row filters and
-normalizes the pixels as libpng does for the JAX package's decoder
-(``ocflow_tpu/data/_native/decode.cc``: palette -> RGB, gray of 1/2/4 bits
--> 8 bits, tRNS -> alpha, 16-bit samples in host order). Interlaced PNGs
-raise. ``zlib`` and every ctypes call release the GIL, so the loader's
-threads decode in parallel.
+standard library's ``zlib``; the C++ side undoes the five row filters (pass
+by pass for interlaced, Adam7, images) and normalizes the pixels as libpng
+does for the JAX package's decoder (``ocflow_tpu/data/_native/decode.cc``:
+palette -> RGB, gray of 1/2/4 bits -> 8 bits, tRNS -> alpha, 16-bit samples
+in host order). JPEG frames are decoded whole in C++ with libjpeg's
+arithmetic (integer IDCT, fancy upsampling, fixed-point YCbCr -> RGB), as
+the JAX package's ``read_gen`` decodes them through imageio and Pillow's
+libjpeg-turbo; no EXIF orientation is applied, as there. Baseline only
+(SOF0, SOF1, Huffman, 8-bit, gray or three components, 4:4:4 / 4:2:2 /
+4:2:0); other JPEGs raise ``ValueError`` naming what they are (ROADMAP A8).
+``zlib`` and every ctypes call release the GIL, so the loader's threads
+decode in parallel.
 
 The library is compiled with ``g++ -O2 -shared -fPIC`` at first use into
 ``build/ocflow_torch_native/`` at the repository root, its file name keyed
@@ -42,7 +49,7 @@ _lib = None
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I32, _I64, _F32, _VP = ctypes.c_int32, ctypes.c_int64, ctypes.c_float, ctypes.c_void_p
-_PNG_ARGS = [_U8P, _I64, _I32, _I32, _I32, _I32, _U8P, _I32, _U8P, _I32]
+_PNG_ARGS = [_U8P, _I64, _I32, _I32, _I32, _I32, _I32, _U8P, _I32, _U8P, _I32]
 _SIGNATURES = {
     "flo_probe": [_U8P, _I64, _I32P, _I32P],
     "flo_decode": [_U8P, _I64, _VP],
@@ -52,10 +59,28 @@ _SIGNATURES = {
     "png_out_channels": [_I32] * 6,
     "png_unfilter": _PNG_ARGS + [_VP],
     "png_decode_norm_f32": _PNG_ARGS + [_VP, _I64, _I32, _I32, _F32, _F32],
+    "jpeg_probe": [_U8P, _I64, _I32P, _I32P, _I32P],
+    "jpeg_decode": [_U8P, _I64, _VP],
 }
 _ERRORS = {-2: "bad header", -3: "bad header", -4: "truncated", -5: "bad header",
            -6: "bad palette", -7: "unknown row filter", -8: "pixel data too short",
-           -11: "crop larger than the image"}
+           -11: "crop larger than the image",
+           -20: "not a JPEG",
+           -21: "progressive (or differential) JPEG: the port decodes baseline JPEG only "
+                "(ROADMAP A8 queues the rest)",
+           -22: "arithmetic-coded JPEG: the port decodes Huffman-coded baseline JPEG only "
+                "(ROADMAP A8 queues the rest)",
+           -23: "lossless or hierarchical JPEG: the port decodes baseline JPEG only "
+                "(ROADMAP A8 queues the rest)",
+           -24: "JPEG of a sample precision other than 8 bits (12-bit?): the port decodes "
+                "8-bit baseline JPEG only (ROADMAP A8 queues the rest)",
+           -25: "JPEG of neither 1 nor 3 components (CMYK / YCCK?): the port decodes gray "
+                "and three-component JPEG only (ROADMAP A8 queues the rest)",
+           -26: "JPEG sampling factors other than 4:4:4, 4:2:2 and 4:2:0 (ROADMAP A8 "
+                "queues the rest)",
+           -27: "corrupt JPEG data", -28: "truncated JPEG", -29: "JPEG without a frame",
+           -30: "JPEG too large for memory"}
+JPEG_SIGNATURE = b"\xff\xd8\xff"
 
 
 def library_path() -> Path:
@@ -152,11 +177,9 @@ class Png:
         if header is None or not raw:
             raise ValueError(f"{path}: PNG without IHDR or IDAT")
         raw.append(idat.flush())
-        self.w, self.h, self.depth, self.color, _, _, interlace = header
-        if interlace:
-            raise ValueError(
-                f"{path}: interlaced (Adam7) PNG: the port's decoder reads only "
-                "non-interlaced PNGs (ROADMAP A8 lists the gap)")
+        self.w, self.h, self.depth, self.color, _, _, self.interlace = header
+        if self.interlace not in (0, 1):
+            raise ValueError(f"{path}: PNG interlace method {self.interlace}")
         self.raw = b"".join(raw)
         self.channels = load().png_out_channels(self.w, self.h, self.depth, self.color,
                                                 len(self.plte) // 3, len(self.trns))
@@ -164,7 +187,8 @@ class Png:
 
     def args(self) -> tuple:
         return (_ptr(self.raw), len(self.raw), self.w, self.h, self.depth, self.color,
-                _ptr(self.plte), len(self.plte) // 3, _ptr(self.trns), len(self.trns))
+                self.interlace, _ptr(self.plte), len(self.plte) // 3, _ptr(self.trns),
+                len(self.trns))
 
 
 def decode_png(buf: bytes, path="") -> np.ndarray:
@@ -173,6 +197,19 @@ def decode_png(buf: bytes, path="") -> np.ndarray:
     dtype = np.uint16 if png.depth == 16 else np.uint8
     out = np.empty((png.h, png.w, png.channels), dtype)
     _check(load().png_unfilter(*png.args(), out.ctypes.data), path, "PNG")
+    return out
+
+
+def decode_jpeg(buf: bytes, path="") -> np.ndarray:
+    """Baseline JPEG bytes -> ``[H, W, 3]`` uint8 RGB, or ``[H, W, 1]`` for
+    gray; equal to libjpeg-turbo's decode (``JDCT_ISLOW``, fancy
+    upsampling). Other JPEGs raise ``ValueError``."""
+    lib = load()
+    w, h, ch = _I32(), _I32(), _I32()
+    _check(lib.jpeg_probe(_ptr(buf), len(buf), ctypes.byref(w), ctypes.byref(h),
+                          ctypes.byref(ch)), path, "JPEG")
+    out = np.empty((h.value, w.value, ch.value), np.uint8)
+    _check(lib.jpeg_decode(_ptr(buf), len(buf), out.ctypes.data), path, "JPEG")
     return out
 
 
@@ -188,14 +225,16 @@ def decode_ppm(buf: bytes, path="") -> np.ndarray:
 
 
 def read_image(path) -> np.ndarray:
-    """PNG or P5 / P6 PPM (by signature) -> ``[H, W, C]`` uint8 (uint16 for
-    16-bit PNGs). Anything else raises ``ValueError``."""
+    """PNG, JPEG or P5 / P6 PPM (by signature) -> ``[H, W, C]`` uint8
+    (uint16 for 16-bit PNGs). Anything else raises ``ValueError``."""
     buf = _read(path)
     if buf[:8] == PNG_SIGNATURE:
         return decode_png(buf, path)
+    if buf[:3] == JPEG_SIGNATURE:
+        return decode_jpeg(buf, path)
     if buf[:2] in (b"P5", b"P6"):
         return decode_ppm(buf, path)
-    raise ValueError(f"{path}: neither a PNG nor a binary PPM")
+    raise ValueError(f"{path}: neither a PNG, a JPEG nor a binary PPM")
 
 
 def read_pair_norm(path1, path2, th: int, tw: int, scale: float = 1.0 / 127.5,
@@ -203,8 +242,9 @@ def read_pair_norm(path1, path2, th: int, tw: int, scale: float = 1.0 / 127.5,
     """Both frames decoded, centre-cropped to ``(th, tw)`` and mapped to
     ``x * scale + offset`` in float32, channel-interleaved into one ``[th,
     tw, 6]`` array, each frame in one C++ pass (the JAX package's
-    ``read_pair_norm``). None when a frame needs the generic path: a PNG
-    that is 16-bit or has fewer than 3 channels, a P5 PPM."""
+    ``read_pair_norm``). None when a frame needs the generic path, as there:
+    a PNG that is 16-bit, interlaced or has fewer than 3 channels, a P5 PPM,
+    a JPEG."""
     lib = load()
     out = np.empty((th, tw, 6), np.float32)
     for i, path in enumerate((path1, path2)):

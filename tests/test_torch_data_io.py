@@ -8,13 +8,15 @@ OpenCV) and imageio, on the CPU.
   (with and without tRNS, 1 to 8 bits), gray of 1/2/4 bits, tRNS on gray
   and RGB, 16-bit gray and RGB, written by imageio, OpenCV, PIL and the
   port's writer with each of the five row filters (the corpus is checked to
-  hold all five); interlaced PNGs raise;
+  hold all five); an interlaced PNG decodes as libpng decodes it, one whose
+  stream is too short for its seven passes raises (the Adam7 cases at every
+  depth and colour type: ``tests/test_torch_jpeg_adam7.py``);
 - ``read_pair_norm`` against the JAX package's within 1e-6 (the same fp32
   ``x * scale + offset``; both None where the generic path takes over);
 - the resize (``data.resize``) against ``cv2.resize(INTER_LINEAR)``: uint8
   exact, float32 within 1e-5 max-abs (2-channel flows exact), at integer
   and non-integer ratios;
-- ``read_gen`` dispatches as the JAX package's, and JPEG raises.
+- ``read_gen`` dispatches as the JAX package's, JPEG included.
 """
 
 import io
@@ -34,6 +36,7 @@ from ocflow_tpu.data import datasets as jdatasets
 from ocflow_tpu.data import flow_io as jflow_io
 from ocflow_tpu.data import frame_io as jframe_io
 from ocflow_tpu.data import native_io as jnative_io
+from test_torch_jpeg_adam7 import adam7_png
 from test_torch_ops import share_cores  # noqa: F401  (autouse)
 
 FLOAT_RESIZE_TOL = 1e-5
@@ -204,14 +207,19 @@ def test_png_reader_matches_imageio_and_libpng(tmp_path):
 
 
 def test_png_reader_refuses_interlaced_and_corrupt(tmp_path):
-    data = bytearray(png.encode_png(np.zeros((4, 4, 3), np.uint8)))
+    img = _rng(9).integers(0, 256, (4, 4, 3), dtype=np.uint8)
+    path = tmp_path / "interlaced.png"
+    path.write_bytes(adam7_png(img, 8, 2, 4))
+    got = native_io.read_image(str(path))
+    assert np.array_equal(got, img) and np.array_equal(got, jnative_io.read_image(str(path)))
+    # a non-interlaced stream under an Adam7 header: too short for its passes
+    data = bytearray(png.encode_png(img))
     ihdr = 8 + 8
     data[ihdr + 12] = 1  # interlace method: Adam7
     data[ihdr + 13:ihdr + 17] = struct.pack(
         ">I", zlib.crc32(bytes(data[ihdr - 4:ihdr + 13])) & 0xFFFFFFFF)
-    path = tmp_path / "interlaced.png"
     path.write_bytes(bytes(data))
-    with pytest.raises(ValueError, match="interlaced"):
+    with pytest.raises(ValueError, match="pixel data too short"):
         native_io.read_image(str(path))
     data[ihdr + 5] ^= 1  # a byte of IHDR without its CRC
     path.write_bytes(bytes(data))
@@ -285,8 +293,9 @@ def test_read_gen_dispatch(tmp_path):
         assert np.array_equal(got, jframe_io.read_gen(str(tmp_path / name)))
     assert frame_io.read_gen(str(tmp_path / "a.png")).shape == (9, 11, 3)
     imageio.imwrite(tmp_path / "a.jpg", img[..., :3])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        frame_io.read_gen(str(tmp_path / "a.jpg"))
+    got = frame_io.read_gen(str(tmp_path / "a.jpg"))
+    assert got.shape == (9, 11, 3)
+    assert np.array_equal(got, jframe_io.read_gen(str(tmp_path / "a.jpg")))
     with pytest.raises(ValueError, match="Unsupported"):
         frame_io.read_gen(str(tmp_path / "a.gif"))
 

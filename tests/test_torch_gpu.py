@@ -1061,3 +1061,33 @@ def test_gc_step_on_gpu_matches_cpu(cuda_device):
                 assert gg[k].abs().max() <= 1e-12 * scale, k
             else:
                 assert (gg[k] - v).abs().max() <= 1e-9 * v.abs().max(), k
+
+
+def test_imported_lightning_flownetcv_serves_through_the_kernels(cuda_device, tmp_path):
+    """A Lightning checkpoint of the original FlowNetCV (``model.`` keys,
+    the dead ``deconv2``) through ``tools.import_weights`` and
+    ``load_model`` onto the card: the weights bit for bit, fp32
+    ``fast_apply`` through the kernels within 1e-4 of max|flow| of the
+    eager forward on the plain cost volume."""
+    from ocflow_torch.models import load_model
+    from ocflow_torch.tools import import_weights
+
+    seeded = FlowNetCV(generator=torch.Generator().manual_seed(3))
+    sd = {f"model.{k}": v for k, v in seeded.state_dict().items()}
+    sd["model.deconv2.weight"], sd["model.deconv2.bias"] = torch.zeros(2, 2, 4, 4), torch.zeros(2)
+    torch.save({"state_dict": sd, "epoch": 1}, tmp_path / "trained.ckpt")
+    (entry,) = import_weights.convert_file(str(tmp_path / "trained.ckpt"), str(tmp_path))
+    assert (entry["family"], entry["key"]) == ("flow", "pwc")
+    model = load_model("flow", "pwc", entry["output"], cuda_device)
+    for k, v in seeded.state_dict().items():
+        assert torch.equal(model.state_dict()[k].cpu(), v), k
+    x = torch.rand((2, 64, 128, 6), generator=torch.Generator().manual_seed(4))
+    x = (x * 2 - 1).to(cuda_device)
+    cv_mod.cost_volume.launches = 0
+    fast = fast_apply(model, x)
+    torch.cuda.synchronize()
+    assert cv_mod.cost_volume.launches == 5
+    with torch.no_grad(), _plain_cost_volume():
+        ref = model(x)
+    for f, r in zip(fast, ref):
+        assert (f - r).abs().max().item() <= 1e-4 * r.abs().max().item()
