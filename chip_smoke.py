@@ -251,6 +251,34 @@ Phases (any failure raises and exits non-zero):
    pair; the host decode ms of a 436x1024 frame as JPEG, as an Adam7 PNG
    (written by this file's writer) and as a plain PNG, on 1 and 6 threads.
 
+18. data parallelism (``ocflow_torch.parallel``) over two gloo ranks that
+   share cuda:0 (NCCL refuses two ranks on one GPU), spawned with a
+   ``file://`` store: gloo's collectives on CUDA tensors (all_reduce and
+   broadcast direct, all_gather and the halo's point-to-point through the
+   host; gloo's own all_gather on CUDA probed and printed); bf16 and W8A8
+   ``fast_apply_sharded`` at B=8 448x1024 (a block of 4 a rank): each
+   rank's launches (5 / 59, 53 staged; 5 / 24 / 35, 18 and 35 staged), its
+   block against the single-process ``fast_apply`` on it and the gathered
+   batch against the blocks' forwards (bit for bit expected, held at 2^-6
+   of max|flow|); the fp32 training step on each rank's block against the
+   single-process per-block oracle (``_blocks``: the forward per block, the
+   losses on the whole batch; deterministic algorithms in both): metrics
+   1e-5 relative, gradients 1e-4 of max|grad|; every kernel call of one
+   fp32 step (rank 0) and one bf16 step (rank 1) replayed against its plain
+   version; each rank's launches of one bf16 step (10 / 5 / 72 / 31 / 0);
+   three bf16 Adam steps and the ranks' parameters equal bit for bit (and
+   their checksums); the single-process B=8 bf16 step (rank 0 alone) and
+   the sharded step on both ranks at once timed; ``spatial_cost_volume``
+   at d=4 (8x32x112x256) and d=10 (8x256x56x128), fp32, forward and
+   backward against the single-device kernel (1e-4 of max, bit for bit
+   printed; 1 forward and 1 backward launch a rank); then ``torchrun
+   --standalone --nproc_per_node 2 -m ocflow_torch.train_unsupervised
+   --dist_backend gloo`` on the longrun config cut to 44 samples and 1
+   epoch (rank 0 alone prints, writes the CSV, the events and the
+   checkpoint; ``fit`` checks the replicas equal at its end), and
+   ``python -m ocflow_torch.tools.dryrun_multigpu --nproc 2 --backend
+   gloo``. A failure in any rank fails the phase.
+
 Phases 6 and 8 hold their references (the eager fp32 forward, the eager
 step) on the plain cost volume; phase 6 also holds the eager forward on the
 cost-volume kernel (5 launches) against it.
@@ -4705,6 +4733,461 @@ def _phase17(card, max_err, dev="cuda"):
     return launches, {"import_s": import_s, "ms": ms, "decode_ms": decode}
 
 
+# phase 18: data parallelism over two gloo ranks that share cuda:0
+DP_WORLD = 2
+# the sharded fp32 step against its single-process oracle (the forward per
+# block, the losses on the whole batch), both under deterministic algorithms:
+# metrics relative (and 1e-12 absolute: smooth2 is weighted 0 and near 0),
+# gradients max-abs over each tensor's max|grad|
+DP_METRIC_REL, DP_METRIC_ABS, DP_GRAD_REL = 1e-5, 1e-12, 1e-4
+# the H-sharded cost volume, (d, [B, C, H, W]), forward and backward against
+# the single-device kernel, relative to max|single|
+DP_SPATIAL = ((4, (8, 32, 112, 256)), (10, (8, 256, 56, 128)))
+DP_SPATIAL_REL = 1e-4
+# the torchrun CLI: configs/longrun_synthetic.yaml with these (44 samples:
+# 35 / 4 / 5, 4 steps of 8, each logged; outputs in a temporary directory)
+DP_CLI_CUTS = {"dataset_size": 44, "max_epochs": 1, "log_every_n_steps": 1,
+               "log_image_every_epoch": 1}
+DP_TIMED_STEPS = 5
+
+
+def _dp_collectives(mesh, dev):
+    """The collectives the port uses, on ``dev`` tensors under gloo:
+    all_reduce and broadcast as they are, all_gather and the halo's
+    point-to-point exchange through the host. Returns each one's result."""
+    r = mesh.rank
+    summed = mesh.all_reduce(torch.tensor([r + 1.0], device=dev)).tolist()
+    sent = mesh.broadcast(torch.tensor([r + 5.0], device=dev)).tolist()
+    gathered = mesh.all_gather(torch.tensor([[float(r)]], device=dev)).flatten().tolist()
+    prev, nxt = mesh.exchange(torch.tensor([100.0 + r], device=dev),
+                              torch.tensor([200.0 + r], device=dev))
+    want_prev = 0.0 if r == 0 else 199.0 + r
+    want_next = 0.0 if r == mesh.size - 1 else 101.0 + r
+    ok = (summed == [3.0] and sent == [5.0] and gathered == [0.0, 1.0]
+          and prev.tolist() == [want_prev] and nxt.tolist() == [want_next]
+          and prev.device == nxt.device == torch.device(dev))
+    return {"all_reduce": summed, "broadcast": sent, "all_gather_staged": gathered,
+            "exchange_staged": [prev.item(), nxt.item()], "ok": ok}
+
+
+def _dp_probe_all_gather(mesh, dev):
+    """gloo's own all_gather on ``dev`` tensors (the port stages it through
+    the host): what it gives, or the error it raises."""
+    import torch.distributed as dist
+
+    src = torch.tensor([float(mesh.rank)], device=dev)
+    parts = [torch.empty_like(src) for _ in range(mesh.size)]
+    try:
+        dist.all_gather(parts, src)
+    except (RuntimeError, ValueError) as e:
+        return f"raises: {str(e).splitlines()[0][:200]}"
+    return f"works: {[p.item() for p in parts]}"
+
+
+def _dp_serving(mesh, dev, failures):
+    """bf16 and W8A8 ``fast_apply_sharded`` at B=8 448x1024 (a block of 4 a
+    rank): each path's launches (zeroed just before, read just after), this
+    rank's block against the single-process ``fast_apply`` on it, and the
+    gathered batch against the blocks' forwards put together."""
+    from ocflow_torch import parallel
+    from ocflow_torch.bench import (BATCH, HEIGHT, SEED, WIDTH, calibration_batch,
+                                    make_inputs)
+    from ocflow_torch.models import pwc_fast
+
+    model, x32 = make_inputs(BATCH, HEIGHT, WIDTH, torch.float32, dev, SEED)
+    model_b = copy.deepcopy(model).bfloat16().eval()
+    xb = x32.bfloat16()
+    del model, x32
+    parallel.replicated(model_b, mesh)
+    scales = pwc_fast.calibrate_q8(model_b, calibration_batch(xb), device=dev)
+    blocks = [parallel.batch_sharding(parallel.Mesh(r, mesh.size), BATCH)
+              for r in range(mesh.size)]
+    out = {}
+    for path, q8 in (("bf16", None), ("w8a8", scales)):
+        kw = {"q8": q8, "device": dev}
+        pwc_fast.fast_apply_sharded(model_b, xb, mesh, **kw)  # packs the weights
+        counts, mine = _count_launches(
+            lambda: pwc_fast.fast_apply_sharded(model_b, xb, mesh, **kw))  # noqa: B023
+        gathered = pwc_fast.fast_apply_sharded(model_b, xb, mesh, gather=True, **kw)
+        refs = [pwc_fast.fast_apply(model_b, xb[s], **kw) for s in blocks]
+        whole = [torch.cat(t) for t in zip(*refs)]
+        diff_block = max((m - r).abs().max().item() for m, r in zip(mine, refs[mesh.rank]))
+        diff_gathered = max((g - w).abs().max().item() for g, w in zip(gathered, whole))
+        scale = max(w.abs().max().item() for w in whole)
+        tol = KERNEL_TOL[torch.bfloat16] * scale
+        want = {"cost_volume": 5, "cost_volume_bwd": 0, "conv_group_diff": 0,
+                **pwc_fast.prepare(model_b, torch.bfloat16, dev, q8).launch_counts(),
+                "gemm_probe": 0}
+        got = {k: counts[k] for k in want}
+        out[path] = {"launches": counts, "expected": want, "diff_block": diff_block,
+                     "diff_gathered": diff_gathered, "max_abs": scale, "tol": tol,
+                     "bitwise": diff_block == 0.0 and diff_gathered == 0.0}
+        if got != want or not max(diff_block, diff_gathered) <= tol:
+            failures.append(f"serving {path}: launches {got} (want {want}), block diff "
+                            f"{diff_block}, gathered diff {diff_gathered}, tol {tol}")
+    return out
+
+
+def _dp_train(mesh, dev, failures, max_err):
+    """The training step over the ranks (``longrun_synthetic.yaml`` hparams,
+    seeded FlowNetCV, B=8 448x1024, a block of 4 a rank): the fp32 step
+    against its single-process oracle under deterministic algorithms (rank
+    0 runs the oracle), every kernel call of one fp32 step (rank 0) and of
+    one bf16 step (rank 1) replayed against its plain version, one bf16
+    step's launches, three bf16 Adam steps and the replicas' checksums, the
+    single-process B=8 step (rank 0 alone) and the sharded step timed."""
+    import os
+
+    import torch.distributed as dist
+
+    from ocflow_torch import parallel
+    from ocflow_torch.bench import (BATCH, HEIGHT, SEED, WIDTH, make_train_inputs,
+                                    measure_train, train_hparams)
+    from ocflow_torch.kernels import cost_volume as cv_mod
+    from ocflow_torch.models import pwc_fast
+    from ocflow_torch.train import create_train_state, make_unsupervised_flow_step
+
+    hp_b = train_hparams()
+    hp_f = {**hp_b, "compute_dtype": "float32"}
+    state0, _, batch = make_train_inputs(BATCH, HEIGHT, WIDTH, dev, SEED, hp_b)
+    model0, lr = state0.model, hp_b["learning_rate"]
+    del state0
+    block = parallel.shard_batch(batch, mesh)
+    alone = parallel.Mesh(0, 1)
+    targets = [(pwc_fast, "cost_volume"), (pwc_fast, "conv_group"),
+               (pwc_fast, "conv_group_diff"), (cv_mod, "cost_volume_backward")]
+    names = {"cost_volume_backward": "cost_volume_bwd"}
+    out = {}
+
+    def fresh(hp, **extra):
+        state = create_train_state(copy.deepcopy(model0), lr, device=dev)
+        return state, make_unsupervised_flow_step({**hp, **extra})[0]
+
+    # 1. fp32: the sharded step against the oracle, deterministic
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        state, step = fresh(hp_f, _fast_mesh=mesh)
+        box = {}
+        calls = _record(targets, lambda: box.update(m=step(state, block)[1]))
+        metrics = {k: float(v) for k, v in box["m"].items()}
+        grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+        del state
+        if mesh.rank == 0:
+            ostate, ostep = fresh(hp_f, _blocks=mesh.size, _fast_mesh=alone)
+            want = {k: float(v) for k, v in ostep(ostate, batch)[1].items()}
+            metric_err = {k: abs(metrics[k] - v) / max(abs(v), 1e-30) for k, v in want.items()}
+            metric_ok = all(abs(metrics[k] - v) <= DP_METRIC_REL * abs(v) + DP_METRIC_ABS
+                            for k, v in want.items())
+            grad_err = {n: ((grads[n] - p.grad).abs().max()
+                            / p.grad.abs().max().clamp_min(1e-30)).item()
+                        for n, p in ostate.model.named_parameters()}
+            worst = max(grad_err, key=grad_err.get)
+            out["oracle"] = {"metrics": metrics, "oracle_metrics": want,
+                             "metric_rel": metric_err, "grad_worst": worst,
+                             "grad_max_rel": grad_err[worst],
+                             "grad_median_rel": sorted(grad_err.values())[len(grad_err) // 2]}
+            if set(metrics) != set(want) or not metric_ok:
+                failures.append(f"dp train fp32 vs oracle: metrics {metric_err}")
+            if grad_err[worst] > DP_GRAD_REL:
+                failures.append(f"dp train fp32 vs oracle: gradient {worst} "
+                                f"{grad_err[worst]:.3e} of max|grad|")
+            del ostate
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    if mesh.rank == 0:
+        for kind, args in calls:
+            _check_float(names.get(kind, kind), args, torch.float32, max_err,
+                         "dp train rank 0 ")
+        out["replayed_fp32"] = len(calls)
+    del calls, grads
+    torch.cuda.empty_cache()
+
+    # 2. bf16: one step's kernel calls (rank 1 replays them), the next
+    # step's launches
+    state, step = fresh(hp_b, _fast_mesh=mesh)
+    calls = _record(targets, lambda: step(state, block))
+    if mesh.rank == 1:
+        for kind, args in calls:
+            _check_float(names.get(kind, kind), args, torch.bfloat16, max_err,
+                         "dp train rank 1 ")
+        out["replayed_bf16"] = len(calls)
+    del calls
+    counts, _ = _count_launches(lambda: step(state, block))
+    want = {"cost_volume": 10, "cost_volume_bwd": 5, "conv_group": 72, "conv_group_staged": 72,
+            "conv_group_diff": 31, "conv_group_q8": 0}
+    out["launches"] = counts
+    if {k: counts[k] for k in want} != want:
+        failures.append(f"dp train bf16 launches {counts}, want {want}")
+    del state
+
+    # 3. three bf16 Adam steps from the seed: the replicas stay equal
+    state, step = fresh(hp_b, _fast_mesh=mesh)
+    losses = [float(step(state, block)[1]["loss"]) for _ in range(3)]
+    checksum = sum(p.detach().double().sum().item() for p in state.model.parameters())
+    try:
+        parallel.check_replicated(state.model, mesh)
+        equal = True
+    except RuntimeError:
+        equal = False
+        failures.append("dp train: the ranks' parameters differ after 3 Adam steps")
+    out["adam"] = {"losses": losses, "checksum": checksum, "replicas_equal": equal}
+
+    # 4. timing, bf16: the single-process B=8 step (rank 0 alone), then the
+    # sharded step on both ranks at once
+    dist.barrier()
+    if mesh.rank == 0:
+        single, single_step = fresh(hp_b, _fast_mesh=alone)
+        out["single_b8_ms"] = measure_train(single, single_step, batch)["ms_per_step"]
+        del single
+        torch.cuda.empty_cache()
+    dist.barrier()
+    for _ in range(2):
+        step(state, block)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED_STEPS):
+        step(state, block)
+    torch.cuda.synchronize()
+    out["rank_step_ms"] = (time.perf_counter() - t0) * 1e3 / DP_TIMED_STEPS
+    dist.barrier()
+    return out
+
+
+def _dp_spatial(mesh, dev, failures):
+    """``spatial_cost_volume`` at ``DP_SPATIAL``, fp32, forward and backward
+    for a seeded cotangent: its launches (1 forward, 1 backward), this
+    rank's rows against the single-device kernel's."""
+    from ocflow_torch import parallel
+    from ocflow_torch.kernels import cost_volume as cv_mod
+
+    out = {}
+    for d, (b, c, h, w) in DP_SPATIAL:
+        gen = torch.Generator().manual_seed(d)
+        f1, f2 = (torch.randn((b, c, h, w), generator=gen).to(dev) for _ in range(2))
+        g = torch.randn((b, (2 * d + 1) ** 2, h, w), generator=gen).to(dev)
+        rows = parallel.batch_sharding(parallel.Mesh(mesh.rank, mesh.size), h)
+        a = f1[:, :, rows].clone().requires_grad_()
+        bb = f2[:, :, rows].clone().requires_grad_()
+
+        def run():
+            o = parallel.spatial_cost_volume(a, bb, d, mesh)  # noqa: B023
+            (o * g[:, :, rows]).sum().backward()  # noqa: B023
+            return o.detach()
+
+        counts, mine = _count_launches(run)
+        fa, fb = f1.requires_grad_(), f2.requires_grad_()
+        ref = cv_mod.cost_volume(fa, fb, d)
+        (ref * g).sum().backward()
+        ref = ref.detach()[:, :, rows]
+        errs = {"forward": ((mine - ref).abs().max() / ref.abs().max()).item(),
+                "df1": ((a.grad - fa.grad[:, :, rows]).abs().max()
+                        / fa.grad.abs().max()).item(),
+                "df2": ((bb.grad - fb.grad[:, :, rows]).abs().max()
+                        / fb.grad.abs().max()).item()}
+        bitwise = {"forward": torch.equal(mine, ref),
+                   "df1": torch.equal(a.grad, fa.grad[:, :, rows]),
+                   "df2": torch.equal(bb.grad, fb.grad[:, :, rows])}
+        launches = {k: counts[k] for k in ("cost_volume", "cost_volume_bwd")}
+        out[f"d{d}"] = {"shape": [b, c, h, w], "rows": [rows.start, rows.stop],
+                        "rel": errs, "bitwise": bitwise, "launches": counts}
+        if launches != {"cost_volume": 1, "cost_volume_bwd": 1} \
+                or max(errs.values()) > DP_SPATIAL_REL:
+            failures.append(f"dp spatial d={d}: {errs}, launches {launches}")
+        del f1, f2, g, a, bb, fa, fb, ref, mine
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rank(rank, nproc, store, out_dir, dev="cuda"):
+    """One rank of phase 18: joins the gloo group on ``dev`` (every rank on
+    cuda:0), runs the collectives, serving, training and spatial checks,
+    and writes its readings (failures included: a rank does not raise
+    between collectives, so the other does not wait on it) to
+    ``out_dir/rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ocflow_torch import parallel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.initialize(store, nproc, rank, backend="gloo", device=dev,
+                        timeout=datetime.timedelta(seconds=600))
+    try:
+        device = parallel.local_device(dev)
+        mesh = parallel.make_mesh(device=device)
+        failures, max_err = [], {k: 0.0 for k in ("cost_volume", "cost_volume_bwd",
+                                                   "conv_group", "conv_group_diff")}
+        t0 = time.perf_counter()
+        res = {"rank": rank, "device": str(device), "collectives": _dp_collectives(mesh, device)}
+        if not res["collectives"]["ok"]:
+            failures.append(f"collectives {res['collectives']}")
+        res["serving"] = _dp_serving(mesh, device, failures)
+        torch.cuda.empty_cache()
+        res["train"] = _dp_train(mesh, device, failures, max_err)
+        torch.cuda.empty_cache()
+        res["spatial"] = _dp_spatial(mesh, device, failures)
+        res["collectives"]["gloo_all_gather_direct"] = _dp_probe_all_gather(mesh, device)
+        res.update(failures=failures, max_err=max_err, seconds=time.perf_counter() - t0)
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_cli(card, tmp, dev="cuda"):
+    """``torchrun --standalone --nproc_per_node 2 -m
+    ocflow_torch.train_unsupervised --dist_backend gloo`` on
+    ``configs/longrun_synthetic.yaml`` with ``DP_CLI_CUTS``: exit 0 (``fit``
+    checks at its end that the ranks' parameters are equal, and raises if
+    not), one ``fit:`` and one ``test:`` line (rank 0 prints), one CSV
+    header with 4 train rows and 1 val row (rank 0 writes), one TensorBoard
+    event file, the best checkpoint. Returns its wall time."""
+    import csv
+    import os
+    import subprocess
+
+    from ocflow_torch.train import config as config_lib
+
+    with open("configs/longrun_synthetic.yaml") as f:
+        raw = config_lib.parse_flat_yaml(f.read())
+    raw.update(DP_CLI_CUTS)
+    raw.update({k: os.path.join(tmp, v) for k, v in (
+        ("metrics_csv", "metrics.csv"), ("log_dir", "tb"), ("checkpoint_dir", "ckpt"),
+        ("result_dir", "."))})
+    path = os.path.join(tmp, "dp.yaml")
+    with open(path, "w") as f:
+        f.write("".join(f"{k}: {_yaml_value(v)}\n" for k, v in raw.items()))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", str(DP_WORLD), "-m",
+                           "ocflow_torch.train_unsupervised", "--config", path,
+                           "--device", dev, "--dist_backend", "gloo"],
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    fit_lines = [ln for ln in lines if ln.startswith("fit:")]
+    test_lines = [ln for ln in lines if ln.startswith("test:")]
+    with open(raw["metrics_csv"]) as f:
+        text = f.read().splitlines()
+    phases = [r["phase"] for r in csv.DictReader(text)]
+    events = [n for n in os.listdir(raw["log_dir"]) if n.startswith("events")]
+    ckpts = os.listdir(raw["checkpoint_dir"])
+    print(f"dp torchrun CLI (2 gloo ranks on one card, longrun_synthetic.yaml with "
+          f"{DP_CLI_CUTS}): exit {proc.returncode}, {fit_lines}, {test_lines}, CSV "
+          f"{sum(t.startswith('phase,') for t in text)} header, {phases.count('train')} "
+          f"train and {phases.count('val')} val rows, {len(events)} TensorBoard event "
+          f"file, checkpoints {ckpts}; {wall:.1f} s wall (torchrun, both ranks' start and "
+          f"TensorBoard included) [{card}]")
+    if proc.returncode != 0 or len(fit_lines) != 1 or len(test_lines) != 1 \
+            or sum(t.startswith("phase,") for t in text) != 1 \
+            or phases != ["train"] * 4 + ["val"] or len(events) != 1 or not ckpts:
+        raise AssertionError(f"dp torchrun CLI: {proc.returncode} {phases} {events} "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    return wall
+
+
+def _dp_dryrun(card):
+    """``python -m ocflow_torch.tools.dryrun_multigpu --nproc 2 --backend
+    gloo`` (cuda; its default 4 pairs at 64x64, a 1x1 map at level 6): exit
+    0, its JSON line. Returns it."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ocflow_torch.tools.dryrun_multigpu",
+                           "--nproc", str(DP_WORLD), "--backend", "gloo"],
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun_multigpu: exit {proc.returncode} "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"dp dryrun_multigpu --nproc 2 --backend gloo: exit 0, metrics vs oracle max rel "
+          f"{res['metric_max_rel']:.3e}, gradients {res['grad_max_rel']:.3e} of max|grad| "
+          f"({res['grad_worst']}), replicas equal {res['replicas_equal']}; {wall:.1f} s wall "
+          f"[{card}]")
+    return res
+
+
+def _phase18(card, max_err, dev="cuda"):
+    """Phase 18 (module docstring): two gloo ranks sharing the card. Returns
+    the launches of its paths, per rank, and its numbers."""
+    import os
+    import tempfile
+
+    from ocflow_torch.tools.dryrun_multigpu import spawn
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches, failures = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(_dp_rank, DP_WORLD, tmp, dev, timeout=900)
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    ranks_s = time.perf_counter() - t0
+    label = f"[two ranks sharing one card, gloo; {card}]"
+    for res in ranks:
+        r = res["rank"]
+        failures += [f"rank {r}: {f}" for f in res["failures"]]
+        for k, v in res["max_err"].items():
+            max_err[k] = max(max_err[k], v)
+        print(f"dp rank {r} on {res['device']}: collectives {res['collectives']}")
+        for path, s in res["serving"].items():
+            launches[f"dp_{path}_rank{r}"] = s["launches"]
+            print(f"dp rank {r} fast_apply_sharded {path} (its block of B=8 448x1024): "
+                  f"launches {s['launches']} (expected {s['expected']}); block vs the "
+                  f"single-process fast_apply max_abs_diff {s['diff_block']:.3e}, gathered "
+                  f"batch vs the blocks' forwards {s['diff_gathered']:.3e} (bit for bit "
+                  f"{s['bitwise']}; tol {s['tol']:.3e}, 2^-6 of max|flow| {s['max_abs']:.3e})")
+        tr = res["train"]
+        launches[f"dp_train_rank{r}"] = tr["launches"]
+        if "oracle" in tr:
+            o = tr["oracle"]
+            print(f"dp rank {r} fp32 step vs the single-process oracle (deterministic "
+                  f"algorithms): metrics {o['metrics']} vs {o['oracle_metrics']}, max rel "
+                  f"{max(o['metric_rel'].values()):.3e} (tol {DP_METRIC_REL}); gradients max "
+                  f"{o['grad_max_rel']:.3e} of max|grad| ({o['grad_worst']}), median "
+                  f"{o['grad_median_rel']:.3e} (tol {DP_GRAD_REL})")
+        print(f"dp rank {r} bf16 step launches {tr['launches']} (expected 10 / 5 / 72 / 31 / "
+              f"0); replayed calls fp32 {tr.get('replayed_fp32', 0)}, bf16 "
+              f"{tr.get('replayed_bf16', 0)}; 3 Adam steps: losses {tr['adam']['losses']}, "
+              f"parameter checksum {tr['adam']['checksum']!r}, replicas equal "
+              f"{tr['adam']['replicas_equal']}")
+        if "single_b8_ms" in tr:
+            print(f"time dp single-process bf16 step B=8 448x1024 (rank 0 alone): "
+                  f"{tr['single_b8_ms']:.3f} ms/step {label}")
+        print(f"time dp sharded bf16 step, rank {r}'s block of 4: {tr['rank_step_ms']:.3f} "
+              f"ms/step (mean of {DP_TIMED_STEPS}, both ranks stepping at once) {label}")
+        for key, s in res["spatial"].items():
+            launches[f"dp_spatial_{key}_rank{r}"] = s["launches"]
+            print(f"dp rank {r} spatial_cost_volume {key} {s['shape']} rows {s['rows']}: "
+                  f"rel to max|single| {s['rel']} (tol {DP_SPATIAL_REL}), bit for bit "
+                  f"{s['bitwise']}, launches cost_volume {s['launches']['cost_volume']} "
+                  f"backward {s['launches']['cost_volume_bwd']}")
+        print(f"dp rank {r}: {res['seconds']:.1f} s from joining the group")
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_s = _dp_cli(card, tmp, dev)
+    dry = _dp_dryrun(card)
+    checksums = {res["train"]["adam"]["checksum"] for res in ranks}
+    if len(checksums) != 1:
+        failures.append(f"dp parameter checksums differ: {checksums}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    wall = time.perf_counter() - t0
+    print(f"data parallelism: phase 18 took {wall:.1f} s wall (the ranks {ranks_s:.1f} s, "
+          f"the torchrun CLI {cli_s:.1f} s, the dry run {dry['seconds']:.1f} s of its own) "
+          f"[{card}]")
+    return launches, {"ranks": ranks, "cli_s": cli_s, "dryrun": dry, "seconds": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5015,6 +5498,10 @@ def main() -> int:
     # 17. trained weights from original checkpoints, imported and served;
     # JPEG and interlaced PNG frames
     more, _ = _phase17(card, max_err)
+    launches.update(more)
+
+    # 18. data parallelism: two gloo ranks sharing the card
+    more, _ = _phase18(card, max_err)
     launches.update(more)
 
     # per kernel: its source, the TPU kernel it replaces, and the path whose

@@ -17,9 +17,11 @@ range map and occlusion masks (``ops.range_map``); the training system
 around the step (``python -m ocflow_torch.train_unsupervised``: the
 procedural datasets and loaders with the device cache, ``data``; the fit
 loop, ``train.loop``; checkpoints, panels and the PNG writer, ``utils``;
-flow metrics, ``metrics``); and measurement tools (``tools``: the int8 /
-bf16 GEMM probe, W8A8 accuracy, the training step's profile, the W8A8
-arms' EPE on trained weights).
+flow metrics, ``metrics``); data parallelism over several processes
+(``parallel``: the process group, the data mesh, the rank-wide metrics, the
+height-sharded cost volume and warp); and measurement tools (``tools``: the
+int8 / bf16 GEMM probe, W8A8 accuracy, the training step's profile, the
+W8A8 arms' EPE on trained weights, the multi-rank dry run).
 
 Layout: the public model entry points take and return NHWC like the JAX
 package; everything inside (ops, kernels, modules) is NCHW.

@@ -3,8 +3,18 @@ a threaded loader, the device-resident cache and device placement.
 
 The splits and the shuffles are the JAX package's numpy permutations, so
 both packages see the same samples in the same order. Batches are dicts of
-stacked tensors ``[B, ...]``. One process, one device: sharding over
-several GPUs is not ported yet.
+stacked tensors ``[B, ...]``.
+
+Several ranks (``parallel.mesh``): ``batch_size`` is the global batch, and
+rank ``r`` of ``N`` takes the contiguous block ``[r B / N, (r + 1) B / N)``
+of each one, as the JAX package places a batch over one host's devices. A
+loader built with ``block=(r, N)`` loads only that block of every global
+batch; ``device_iterator(loader, device, mesh)`` takes the block from a
+loader that loads whole batches. A ragged last eval batch is first padded to
+a multiple of ``N`` by repeating its last sample, as the JAX
+``device_iterator`` pads it (the val means include the repeated sample).
+``shard_index`` / ``num_shards`` is the JAX package's per-process split of
+the indices (``idx[shard_index::num_shards]``).
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ import torch
 
 from ocflow_torch import resolve_device
 from ocflow_torch.data.datasets import DATASET_REGISTRY, Dataset
+from ocflow_torch.parallel.mesh import Mesh, shard_batch
 
 
 class Subset(Dataset):
@@ -73,25 +84,42 @@ def _stack(samples: list[dict]) -> dict:
     return {k: torch.stack([torch.as_tensor(s[k]) for s in samples]) for k in samples[0]}
 
 
+def _pad_ragged(n: int, world: int) -> int:
+    """The samples to repeat so that a batch of ``n`` splits over ``world``."""
+    return -n % world
+
+
 class DataLoader:
     """Map-style loader: shuffling by ``default_rng((seed, epoch))``,
     batching, a worker thread pool, ``drop_last`` (train) or a kept ragged
     last batch (eval). Yields dicts of stacked tensors on the device the
     dataset generates on (the CPU for the file-backed datasets, whose
-    decoders release the GIL, so the threads decode in parallel)."""
+    decoders release the GIL, so the threads decode in parallel).
+
+    ``shard_index`` / ``num_shards``: this process's strided share of the
+    indices (the JAX multi-host split). ``block=(rank, world)``: only this
+    rank's block of each global batch of ``batch_size`` (the module
+    docstring; ``drop_last`` needs ``batch_size`` divisible by ``world``)."""
 
     def __init__(self, dataset: Dataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 0, num_workers: int = 6, drop_last: bool = True):
+                 seed: int = 0, num_workers: int = 6, drop_last: bool = True,
+                 shard_index: int = 0, num_shards: int = 1,
+                 block: tuple[int, int] | None = None):
+        if block is not None and drop_last and batch_size % block[1]:
+            raise ValueError(f"a batch of {batch_size} does not split over {block[1]} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = num_workers
         self.drop_last = drop_last
+        self.shard_index = shard_index
+        self.num_shards = num_shards
+        self.block = block
         self.epoch = 0
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.dataset) // self.num_shards
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
@@ -102,13 +130,21 @@ class DataLoader:
     def _indices(self) -> np.ndarray:
         n = len(self.dataset)
         if self.shuffle:
-            return np.random.default_rng((self.seed, self.epoch)).permutation(n)
-        return np.arange(n)
+            idx = np.random.default_rng((self.seed, self.epoch)).permutation(n)
+        else:
+            idx = np.arange(n)
+        return idx[self.shard_index::self.num_shards]
 
     def _chunks(self) -> Iterator[np.ndarray]:
         idx = self._indices()
         for b in range(len(self)):
-            yield idx[b * self.batch_size:(b + 1) * self.batch_size]
+            chunk = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            if self.block is not None:
+                rank, world = self.block
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], _pad_ragged(len(chunk),
+                                                                                 world))])
+                chunk = shard_batch(torch.from_numpy(chunk), Mesh(rank, world)).numpy()
+            yield chunk
 
     def __iter__(self) -> Iterator[dict]:
         if self.num_workers <= 0:
@@ -138,9 +174,12 @@ class DeviceCacheLoader(DataLoader):
 
     def __init__(self, dataset: Dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, num_workers: int = 6, drop_last: bool = True,
+                 shard_index: int = 0, num_shards: int = 1,
+                 block: tuple[int, int] | None = None,
                  cache_dtype="bfloat16", fp32_keys=("flow", "occlusion", "valid"),
                  device=None):
-        super().__init__(dataset, batch_size, shuffle, seed, num_workers, drop_last)
+        super().__init__(dataset, batch_size, shuffle, seed, num_workers, drop_last,
+                         shard_index, num_shards, block)
         self.cache_dtype = getattr(torch, cache_dtype)
         self.fp32_keys = frozenset(fp32_keys)
         self.device = resolve_device(device)
@@ -202,13 +241,29 @@ def prefetch(iterator, size: int = 2):
         yield item
 
 
-def device_iterator(loader, device, prefetch_size: int = 2):
+def device_iterator(loader, device, mesh: Mesh | None = None, prefetch_size: int = 2):
     """Batches of ``loader`` on ``device``, prepared ``prefetch_size`` ahead
     in a background thread. Host batches bound for a GPU are pinned and
-    copied without blocking; batches already there pass through."""
+    copied without blocking; batches already there pass through.
+
+    With a ``mesh`` of several ranks each batch is this rank's block: a
+    loader built with ``block=(mesh.rank, mesh.size)`` yields it already;
+    from any other loader the whole batch is padded (a ragged one, by
+    repeating its last sample) and the block taken."""
     dev = resolve_device(device)
+    split = mesh is not None and mesh.size > 1
+    if split and getattr(loader, "block", None) is not None:
+        if tuple(loader.block) != (mesh.rank, mesh.size):
+            raise ValueError(f"loader block {loader.block} on rank {mesh.rank} of {mesh.size}")
+        split = False
 
     def place(batch):
+        if split:
+            pad = _pad_ragged(next(iter(batch.values())).shape[0], mesh.size)
+            if pad:
+                batch = {k: torch.cat([v, v[-1:].expand(pad, *v.shape[1:])])
+                         for k, v in batch.items()}
+            batch = shard_batch(batch, mesh)
         if dev.type == "cuda":
             return {k: v.pin_memory().to(dev, non_blocking=True) if v.device.type == "cpu"
                     else v.to(dev) for k, v in batch.items()}

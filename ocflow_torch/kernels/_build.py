@@ -3,8 +3,10 @@
 Each source becomes one shared library with a plain C interface, compiled
 for ``sm_90a`` into ``build/ocflow_torch_kernels/`` at the repository root
 (the file name carries a hash of the source, so an edited kernel rebuilds).
-``build_all`` starts one ``nvcc`` per source, all at once. A build failure
-raises; there is no fallback.
+``build_all`` starts one ``nvcc`` per source, all at once, holding a lock on
+the build directory: ranks of one job that start together build each
+library once, the others wait and load it. A build failure raises; there is
+no fallback.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception.
@@ -13,6 +15,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -76,20 +79,23 @@ def build_all(names=None) -> dict[str, dict]:
     "seconds", "log", "returncode"}}``."""
     names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    result, todo = {}, {}
-    for name in names:
-        src, out = _target(name)
-        if out.exists():
-            result[name] = {"path": str(out), "seconds": 0.0, "log": "cached",
-                            "returncode": 0}
-        else:
-            todo[name] = (src, out)
-    if todo:
-        nvcc = _nvcc()
-        with ThreadPoolExecutor(len(todo)) as pool:
-            futures = {name: pool.submit(_compile, nvcc, src, out)
-                       for name, (src, out) in todo.items()}
-        result.update((name, f.result()) for name, f in futures.items())
+    # an flock: released if its holder dies, so a killed build leaves none
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        result, todo = {}, {}
+        for name in names:
+            src, out = _target(name)
+            if out.exists():
+                result[name] = {"path": str(out), "seconds": 0.0, "log": "cached",
+                                "returncode": 0}
+            else:
+                todo[name] = (src, out)
+        if todo:
+            nvcc = _nvcc()
+            with ThreadPoolExecutor(len(todo)) as pool:
+                futures = {name: pool.submit(_compile, nvcc, src, out)
+                           for name, (src, out) in todo.items()}
+            result.update((name, f.result()) for name, f in futures.items())
     failures = [f"{name}: nvcc exited {r['returncode']}\n{r['log']}"
                 for name, r in result.items() if r["returncode"] != 0]
     if failures:

@@ -3,6 +3,12 @@
 Elementwise terms run in the input dtype (bf16 under mixed precision);
 every reduction accumulates in fp32: a bf16 sum over ~10M pixels loses the
 loss signal (8-bit mantissa).
+
+Both losses are ratios of batch-wide sums. Under data parallelism
+(``reduce``: a function that sums a tensor over the ranks, without
+gradient) each returns this rank's share of the global-batch value: its
+own numerator over the global denominator. The shares sum to the loss of
+the global batch, and so do their gradients.
 """
 
 from __future__ import annotations
@@ -31,9 +37,11 @@ def census_transform(img: torch.Tensor, patch_size: int = 7) -> torch.Tensor:
 
 def census_loss(img1: torch.Tensor, img2_warped: torch.Tensor,
                 occ: torch.Tensor | None = None,
-                patch_size: int = 7) -> torch.Tensor:
+                patch_size: int = 7, reduce=None) -> torch.Tensor:
     """Soft-hamming census distance, occlusion-masked (``occ`` ``[B, 1, H,
-    W]``, 1 = occluded) and zero in the patch border."""
+    W]``, 1 = occluded) and zero in the patch border. Without ``occ`` the
+    denominator is one image's border mask (no batch axis), the same on
+    every rank; ``reduce``: the module docstring."""
     t1 = census_transform(img1, patch_size)
     t2 = census_transform(img2_warped, patch_size)
     sq = (t1 - t2) ** 2
@@ -45,16 +53,25 @@ def census_loss(img1: torch.Tensor, img2_warped: torch.Tensor,
     if occ is not None:
         mask = mask * (1.0 - occ)
     num = (robust_l1(ham) * mask).float().sum()
-    return num / (mask.float().sum() + 1e-16)
+    den = mask.float().sum()
+    if reduce is not None and occ is not None:
+        den = reduce(den)
+    return num / (den + 1e-16)
 
 
 def photometric_error(img_pred: torch.Tensor, img: torch.Tensor,
-                      occ: torch.Tensor | None = None) -> torch.Tensor:
+                      occ: torch.Tensor | None = None, reduce=None) -> torch.Tensor:
     """Occlusion-normalized charbonnier photometric error of ``[B, 3, H,
     W]`` images. With ``occ`` (``[B, 1, H, W]``, 1 = occluded):
-    ``sum(err * (1 - occ)) / (sum(1 - occ) * 3 + 1e-16)``."""
+    ``sum(err * (1 - occ)) / (sum(1 - occ) * 3 + 1e-16)``; without, the
+    mean. ``reduce``: the module docstring."""
     error = robust_l1(img_pred - img).float()
     if occ is None:
-        return error.mean()
+        if reduce is None:
+            return error.mean()
+        return error.sum() / reduce(error.new_tensor(float(error.numel())))
     vis = (1.0 - occ).float()
-    return (error * vis).sum() / (vis.sum() * 3.0 + 1e-16)
+    den = vis.sum()
+    if reduce is not None:
+        den = reduce(den)
+    return (error * vis).sum() / (den * 3.0 + 1e-16)

@@ -32,6 +32,11 @@ context network eager; the differentiable cost volume (its backward a
 kernel too). Weights are reordered and cast to the compute dtype inside
 the graph, so gradients reach the fp32 master parameters.
 
+Several ranks (``parallel.mesh``): :func:`fast_apply_sharded` and
+:func:`fast_apply_pair_sharded` run the same forwards on each rank's
+contiguous block of the global batch (``gather=True``: the whole batch's
+flows on every rank).
+
 W8A8 (``fast_apply(..., q8=scales)``, scales from :func:`calibrate_q8`):
 every decoder group L6..L2 runs on the int8 conv-group kernel
 (``kernels/conv_chain_q8.py``): the five growth convs store int8 codes; the
@@ -66,6 +71,7 @@ from ocflow_torch.models.pwc_net import (CONTEXT, DECODER_LEVELS, GROWTH, LEVEL_
 from ocflow_torch.ops.cost_volume import normalize_features
 from ocflow_torch.ops.resize import resize_bilinear
 from ocflow_torch.ops.warp import warp
+from ocflow_torch.parallel.mesh import shard_batch
 
 # (phase, 3x3 tap index, transposed-conv kernel index) of a stride-2 4x4
 # ConvTranspose2d(padding=1): output row 2h+a sums input rows h-1, h (a=0,
@@ -101,11 +107,13 @@ def _phase_conv_weights(deconv: nn.ConvTranspose2d):
 
 
 def _unpack_phases(y8: torch.Tensor) -> torch.Tensor:
-    """``[B, 4c, H, W]`` phase-packed -> ``[B, c, 2H, 2W]``."""
+    """``[B, 4c, H, W]`` phase-packed -> ``[B, c, 2H, 2W]``, contiguous
+    (the reshape copies, except at H = W = 1, where it would return a view
+    whose strides the conv kernels do not read)."""
     b, c4, h, w = y8.shape
     c = c4 // 4
     y = y8.reshape(b, 2, 2, c, h, w).permute(0, 3, 4, 1, 5, 2)
-    return y.reshape(b, c, 2 * h, 2 * w)
+    return y.reshape(b, c, 2 * h, 2 * w).contiguous()
 
 
 @dataclass
@@ -449,6 +457,35 @@ def fast_apply_pair(model: FlowNetCV, x: torch.Tensor, q8=None, device=None,
             bwd = _flows(_decode_fused(model, fw, [f.detach() for f in f2],
                                        [f.detach() for f in f1]))
     mark("backward decode")
+    return fwd, bwd
+
+
+def fast_apply_sharded(model, x: torch.Tensor, mesh, q8=None, device=None,
+                       diff: bool = False, gather: bool = False):
+    """:func:`fast_apply` over the ranks of ``mesh`` (port of ``ocflow_tpu``
+    ``fast_apply_sharded``): ``x`` is the global batch ``[B, H, W, 6]``
+    (``B`` divisible by the world size), each rank runs the single-GPU
+    kernels on its contiguous block and returns its block's flows. The
+    model must be replicated (``parallel.replicated``). Feature
+    normalization takes its moments over the block, as each device's shard
+    does in the JAX package. ``gather=True`` returns the whole batch's
+    flows on every rank (serving only: not with ``diff``). Any failure
+    raises; nothing falls back to one rank."""
+    if diff and gather:
+        raise ValueError("fast_apply_sharded: gather is for serving; diff keeps the block")
+    out = fast_apply(model, shard_batch(x, mesh), q8=q8, device=device, diff=diff)
+    return tuple(mesh.all_gather(o) for o in out) if gather else out
+
+
+def fast_apply_pair_sharded(model, x: torch.Tensor, mesh, q8=None, device=None,
+                            gather: bool = False, mark=None):
+    """:func:`fast_apply_pair` over the ranks of ``mesh``, as
+    :func:`fast_apply_sharded`: each rank's block of ``x``, its flows (the
+    forward pair with gradients), or with ``gather=True`` the whole batch's
+    without them."""
+    fwd, bwd = fast_apply_pair(model, shard_batch(x, mesh), q8=q8, device=device, mark=mark)
+    if gather:
+        return tuple(tuple(mesh.all_gather(o) for o in pair) for pair in (fwd, bwd))
     return fwd, bwd
 
 

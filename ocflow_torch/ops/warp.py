@@ -41,25 +41,38 @@ def warp(img: torch.Tensor, flow: torch.Tensor,
     multiply-add: the product of two fp32 values is exact in fp64.
     Taps outside the image get weight 0. Returns ``img``'s dtype.
     """
-    b, c, h, w = img.shape
     coords = flow_to_warp(flow.float())
     x, y = coords[:, 0], coords[:, 1]
     if not align_corners:
+        _, _, h, w = img.shape
         sx, sy = (float(torch.tensor(n / max(n - 1, 1), dtype=torch.float32))
                   for n in (w, h))
         x = (x.double() * sx - 0.5).float()
         y = (y.double() * sy - 0.5).float()
+    return sample_bilinear(img, x, y)
+
+
+def sample_bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                    row0: int = 0, rows: int | None = None) -> torch.Tensor:
+    """``img [B, C, Hi, Wi]`` sampled bilinearly at the fp32 pixel
+    coordinates ``x``, ``y`` (``[B, Ho, Wo]``); taps outside the image get
+    weight 0. ``y`` may count rows in a taller frame of ``rows`` rows whose
+    row ``row0`` is ``img``'s first (a block of an image's rows): the taps
+    and weights are those of the whole frame, read from ``img``. Returns
+    ``[B, C, Ho, Wo]`` in ``img``'s dtype."""
+    b, c, h, w = img.shape
+    n = x.shape[1] * x.shape[2]
     x0 = torch.floor(x).clamp(0, w - 2)
-    y0 = torch.floor(y).clamp(0, h - 2)
+    y0 = torch.floor(y).clamp(0, (h if rows is None else rows) - 2)
     acc = torch.promote_types(img.dtype, torch.float32)
     wx = [torch.relu(1.0 - (x - (x0 + k)).abs()).to(acc) for k in (0, 1)]
     wy = [torch.relu(1.0 - (y - (y0 + k)).abs()).to(acc) for k in (0, 1)]
-    base = (y0.long() * w + x0.long()).reshape(b, 1, h * w)
+    base = ((y0.long() - row0).clamp(0, h - 2) * w + x0.long()).reshape(b, 1, n)
     flat = img.reshape(b, c, h * w)
-    out = torch.zeros((b, c, h * w), dtype=acc, device=img.device)
+    out = torch.zeros((b, c, n), dtype=acc, device=img.device)
     for dy in (0, 1):
         for dx in (0, 1):
-            idx = (base + (dy * w + dx)).expand(b, c, h * w)
-            wgt = (wy[dy] * wx[dx]).reshape(b, 1, h * w)
+            idx = (base + (dy * w + dx)).expand(b, c, n)
+            wgt = (wy[dy] * wx[dx]).reshape(b, 1, n)
             out += torch.gather(flat, 2, idx).to(acc) * wgt
-    return out.reshape(b, c, h, w).to(img.dtype)
+    return out.reshape(b, c, *x.shape[1:]).to(img.dtype)

@@ -20,6 +20,11 @@ pass no dropout rng, so the reference cannot train them either
 (``train.steps.check_trainable``). ``inpainting`` trains any generator
 of the registry's family (``simple``, ``gated``, ``gated_org``). Runs on
 ``cuda`` unless ``--device`` says otherwise.
+
+Under ``torchrun`` (``--dist_backend nccl | gloo``, as
+``ocflow_torch.train_unsupervised``) the ``flow``, ``occ`` and ``flow-occ``
+regimes train data-parallel on nets without BatchNorm; ``inpainting`` and
+``find_best_lr`` raise there.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import argparse
 
 import torch
 
-from ocflow_torch import resolve_device
+from ocflow_torch import parallel, resolve_device
 from ocflow_torch.models import registry
 from ocflow_torch.models.pwc_net import FlowNetCV
 from ocflow_torch.train import config as config_lib
@@ -59,6 +64,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--config", default="configs/supervised.yaml")
     ap.add_argument("--max_epochs", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--dist_backend", choices=parallel.BACKENDS, default=None,
+                    help="under torchrun: nccl (default on CUDA) or gloo (the CPU, or ranks "
+                         "sharing a GPU)")
     args = ap.parse_args(argv)
 
     cfg = config_lib.load_config(args.config)
@@ -68,25 +76,33 @@ def main(argv=None) -> dict:
         raise ValueError(f"network_type {cfg.network_type!r}: want one of "
                          f"{sorted(REGIMES)}")
     check_trainable(cfg.model)
-    device = resolve_device(args.device)
+    with parallel.process_group(args.dist_backend, args.device) as multi:
+        if multi and cfg.find_best_lr:
+            raise NotImplementedError("find_best_lr over several processes: run the range "
+                                      "test on one")
+        device = parallel.local_device(args.device) if multi else resolve_device(args.device)
+        mesh = parallel.default_mesh(cfg.mesh_shape, device)
 
-    train_loader, val_loader, test_loader = loop.make_loaders(cfg, device)
-    train_step, eval_step = REGIMES[cfg.network_type][1](cfg.as_hparams())
+        train_loader, val_loader, test_loader = loop.make_loaders(cfg, device, mesh)
+        train_step, eval_step = REGIMES[cfg.network_type][1](
+            {**cfg.as_hparams(), "_fast_mesh": mesh})
 
-    def build_state(learning_rate: float):
-        return create_train_state(build_net(cfg), learning_rate, device=device)
+        def build_state(learning_rate: float):
+            return create_train_state(build_net(cfg), learning_rate, device=device)
 
-    if cfg.find_best_lr:
-        suggested, _, _ = lr_find(build_state, lambda: (train_step, eval_step),
-                                  train_loader, num_steps=100)
-        print("find_best_lr suggestion:", suggested)
-        cfg.learning_rate = suggested
+        if cfg.find_best_lr:
+            suggested, _, _ = lr_find(build_state, lambda: (train_step, eval_step),
+                                      train_loader, num_steps=100)
+            print("find_best_lr suggestion:", suggested)
+            cfg.learning_rate = suggested
 
-    state = build_state(cfg.learning_rate)
-    state = loop.fit(cfg, state, train_step, eval_step, train_loader, val_loader)
-    results = loop.evaluate(cfg, state, eval_step, test_loader)
-    print("test:", results)
-    return results
+        state = build_state(cfg.learning_rate)
+        state = loop.fit(cfg, state, train_step, eval_step, train_loader, val_loader,
+                         mesh=mesh)
+        results = loop.evaluate(cfg, state, eval_step, test_loader, mesh=mesh)
+        if parallel.is_main_process():
+            print("test:", results)
+        return results
 
 
 if __name__ == "__main__":

@@ -68,7 +68,8 @@ class Config:
     log_dir: str = "tensorboard_logs"
     checkpoint_dir: str = "checkpoints"
     metrics_csv: str = ""
-    # parallelism
+    # parallelism: the data mesh over several processes, (world size,) by
+    # default; read by train.loop when more than one process runs
     mesh_shape: Optional[Tuple[int, ...]] = None
     # compute dtype of the network ('float32' | 'bfloat16')
     compute_dtype: str = "float32"

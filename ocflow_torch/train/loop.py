@@ -2,8 +2,15 @@
 splits, validation, the metrics sinks (TensorBoard, CSV), the validation
 panels, the best checkpoint on ``monitored_loss`` and early stopping.
 
-One process on one device. The device is the train state's: the loaders
-generate and keep their data there (``make_loaders(cfg, device)``).
+The device is the train state's: the loaders generate and keep their data
+there (``make_loaders(cfg, device)``). Over several processes (``mesh``,
+default ``parallel.default_mesh(cfg.mesh_shape)``: a mesh over every
+process when more than one runs) each rank loads its block of every global
+batch of ``batch_size``, the state starts from rank 0's parameters, the
+steps (built for the same mesh) return global-batch metrics, the val means
+go through ``global_mean_metrics`` so every rank takes the same early-stop
+decision, and only the main process writes TensorBoard, the CSV, the panels
+and the checkpoints. After the run the replicas are checked equal.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import numpy as np
 import torch
 
 from ocflow_torch import data as data_lib
+from ocflow_torch import parallel
 from ocflow_torch.train.config import Config
 from ocflow_torch.train.state import state_device
 from ocflow_torch.utils.checkpoint import CheckpointManager
@@ -27,8 +35,10 @@ class SummaryLogger:
     a no-op where TensorBoard does not import. Images go in as the PNG
     writer's bytes (``add_image`` would need PIL)."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, enabled: bool = True):
         self._writer = None
+        if not enabled:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -113,14 +123,18 @@ def fetch(metrics: dict) -> dict:
     return dict(zip(metrics, values.tolist()))
 
 
-def make_loaders(cfg: Config, device=None):
+def make_loaders(cfg: Config, device=None, mesh=None):
     """Dataset -> seeded 80/10/10 split (``overfit``: train = val = test) ->
     loaders ``(train, val, test)``. The procedural datasets generate on
     ``device`` (default ``cuda``), ``dataset_size`` samples; the file-backed
     ones read ``cfg.root`` on the host; an inpainting dataset also takes
     ``occlusion_ratio`` and ``static_occ``. ``device_cache`` keeps each split on
     ``device`` in ``device_cache_dtype``. Train batches shuffle per epoch
-    and drop the ragged last batch; val and test keep it."""
+    and drop the ragged last batch; val and test keep it. Over a ``mesh`` of
+    several ranks (default: the module docstring) each loader yields this
+    rank's block of every global batch (``block=(rank, world)``)."""
+    if mesh is None:
+        mesh = parallel.default_mesh(cfg.mesh_shape, device)
     if cfg.dataset_name.startswith("Synthetic"):
         kwargs = {"device": device}
         if cfg.dataset_size:
@@ -142,7 +156,9 @@ def make_loaders(cfg: Config, device=None):
 
     def mk(ds, shuffle):
         kw = dict(batch_size=cfg.batch_size, shuffle=shuffle, seed=cfg.seed,
-                  num_workers=cfg.num_workers, drop_last=shuffle)
+                  num_workers=cfg.num_workers, drop_last=shuffle,
+                  block=(mesh.rank, mesh.size) if mesh is not None and mesh.size > 1
+                  else None)
         if cfg.get("device_cache", False):
             return data_lib.DeviceCacheLoader(
                 ds, cache_dtype=cfg.get("device_cache_dtype", "bfloat16"),
@@ -152,8 +168,25 @@ def make_loaders(cfg: Config, device=None):
     return mk(train_ds, True), mk(val_ds, False), mk(test_ds, False)
 
 
+def _data_mesh(cfg: Config, mesh, device, *steps):
+    """The mesh of a run over several ranks (default: the module docstring),
+    None for one; the steps must have been built for a mesh of its size."""
+    if mesh is None:
+        mesh = parallel.default_mesh(cfg.mesh_shape, device)
+    if mesh is None or mesh.size == 1:
+        return None
+    for step in steps:
+        built = getattr(step, "mesh", None)
+        if built is None or built.size != mesh.size:
+            raise NotImplementedError(
+                f"{getattr(step, '__qualname__', step)} was not built for {mesh.size} ranks: "
+                "data parallelism covers the flow steps of train.steps (their hparams' "
+                "_fast_mesh, or the default mesh)")
+    return mesh
+
+
 def fit(cfg: Config, state, train_step: Callable, eval_step: Callable, train_loader,
-        val_loader, step_args: tuple = (), viz_fn: Optional[Callable] = None):
+        val_loader, step_args: tuple = (), viz_fn: Optional[Callable] = None, mesh=None):
     """Run the epochs; returns the final state.
 
     Per train step: one host fetch of the metrics dict every
@@ -165,12 +198,17 @@ def fit(cfg: Config, state, train_step: Callable, eval_step: Callable, train_loa
     ``result_dir/val_{epoch}/{tag}.png``), the checkpoint of the epoch with
     its ``monitored_loss`` (val ``loss``), and early stopping after
     ``patience`` epochs without a better one. ``step_args``: extra
-    positional arguments of the step functions.
+    positional arguments of the step functions. ``mesh``: several ranks
+    (the module docstring).
     """
-    logger = SummaryLogger(cfg.log_dir)
-    csv = CsvLogger(cfg.get("metrics_csv", ""))
-    ckpt = CheckpointManager(cfg.checkpoint_dir)
     device = state_device(state)
+    mesh = _data_mesh(cfg, mesh, device, train_step, eval_step)
+    if mesh is not None:
+        parallel.replicated(state.model, mesh)
+    main = parallel.is_main_process()
+    logger = SummaryLogger(cfg.log_dir, enabled=main)
+    csv = CsvLogger(cfg.get("metrics_csv", "") if main else "")
+    ckpt = CheckpointManager(cfg.checkpoint_dir)
 
     best = float("inf")
     bad_epochs = 0
@@ -179,7 +217,7 @@ def fit(cfg: Config, state, train_step: Callable, eval_step: Callable, train_loa
     try:
         for epoch in range(cfg.max_epochs):
             train_loader.set_epoch(epoch)
-            for batch in data_lib.device_iterator(train_loader, device):
+            for batch in data_lib.device_iterator(train_loader, device, mesh):
                 state, metrics = train_step(state, *step_args, batch)
                 timer.tick(cfg.batch_size)
                 if global_step % cfg.log_every_n_steps == 0:
@@ -198,12 +236,12 @@ def fit(cfg: Config, state, train_step: Callable, eval_step: Callable, train_loa
 
             val_metrics = []
             first_val_batch = None
-            for batch in data_lib.device_iterator(val_loader, device):
+            for batch in data_lib.device_iterator(val_loader, device, mesh):
                 if first_val_batch is None:
                     first_val_batch = batch
                 val_metrics.append(fetch(eval_step(state, *step_args, batch)))
 
-            if viz_fn is not None and first_val_batch is not None \
+            if viz_fn is not None and first_val_batch is not None and main \
                     and epoch % cfg.log_image_every_epoch == 0:
                 val_dir = os.path.join(cfg.result_dir, f"val_{epoch}")
                 os.makedirs(val_dir, exist_ok=True)
@@ -213,6 +251,9 @@ def fit(cfg: Config, state, train_step: Callable, eval_step: Callable, train_loa
             if not val_metrics:
                 continue
             avg = {k: float(np.mean([m[k] for m in val_metrics])) for k in val_metrics[0]}
+            # every rank must see the same val metric, or their early-stop
+            # and best-checkpoint decisions part
+            avg = parallel.global_mean_metrics(avg, mesh)
             for k, v in avg.items():
                 logger.scalar(f"val_{k}", v, epoch)
             csv.row("val", global_step, epoch, avg)
@@ -220,7 +261,8 @@ def fit(cfg: Config, state, train_step: Callable, eval_step: Callable, train_loa
             logger.scalar("monitored_loss", monitored, epoch)
             logger.flush()
 
-            ckpt.save(epoch, state, monitored)
+            if main:
+                ckpt.save(epoch, state, monitored)
             if monitored < best - 1e-12:
                 best = monitored
                 bad_epochs = 0
@@ -230,13 +272,20 @@ def fit(cfg: Config, state, train_step: Callable, eval_step: Callable, train_loa
                     break
     finally:
         logger.close()
+    if mesh is not None:
+        parallel.check_replicated(state.model, mesh)
     return state
 
 
-def evaluate(cfg: Config, state, eval_step: Callable, loader, step_args: tuple = ()) -> dict:
-    """The mean of each metric of ``eval_step`` over a loader's batches."""
+def evaluate(cfg: Config, state, eval_step: Callable, loader, step_args: tuple = (),
+             mesh=None) -> dict:
+    """The mean of each metric of ``eval_step`` over a loader's batches
+    (over several ranks: of the global batches, the same on every rank)."""
+    device = state_device(state)
+    mesh = _data_mesh(cfg, mesh, device, eval_step)
     out = [fetch(eval_step(state, *step_args, batch))
-           for batch in data_lib.device_iterator(loader, state_device(state))]
+           for batch in data_lib.device_iterator(loader, device, mesh)]
     if not out:
         return {}
-    return {k: float(np.mean([m[k] for m in out])) for k in out[0]}
+    return parallel.global_mean_metrics(
+        {k: float(np.mean([m[k] for m in out])) for k in out[0]}, mesh)

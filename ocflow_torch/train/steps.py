@@ -23,6 +23,22 @@ unsupervised step every net but FlowNetCV (``model: pwc``) runs in fp32
 with full fp32 cuDNN convolutions (no TF32) whatever ``compute_dtype``
 says, as the JAX step runs them: there ``compute_dtype`` only casts the
 loss tail's images.
+
+Data parallelism (``hparams['_fast_mesh']``, by default the mesh over every
+process when more than one runs, ``parallel.Mesh(0, 1)`` for a step of
+this process alone; ``parallel.mesh``): the batch a step takes
+is this rank's block of the global batch (``shard_batch``,
+``data.device_iterator(..., mesh=)``), the forward runs on the block, and
+every loss and metric is its global-batch value, as the JAX step computes
+them on global arrays. A mean is the block's mean over the world size; a
+ratio loss (photometric, census) the block's numerator over the denominator
+summed over the ranks, without gradient. These shares sum over the ranks to
+the global values: the metrics are all-reduced, the parameter gradients
+summed between ``backward`` and the optimizer step, so the replicas stay
+equal bit for bit. A net with BatchNorm raises there: the JAX semantics are
+global-batch statistics, not ported yet. ``hparams['_blocks'] = k`` runs the
+forward on ``k`` blocks of the batch in one process and the losses on the
+whole: the single-process oracle of a step over ``k`` ranks.
 """
 
 from __future__ import annotations
@@ -30,7 +46,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ocflow_torch import full_fp32_convs, losses
+from ocflow_torch import full_fp32_convs, losses, parallel
 from ocflow_torch.models.precision import resolve_dtype
 from ocflow_torch.models.pwc_fast import fast_apply, fast_apply_pair
 from ocflow_torch.ops import (occlusion_fb_consistency, occlusion_from_back_flow,
@@ -44,6 +60,38 @@ def _area_down(x: torch.Tensor, f: int) -> torch.Tensor:
 
 def _nchw(t: torch.Tensor | None) -> torch.Tensor | None:
     return None if t is None else t.permute(0, 3, 1, 2)
+
+
+def _step_mesh(hparams: dict | None):
+    """The mesh a step splits its batch over (the module docstring), None
+    for one rank."""
+    mesh = (hparams or {}).get("_fast_mesh") or parallel.default_mesh()
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def _check_data_parallel(model, mesh) -> None:
+    if mesh is not None and any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+                                for m in model.modules()):
+        raise NotImplementedError(
+            f"{type(model).__name__} has BatchNorm: under data parallelism the JAX "
+            "package normalizes by the global batch's statistics, which the port does "
+            "not compute yet (synced BatchNorm); train it on one rank")
+
+
+def _sync_grads(model, mesh) -> None:
+    """Sum the parameter gradients over the ranks, in one collective."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+
+
+def _sync_metrics(metrics: dict, mesh) -> dict:
+    """Each rank's shares summed over the ranks: the global values."""
+    vec = mesh.all_reduce(torch.stack([v.detach().float().reshape(()) for v in metrics.values()]))
+    return dict(zip(metrics, vec.unbind()))
 
 
 # flow keys the JAX package cannot train: EFlowNet's bottlenecks apply
@@ -68,37 +116,53 @@ def _apply_flow_net(model, x: torch.Tensor):
     return out if isinstance(out, tuple) else (out, None)
 
 
-def _build_steps(loss_fn, compute_dtype: torch.dtype | None = None):
+def _build_steps(loss_fn, compute_dtype: torch.dtype | None = None, mesh=None):
     """``(train_step, eval_step)`` around ``loss_fn(state, images, batch) ->
     (loss, metrics)``: one Adam step in train mode, or the metrics in eval
     mode without gradients. The fp32 cuDNN convolutions run without TF32;
     with ``compute_dtype`` the forward runs under autocast to it (bf16
-    compute over the fp32 parameters, what flax's ``dtype=`` means)."""
+    compute over the fp32 parameters, what flax's ``dtype=`` means). Every
+    loss and metric is a mean over the batch: over a ``mesh`` of several
+    ranks each is the block's mean over the world size, summed over the
+    ranks (the module docstring)."""
 
     def run(state, batch):
         dev = state.device
         images = batch["images"].to(dev)
         with full_fp32_convs(torch.float32):
             if compute_dtype is None:
-                return loss_fn(state, images, batch)
-            with torch.autocast(dev.type, dtype=compute_dtype):
-                return loss_fn(state, images, batch)
+                loss, metrics = loss_fn(state, images, batch)
+            else:
+                with torch.autocast(dev.type, dtype=compute_dtype):
+                    loss, metrics = loss_fn(state, images, batch)
+        if mesh is not None:
+            loss = loss / mesh.size
+            metrics = {k: v / mesh.size for k, v in metrics.items()}
+        return loss, metrics
 
     def train_step(state, batch):
+        _check_data_parallel(state.model, mesh)
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = run(state, batch)
         with full_fp32_convs(torch.float32):
             loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            _sync_grads(state.model, mesh)
+            metrics = _sync_metrics(metrics, mesh)
         state.optimizer.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     def eval_step(state, batch):
+        _check_data_parallel(state.model, mesh)
         state.model.eval()
         with torch.no_grad():
-            return run(state, batch)[1]
+            metrics = run(state, batch)[1]
+        return _sync_metrics(metrics, mesh) if mesh is not None else metrics
 
+    train_step.mesh = eval_step.mesh = mesh
     return train_step, eval_step
 
 
@@ -125,7 +189,7 @@ def make_supervised_flow_step(hparams: dict | None = None):
         loss = ((flow - _gt(batch, "flow", flow)) ** 2).mean()
         return loss, {"loss": loss}
 
-    return _build_steps(loss_fn, _supervised_dtype(hparams))
+    return _build_steps(loss_fn, _supervised_dtype(hparams), _step_mesh(hparams))
 
 
 def make_supervised_occ_step(hparams: dict | None = None):
@@ -137,7 +201,7 @@ def make_supervised_occ_step(hparams: dict | None = None):
         loss = losses.focal_bce_loss(occ, _gt(batch, "occ", occ))
         return loss, {"loss": loss}
 
-    return _build_steps(loss_fn, _supervised_dtype(hparams))
+    return _build_steps(loss_fn, _supervised_dtype(hparams), _step_mesh(hparams))
 
 
 def make_supervised_flow_occ_step(hparams: dict | None = None):
@@ -151,7 +215,7 @@ def make_supervised_flow_occ_step(hparams: dict | None = None):
         loss = flow_loss + occ_loss
         return loss, {"loss": loss, "flow_loss": flow_loss, "occ_loss": occ_loss}
 
-    return _build_steps(loss_fn, _supervised_dtype(hparams))
+    return _build_steps(loss_fn, _supervised_dtype(hparams), _step_mesh(hparams))
 
 
 def make_unsupervised_flow_step(hparams: dict):
@@ -197,16 +261,26 @@ def make_unsupervised_flow_step(hparams: dict):
     cdt = resolve_dtype(hparams.get("compute_dtype"))
     q8b = hparams.get("q8_backward")
     mark = hparams.get("_mark") or (lambda name: None)
+    mesh = _step_mesh(hparams)
+    blocks = hparams.get("_blocks", 1)
+    if mesh is not None and blocks != 1:
+        raise ValueError("_blocks is the single-process oracle of a sharded step; "
+                         "it takes no mesh")
+    # global-batch values from this rank's block (the module docstring)
+    red = {} if mesh is None else {"reduce": mesh.sum}
+
+    def mean(t):
+        return t if mesh is None else t / mesh.size
 
     def _photo(img_warped, img1, occ):
         if photo_loss == "census":
-            return losses.census_loss(img_warped, img1, occ)
-        return losses.photometric_error(img_warped, img1, occ)
+            return losses.census_loss(img_warped, img1, occ, **red)
+        return losses.photometric_error(img_warped, img1, occ, **red)
 
-    def loss_fn(state, batch):
-        model, dev = state.model, state.device
-        imgs = batch["images"].to(dev)
-        img1, img2 = _nchw(imgs[..., :3]), _nchw(imgs[..., 3:])
+    def forward(model, imgs, dev):
+        """``(forward flow pair, backward flow pair or None)`` NHWC: the
+        gradient-carrying forward and, under ``occ_aware``, the backward
+        flow without gradient (the reference's no_grad)."""
         xi = imgs.to(cdt) if cdt is not None else imgs
         out = back_pair = None
         if fast_mode == "both" and is_pwc:
@@ -219,6 +293,32 @@ def make_unsupervised_flow_step(hparams: dict):
             out = _apply_flow_net(model, imgs)
         if back_pair is None:
             mark("forward")
+        if occ_aware and back_pair is None:
+            back_in = torch.cat([imgs[..., 3:], imgs[..., :3]], -1)
+            with torch.no_grad():
+                if fast_mode in ("both", "backward") and is_pwc:
+                    bi = back_in.to(cdt) if cdt is not None else back_in
+                    back_pair = fast_apply(model, bi, q8=q8b, device=dev)
+                else:
+                    back_pair = _apply_flow_net(model, back_in)
+        return out, back_pair
+
+    def forward_blocks(model, imgs, dev):
+        if blocks == 1:
+            return forward(model, imgs, dev)
+        parts = [forward(model, x, dev) for x in imgs.chunk(blocks)]
+
+        def cat(pairs):
+            return tuple(None if t[0] is None else torch.cat(t) for t in zip(*pairs))
+
+        return cat([p[0] for p in parts]), (cat([p[1] for p in parts])
+                                            if occ_aware else None)
+
+    def loss_fn(state, batch):
+        model, dev = state.model, state.device
+        imgs = batch["images"].to(dev)
+        img1, img2 = _nchw(imgs[..., :3]), _nchw(imgs[..., 3:])
+        out, back_pair = forward_blocks(model, imgs, dev)
         flow_pred, flow_l2 = (_nchw(f) for f in out)
 
         img1c = img1.to(cdt) if cdt is not None else img1
@@ -235,17 +335,8 @@ def make_unsupervised_flow_step(hparams: dict):
 
         occ_pred = occ_photo = None
         if occ_aware:
-            # the backward flow carries no gradient (the reference's no_grad)
-            back_in = torch.cat([imgs[..., 3:], imgs[..., :3]], -1)
             with torch.no_grad():
-                if back_pair is not None:
-                    back_flow, back_l2 = back_pair
-                elif fast_mode in ("both", "backward") and is_pwc:
-                    bi = back_in.to(cdt) if cdt is not None else back_in
-                    back_flow, back_l2 = fast_apply(model, bi, q8=q8b, device=dev)
-                else:
-                    back_flow, back_l2 = _apply_flow_net(model, back_in)
-                back_flow, back_l2 = _nchw(back_flow), _nchw(back_l2)
+                back_flow, back_l2 = (_nchw(f) for f in back_pair)
                 quarter = (occ_res == "quarter" and is_pwc
                            and flow_l2 is not None and back_l2 is not None)
                 half = occ_res == "half" and not quarter
@@ -277,25 +368,25 @@ def make_unsupervised_flow_step(hparams: dict):
         if is_pwc and flow_l2 is not None:
             h, w = img1.shape[2] // 4, img1.shape[3] // 4
             img1_s = resize_bilinear(img1c, h, w, align_corners=True)
-            smooth1 = losses.first_order_smoothness_loss(img1_s, flow_l2)
-            smooth2 = losses.second_order_smoothness_loss(img1_s, flow_l2)
+            smooth1 = mean(losses.first_order_smoothness_loss(img1_s, flow_l2))
+            smooth2 = mean(losses.second_order_smoothness_loss(img1_s, flow_l2))
         else:
-            smooth1 = losses.first_order_smoothness_loss(img1c, flow_pred)
-            smooth2 = losses.second_order_smoothness_loss(img1c, flow_pred)
+            smooth1 = mean(losses.first_order_smoothness_loss(img1c, flow_pred))
+            smooth2 = mean(losses.second_order_smoothness_loss(img1c, flow_pred))
 
         loss = photo_w * photo + s1_w * smooth1 + s2_w * smooth2
         metrics = {"loss": loss, "photometric": photo, "smooth1": smooth1,
                    "smooth2": smooth2}
         if "flow" in batch:
             gt = _nchw(batch["flow"].to(dev))
-            metrics["flow_error"] = ((flow_pred - gt) ** 2).mean()
-            metrics["epe"] = torch.sqrt(((flow_pred.float() - gt) ** 2).sum(1)).mean()
+            metrics["flow_error"] = mean(((flow_pred - gt) ** 2).mean())
+            metrics["epe"] = mean(torch.sqrt(((flow_pred.float() - gt) ** 2).sum(1)).mean())
         if occ_aware:
             metrics["photometric_occ"] = losses.photometric_error(
-                img_warped, img1p, 1.0 - occ_photo)
+                img_warped, img1p, 1.0 - occ_photo, **red)
             if "occ" in batch:
-                metrics["occ_error"] = losses.binary_cross_entropy(
-                    occ_pred, _nchw(batch["occ"].to(dev)))
+                metrics["occ_error"] = mean(losses.binary_cross_entropy(
+                    occ_pred, _nchw(batch["occ"].to(dev))))
         mark("losses")
         return loss, metrics
 
@@ -304,20 +395,28 @@ def make_unsupervised_flow_step(hparams: dict):
     step_dtype = (cdt or torch.float32) if is_pwc else torch.float32
 
     def train_step(state, batch):
+        _check_data_parallel(state.model, mesh)
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         with full_fp32_convs(step_dtype):
             loss, metrics = loss_fn(state, batch)
             loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            _sync_grads(state.model, mesh)
+            metrics = _sync_metrics(metrics, mesh)
         mark("backward")
         state.optimizer.step()
         mark("optimizer")
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     def eval_step(state, batch):
+        _check_data_parallel(state.model, mesh)
         state.model.eval()
         with torch.no_grad(), full_fp32_convs(step_dtype):
-            return loss_fn(state, batch)[1]
+            metrics = loss_fn(state, batch)[1]
+        return _sync_metrics(metrics, mesh) if mesh is not None else metrics
 
+    train_step.mesh = eval_step.mesh = mesh
     return train_step, eval_step

@@ -62,6 +62,17 @@ through ``fit``'s ``step_args`` (the reference's frozen inpainter feeds no
 number, so none is built and ``inpainting_root`` is not read). Runs on
 ``cuda`` unless ``--device`` says otherwise; on the card the run ends by
 printing its peak memory.
+
+Several processes (``network_type: flow``): launched by ``torchrun``, each
+rank joins the group from its environment (``parallel.initialize``,
+``--dist_backend nccl`` by default on CUDA, ``gloo`` on the CPU and for
+ranks that share a GPU) and runs on ``cuda:LOCAL_RANK`` (gloo: ``LOCAL_RANK
+% device_count``); ``batch_size`` is the global batch, each rank trains on
+its block, and only rank 0 prints, logs and saves::
+
+    torchrun --nproc_per_node 4 -m ocflow_torch.train_unsupervised --config C
+    torchrun --nproc_per_node 2 -m ocflow_torch.train_unsupervised --config C \\
+        --dist_backend gloo          # two ranks sharing one GPU
 """
 
 from __future__ import annotations
@@ -73,7 +84,7 @@ import time
 import torch
 from torch import nn
 
-from ocflow_torch import resolve_device
+from ocflow_torch import parallel, resolve_device
 from ocflow_torch.losses.perceptual import init_vgg16
 from ocflow_torch.models import registry
 from ocflow_torch.models.occlusion_nets import SimpleOcclusionNet
@@ -235,16 +246,29 @@ def main(argv=None) -> dict:
     ap.add_argument("--config", default="configs/longrun_synthetic.yaml")
     ap.add_argument("--max_epochs", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--dist_backend", choices=parallel.BACKENDS, default=None,
+                    help="under torchrun: nccl (default on CUDA) or gloo (the CPU, or ranks "
+                         "sharing a GPU)")
     args = ap.parse_args(argv)
 
     cfg = config_lib.load_config(args.config)
     if args.max_epochs is not None:
         cfg.max_epochs = args.max_epochs
     check_supported(cfg)
-    device = resolve_device(args.device)
+    with parallel.process_group(args.dist_backend, args.device) as multi:
+        if multi and cfg.network_type != "flow":
+            raise NotImplementedError(
+                f"network_type {cfg.network_type!r} over several processes: data "
+                "parallelism covers network_type flow")
+        device = parallel.local_device(args.device) if multi else resolve_device(args.device)
+        return _run(cfg, device, parallel.default_mesh(cfg.mesh_shape, device))
 
+
+def _run(cfg: config_lib.Config, device: torch.device, mesh) -> dict:
+    """The run of :func:`main` on ``device`` (over ``mesh``'s ranks, or one)."""
+    main_rank = parallel.is_main_process()
     t0 = time.perf_counter()
-    train_loader, val_loader, test_loader = loop.make_loaders(cfg, device)
+    train_loader, val_loader, test_loader = loop.make_loaders(cfg, device, mesh)
     vgg = (init_vgg16(_seeded(0), cfg.vgg_weights or None, device)
            if cfg.loss_type == "vgg" else None)
     step_args = ()
@@ -271,23 +295,26 @@ def main(argv=None) -> dict:
         train_step, eval_step = make_inpainting_stage_step(cfg.as_hparams(), vgg)
         show = inpaint_viz_fn
     elif cfg.network_type == "flow":
-        train_step, eval_step = make_unsupervised_flow_step(cfg.as_hparams())
+        train_step, eval_step = make_unsupervised_flow_step(
+            {**cfg.as_hparams(), "_fast_mesh": mesh})
         show = viz_fn
     state = loop.fit(cfg, state, train_step, eval_step, train_loader, val_loader,
-                     step_args=step_args, viz_fn=show)
+                     step_args=step_args, viz_fn=show, mesh=mesh)
     fit_s = time.perf_counter() - t0
     steps = (state[0] if gan else state).step
     if gan:
         gen_path = os.path.join(cfg.checkpoint_dir, "generator")
         save_pytree(gen_path, {"params": state[0].model.state_dict()})
         print("generator checkpoint:", gen_path)
-    results = loop.evaluate(cfg, state, eval_step, test_loader, step_args)
-    peak = (f"; peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
-            if device.type == "cuda" else "")
-    print(f"fit: {steps} steps of {cfg.batch_size} pairs in {fit_s:.1f} s wall on "
-          f"{device} ({steps * cfg.batch_size / fit_s:.2f} pairs/s, the data's "
-          f"generation, validation, panels and checkpoints included){peak}")
-    print("test:", results)
+    results = loop.evaluate(cfg, state, eval_step, test_loader, step_args, mesh=mesh)
+    if main_rank:
+        peak = (f"; peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+                if device.type == "cuda" else "")
+        ranks = f" over {mesh.size} ranks" if mesh is not None else ""
+        print(f"fit: {steps} steps of {cfg.batch_size} pairs{ranks} in {fit_s:.1f} s wall on "
+              f"{device} ({steps * cfg.batch_size / fit_s:.2f} pairs/s, the data's "
+              f"generation, validation, panels and checkpoints included){peak}")
+        print("test:", results)
     return results
 
 
