@@ -142,7 +142,7 @@ Phases (any failure raises and exits non-zero):
    the kernel forward (deterministic algorithms, biases printed both ways),
    ``cudnn.allow_tf32`` read inside the step (off), the warm step's ms;
    ``python -m ocflow_torch.train_unsupervised`` on the longrun config with
-   ``model: flownetc`` cut to 44 samples and 2 epochs (exit 0, CSV rows,
+   ``model: flownetc`` cut to 44 samples and 1 epoch (exit 0, CSV rows,
    BatchNorm statistics moved in the best checkpoint, a finite test EPE,
    its wall time); the eval forward of the seven nets that launch no kernel
    of this repository (``flownets``, ``eflownet``, ``eflownet2``,
@@ -196,7 +196,7 @@ Phases (any failure raises and exits non-zero):
    both TF32 flags read inside every forward (off), the median step ms, the
    peak memory, a ``torch.profiler`` split into the attention, convolutions,
    BatchNorm and the rest; ``python -m ocflow_torch.train_unsupervised`` on
-   the config cut to 16 samples and 2 epochs (a process of its own: CSV
+   the config cut to 10 samples and 1 epoch (a process of its own: CSV
    rows with the GAN metrics, the pair checkpoint, the exported generator,
    finite test metrics, wall time, peak memory); ``python -m
    ocflow_torch.evaluate --task inpainting --model gated`` on the exported
@@ -204,7 +204,7 @@ Phases (any failure raises and exits non-zero):
 
 16. the two-stage and joint pipelines, the VGG loss and FID:
    ``configs/two_stage_gc_fullres.yaml`` as shipped (SimpleOcclusionNet +
-   InpaintSANet with remat, B=2, 448x1024) cut to 24 samples, 2 epochs and
+   InpaintSANet with remat, B=2, 448x1024) cut to 12 samples, 2 epochs and
    ``unfreeze_epoch: 1`` through ``train_unsupervised``'s ``main``: the
    inpainter equal to the seeded one bit for bit after epoch 0 and moved
    after epoch 1, the pair checkpoint, wall time, ms a step, peak memory;
@@ -222,7 +222,7 @@ Phases (any failure raises and exits non-zero):
    max|grad|); the bf16 gradient against the fp32 one, relative L2 by part
    (``JOINT_BF16_L2``), and the same reading without the occlusion head's
    scale, printed; each step's ms and peak memory; ``configs/unsupervised.yaml`` as
-   shipped and its ``with_gt_flow: false`` copy, 2 epochs each, through
+   shipped and its ``with_gt_flow: false`` copy, 1 epoch each, through
    the CLI (processes of their own); ``evaluate --task inpainting --model
    gated --with_fid --allow_random_fid`` on phase 15's exported generator,
    card against CPU on the same 8 images (the pool features 1e-4 of
@@ -273,11 +273,40 @@ Phases (any failure raises and exits non-zero):
    backward against the single-device kernel (1e-4 of max, bit for bit
    printed; 1 forward and 1 backward launch a rank); then ``torchrun
    --standalone --nproc_per_node 2 -m ocflow_torch.train_unsupervised
-   --dist_backend gloo`` on the longrun config cut to 44 samples and 1
+   --dist_backend gloo`` on the longrun config cut to 20 samples and 1
    epoch (rank 0 alone prints, writes the CSV, the events and the
    checkpoint; ``fit`` checks the replicas equal at its end), and
    ``python -m ocflow_torch.tools.dryrun_multigpu --nproc 2 --backend
    gloo``. A failure in any rank fails the phase.
+
+19. global batch statistics (synced BatchNorm, the eager FlowNetCV's
+   feature moments: ``parallel.synced_stats``) in phase 18's two ranks,
+   deterministic algorithms, every regime's step on each rank's block
+   against the single-process step on the whole batch from the same seeded
+   weights: the supervised ``pwc`` step (C7), ``flowoccnetc`` (d=10) and
+   ``flownet`` and the unsupervised ``flownetc`` at 448x1024 B=8 (4 a rank);
+   the GAN step on ``configs/inpainting_gan_fullres.yaml`` as shipped (B=2,
+   1 a rank, remat; SGD at its rates); the GC step on
+   ``configs/two_stage_gc_fullres.yaml`` (B=2) before and after the
+   inpainter unfreezes; the joint step at BASELINE's configuration #5 (B=16
+   320x1216, 8 a rank) in fp32 and bf16. fp32: metrics 1e-4 relative,
+   running statistics 1e-5 of their max, the zoo's gradients 1e-3 of the
+   net's max|grad|; the GAN's, GC's and joint step's gradients against the
+   single-process fp64 step (the joint one on the plain cost volume), per
+   net within 2x the single-process fp32 step's distance from it plus 1e-3
+   (one process's own fp32 gradient lies ~1e-2 from fp64 there); the bf16
+   joint loss 2e-2. Each rank's launches (pwc 5 / 5, flowoccnetc 1 / 1,
+   flownet 5 / 5, flownetc 2 / 1, joint 5 / 5, GAN and GC none), every
+   kernel call of the fp32 steps replayed against its plain version on rank
+   0 and of the bf16 step on rank 1, the replicas bit for bit after a second
+   step (parameters and buffers), the collectives of a step counted
+   (``Mesh.psum``, every ``all_reduce``), each rank's step ms beside the
+   single-process step's (for the record: the ranks share one card); then
+   ``torchrun --standalone --nproc_per_node 2 -m
+   ocflow_torch.train_unsupervised --dist_backend gloo`` on
+   ``configs/inpainting_gan_fullres.yaml`` cut to 8 samples and 1 epoch
+   (rank 0 alone prints, writes the CSV and the events and exports the
+   generator; ``fit`` checks both nets' replicas equal at its end).
 
 Phases 6 and 8 hold their references (the eager fp32 forward, the eager
 step) on the plain cost volume; phase 6 also holds the eager forward on the
@@ -2441,10 +2470,10 @@ def _supervised_cli_phase(card):
     """``python -m ocflow_torch.train --config configs/supervised.yaml``
     (SimpleFlowNet, SyntheticFlow 64x128, B=16) cut to 2 epochs with its
     outputs in a temporary directory, as a process of its own: exit 0, the
-    CSV's rows, the best checkpoint, BatchNorm statistics that moved; then
-    in this process with ``find_best_lr: true`` and 1 epoch: its suggestion
-    printed. SimpleFlowNet has no cost volume: no kernel of this repository
-    runs (the second run's launches are counted)."""
+    CSV's rows, the best checkpoint, BatchNorm statistics that moved;
+    meanwhile in this process with ``find_best_lr: true`` and 1 epoch: its
+    suggestion printed. SimpleFlowNet has no cost volume: no kernel of this
+    repository runs (the second run's launches are counted)."""
     import csv
     import io
     import math
@@ -2473,8 +2502,15 @@ def _supervised_cli_phase(card):
             return path, raw
 
         path, raw = config("run")
-        proc = subprocess.run([sys.executable, "-m", "ocflow_torch.train", "--config", path],
-                              capture_output=True, text=True, timeout=600)
+        lr_path, _ = config("lr", max_epochs=1, find_best_lr=True)
+        with subprocess.Popen([sys.executable, "-m", "ocflow_torch.train", "--config", path],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) as run:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                counts, results = _count_launches(lambda: train_main(["--config", lr_path]))
+            stdout, stderr = run.communicate(timeout=600)
+        proc = subprocess.CompletedProcess(run.args, run.returncode, stdout, stderr)
         test_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("test:")]
         with open(raw["metrics_csv"]) as f:
             rows = list(csv.DictReader(f))
@@ -2493,10 +2529,6 @@ def _supervised_cli_phase(card):
                 or not phases.count("train") or not moved > 0:
             raise AssertionError(f"supervised CLI: {proc.returncode} {proc.stderr[-2000:]}")
 
-        path, _ = config("lr", max_epochs=1, find_best_lr=True)
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            counts, results = _count_launches(lambda: train_main(["--config", path]))
         lines = [ln for ln in buf.getvalue().splitlines() if "find_best_lr" in ln]
         print(f"supervised CLI with find_best_lr: {lines}, test {results}; launches "
               f"{counts} (none expected: no kernel runs here)")
@@ -2545,8 +2577,9 @@ def _phase12(card, max_err, trees):
 # cost-volume launches of one step, forward and backward)
 UNSUP_NETS = {"flownetc": (2, 1), "flownet": (10, 5), "pwcnet": (10, 5)}
 # the CLI run: configs/longrun_synthetic.yaml with these, its outputs in a
-# temporary directory (44 samples: 35 / 4 / 5, 4 steps an epoch)
-UNSUP_CLI_CUTS = {"model": "flownetc", "dataset_size": 44, "max_epochs": 2,
+# temporary directory (44 samples: 35 / 4 / 5, 4 steps an epoch; one epoch,
+# to leave phase 19 room in the time limit)
+UNSUP_CLI_CUTS = {"model": "flownetc", "dataset_size": 44, "max_epochs": 1,
                   "log_every_n_steps": 1, "log_image_every_epoch": 1}
 # the nets that launch no kernel of this repository, served (eval, fp32);
 # each held against the same net on the CPU at ZOO_SMALL within ZOO_REL of
@@ -2669,8 +2702,9 @@ def _unsup_cli_phase(card, dev="cuda"):
               f"checkpoint at step {tree['step']}, BatchNorm running statistics moved from "
               f"the identity by up to {moved:.3e} over {len(stats)} buffers; {wall:.1f} s "
               f"wall (the process's start and TensorBoard included) [{card}]")
+        n_train = int(0.8 * raw["dataset_size"]) // raw["batch_size"] * raw["max_epochs"]
         if proc.returncode != 0 or phases.count("val") != raw["max_epochs"] \
-                or phases.count("train") != 8 or not moved > 0 \
+                or phases.count("train") != n_train or not moved > 0 \
                 or not math.isfinite(results.get("epe", math.nan)):
             raise AssertionError(f"unsupervised CLI: {proc.returncode} {results} {phases} "
                                  f"{proc.stderr[-2000:]}")
@@ -3447,7 +3481,9 @@ GAN_REL = 1e-4               # card vs CPU: outputs over max|CPU|, losses relati
 GAN_CHECK_SIZE = (2, 448, 1024)
 # configs/inpainting_gan_fullres.yaml through its CLI: these cuts only (a
 # CSV row every step)
-GAN_CLI_CUTS = {"dataset_size": 16, "max_epochs": 2, "log_every_n_steps": 1}
+# (10 samples: 8 / 1 / 1, 4 steps; cut from 16 samples and 2 epochs to leave
+# phase 19 room in the time limit)
+GAN_CLI_CUTS = {"dataset_size": 10, "max_epochs": 1, "log_every_n_steps": 1}
 
 
 def _gan_nets(key, remat=False, seed=1):
@@ -3816,7 +3852,9 @@ def _phase15(card, dev="cuda", keep=None):
 # the two-stage pipelines, the joint step, the VGG loss and FID (phase 16)
 # configs/two_stage_gc_fullres.yaml through its CLI: these cuts only (every
 # step logged, a panel every epoch)
-GC_CLI_CUTS = {"dataset_size": 24, "max_epochs": 2, "unfreeze_epoch": 1,
+# (12 samples: 9 / 1 / 2, 4 steps an epoch; cut from 24 to leave phase 19
+# room in the time limit)
+GC_CLI_CUTS = {"dataset_size": 12, "max_epochs": 2, "unfreeze_epoch": 1,
                "log_every_n_steps": 1, "log_image_every_epoch": 1}
 GC_SIZE = (2, 448, 1024)      # the GC config's batch and frames
 GC_CHECK_SIZE = (2, 64, 128)  # the GC step card vs CPU: the CPU takes seconds there
@@ -3838,7 +3876,7 @@ JOINT_BF16_L2 = {"flow_occ": 0.1, "inpaint.up6": 0.05, "inpaint": 0.5}
 # The seeded net's bf16-vs-fp32 reading is printed beside it (read 0.039,
 # 0.012, 0.479: the flipped mask moves the inpainter's part).
 JOINT_OCC_SCALE = 100.0
-UNSUP_TWOSTAGE_CUTS = {"max_epochs": 2}
+UNSUP_TWOSTAGE_CUTS = {"max_epochs": 1}  # cut from 2: phase 19's room in the time limit
 FID_CHECK = (8, 128, 256)     # evaluate --with_fid card vs CPU: samples, size
 FID_SIZE = (16, 448, 1024)
 FID_FEATURE_REL = 1e-4        # Inception features card vs CPU, of max|CPU|
@@ -4272,9 +4310,9 @@ def _unsup_twostage_cli_phase(card, dev="cuda"):
     the gated generator at 96x128, B=16, SyntheticFlow) and its ``with_gt_flow:
     false`` copy (TwoStageModel: frozen seeded SimpleFlowNet and
     InpaintingNet), each cut by ``UNSUP_TWOSTAGE_CUTS`` through ``python -m
-    ocflow_torch.train_unsupervised`` in a process of its own, outputs in a
-    temporary directory: exit 0, the CSV's rows, finite test metrics, the
-    wall time."""
+    ocflow_torch.train_unsupervised`` in a process of its own, the two at the
+    same time, outputs in a temporary directory: exit 0, the CSV's rows,
+    finite test metrics, the wall time."""
     import csv
     import os
     import subprocess
@@ -4282,8 +4320,7 @@ def _unsup_twostage_cli_phase(card, dev="cuda"):
 
     from ocflow_torch.train import config as config_lib
 
-    out = {}
-    for gt in (True, False):
+    def run(gt):
         with tempfile.TemporaryDirectory() as tmp:
             with open("configs/unsupervised.yaml") as f:
                 raw = config_lib.parse_flat_yaml(f.read())
@@ -4315,8 +4352,11 @@ def _unsup_twostage_cli_phase(card, dev="cuda"):
                 or not any(ln.startswith("test:") for ln in lines):
             raise AssertionError(f"unsupervised.yaml {label}: {proc.returncode} {phases} "
                                  f"{proc.stderr[-3000:]}")
-        out[label] = wall
-    return out
+        return label, wall
+
+    # both processes at the same time (their start-up on the host, mostly)
+    with ThreadPoolExecutor(2) as pool:
+        return dict(pool.map(run, (True, False)))
 
 
 def _fid_phase(card, generator, dev="cuda"):
@@ -4744,9 +4784,10 @@ DP_METRIC_REL, DP_METRIC_ABS, DP_GRAD_REL = 1e-5, 1e-12, 1e-4
 # the single-device kernel, relative to max|single|
 DP_SPATIAL = ((4, (8, 32, 112, 256)), (10, (8, 256, 56, 128)))
 DP_SPATIAL_REL = 1e-4
-# the torchrun CLI: configs/longrun_synthetic.yaml with these (44 samples:
-# 35 / 4 / 5, 4 steps of 8, each logged; outputs in a temporary directory)
-DP_CLI_CUTS = {"dataset_size": 44, "max_epochs": 1, "log_every_n_steps": 1,
+# the torchrun CLI: configs/longrun_synthetic.yaml with these (20 samples:
+# 16 / 2 / 2, 2 steps of 8, each logged; outputs in a temporary directory;
+# cut from 44 samples to leave phase 19 room in the time limit)
+DP_CLI_CUTS = {"dataset_size": 20, "max_epochs": 1, "log_every_n_steps": 1,
                "log_image_every_epoch": 1}
 DP_TIMED_STEPS = 5
 
@@ -5002,12 +5043,13 @@ def _dp_spatial(mesh, dev, failures):
     return out
 
 
-def _dp_rank(rank, nproc, store, out_dir, dev="cuda"):
-    """One rank of phase 18: joins the gloo group on ``dev`` (every rank on
-    cuda:0), runs the collectives, serving, training and spatial checks,
-    and writes its readings (failures included: a rank does not raise
-    between collectives, so the other does not wait on it) to
-    ``out_dir/rank<r>.json``."""
+def _dp_rank(rank, nproc, store, out_dir, dev="cuda", phases=(18, 19)):
+    """One rank of phases 18 and 19: joins the gloo group on ``dev`` (every
+    rank on cuda:0), runs phase 18's collectives, serving, training and
+    spatial checks, then phase 19's steps (:func:`_gs_rank`), each of the
+    ``phases`` asked for, and writes its readings (failures included: a
+    rank does not raise between collectives, so the other does not wait on
+    it) to ``out_dir/rank<r>.json``."""
     import datetime
 
     import torch.distributed as dist
@@ -5024,16 +5066,24 @@ def _dp_rank(rank, nproc, store, out_dir, dev="cuda"):
         failures, max_err = [], {k: 0.0 for k in ("cost_volume", "cost_volume_bwd",
                                                    "conv_group", "conv_group_diff")}
         t0 = time.perf_counter()
-        res = {"rank": rank, "device": str(device), "collectives": _dp_collectives(mesh, device)}
-        if not res["collectives"]["ok"]:
-            failures.append(f"collectives {res['collectives']}")
-        res["serving"] = _dp_serving(mesh, device, failures)
-        torch.cuda.empty_cache()
-        res["train"] = _dp_train(mesh, device, failures, max_err)
-        torch.cuda.empty_cache()
-        res["spatial"] = _dp_spatial(mesh, device, failures)
-        res["collectives"]["gloo_all_gather_direct"] = _dp_probe_all_gather(mesh, device)
-        res.update(failures=failures, max_err=max_err, seconds=time.perf_counter() - t0)
+        res = {"rank": rank, "device": str(device)}
+        if 18 in phases:
+            res["collectives"] = _dp_collectives(mesh, device)
+            if not res["collectives"]["ok"]:
+                failures.append(f"collectives {res['collectives']}")
+            res["serving"] = _dp_serving(mesh, device, failures)
+            torch.cuda.empty_cache()
+            res["train"] = _dp_train(mesh, device, failures, max_err)
+            torch.cuda.empty_cache()
+            res["spatial"] = _dp_spatial(mesh, device, failures)
+            res["collectives"]["gloo_all_gather_direct"] = _dp_probe_all_gather(mesh, device)
+        res["seconds"] = time.perf_counter() - t0
+        if 19 in phases:
+            torch.cuda.empty_cache()
+            res["gs_failures"] = []
+            res["gs"] = _gs_rank(mesh, device, res["gs_failures"], max_err)
+            res["gs_seconds"] = time.perf_counter() - t0 - res["seconds"]
+        res.update(failures=failures, max_err=max_err)
         with open(f"{out_dir}/rank{rank}.json", "w") as f:
             json.dump(res, f)
         dist.barrier()
@@ -5047,7 +5097,7 @@ def _dp_cli(card, tmp, dev="cuda"):
     ``configs/longrun_synthetic.yaml`` with ``DP_CLI_CUTS``: exit 0 (``fit``
     checks at its end that the ranks' parameters are equal, and raises if
     not), one ``fit:`` and one ``test:`` line (rank 0 prints), one CSV
-    header with 4 train rows and 1 val row (rank 0 writes), one TensorBoard
+    header with a train row a step and 1 val row (rank 0 writes), one TensorBoard
     event file, the best checkpoint. Returns its wall time."""
     import csv
     import os
@@ -5077,6 +5127,7 @@ def _dp_cli(card, tmp, dev="cuda"):
     with open(raw["metrics_csv"]) as f:
         text = f.read().splitlines()
     phases = [r["phase"] for r in csv.DictReader(text)]
+    n_train = int(0.8 * raw["dataset_size"]) // raw["batch_size"]
     events = [n for n in os.listdir(raw["log_dir"]) if n.startswith("events")]
     ckpts = os.listdir(raw["checkpoint_dir"])
     print(f"dp torchrun CLI (2 gloo ranks on one card, longrun_synthetic.yaml with "
@@ -5087,7 +5138,7 @@ def _dp_cli(card, tmp, dev="cuda"):
           f"TensorBoard included) [{card}]")
     if proc.returncode != 0 or len(fit_lines) != 1 or len(test_lines) != 1 \
             or sum(t.startswith("phase,") for t in text) != 1 \
-            or phases != ["train"] * 4 + ["val"] or len(events) != 1 or not ckpts:
+            or phases != ["train"] * n_train + ["val"] or len(events) != 1 or not ckpts:
         raise AssertionError(f"dp torchrun CLI: {proc.returncode} {phases} {events} "
                              f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
     return wall
@@ -5115,9 +5166,11 @@ def _dp_dryrun(card):
     return res
 
 
-def _phase18(card, max_err, dev="cuda"):
-    """Phase 18 (module docstring): two gloo ranks sharing the card. Returns
-    the launches of its paths, per rank, and its numbers."""
+def _phase18(card, max_err, dev="cuda", phases=(18, 19)):
+    """Phase 18 (module docstring): two gloo ranks sharing the card, which
+    run phase 19's steps too when ``phases`` has 19. Returns the launches
+    of phase 18's paths, per rank, and its numbers (the ranks' readings
+    under ``ranks``)."""
     import os
     import tempfile
 
@@ -5127,18 +5180,22 @@ def _phase18(card, max_err, dev="cuda"):
     torch.cuda.empty_cache()
     launches, failures = {}, []
     with tempfile.TemporaryDirectory() as tmp:
-        spawn(_dp_rank, DP_WORLD, tmp, dev, timeout=900)
+        spawn(_dp_rank, DP_WORLD, tmp, dev, phases, timeout=900)
         ranks = []
         for r in range(DP_WORLD):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
     ranks_s = time.perf_counter() - t0
+    for res in ranks:
+        for k, v in res["max_err"].items():
+            max_err[k] = max(max_err[k], v)
+    if 18 not in phases:
+        return launches, {"ranks": ranks, "ranks_s": ranks_s,
+                          "processes": _dp_processes(card, phases, dev)}
     label = f"[two ranks sharing one card, gloo; {card}]"
     for res in ranks:
         r = res["rank"]
         failures += [f"rank {r}: {f}" for f in res["failures"]]
-        for k, v in res["max_err"].items():
-            max_err[k] = max(max_err[k], v)
         print(f"dp rank {r} on {res['device']}: collectives {res['collectives']}")
         for path, s in res["serving"].items():
             launches[f"dp_{path}_rank{r}"] = s["launches"]
@@ -5173,19 +5230,533 @@ def _phase18(card, max_err, dev="cuda"):
                   f"{s['bitwise']}, launches cost_volume {s['launches']['cost_volume']} "
                   f"backward {s['launches']['cost_volume_bwd']}")
         print(f"dp rank {r}: {res['seconds']:.1f} s from joining the group")
-    with tempfile.TemporaryDirectory() as tmp:
-        cli_s = _dp_cli(card, tmp, dev)
-    dry = _dp_dryrun(card)
+    processes = _dp_processes(card, phases, dev)
+    cli_s, dry = processes["dp_cli"], processes["dryrun"]
     checksums = {res["train"]["adam"]["checksum"] for res in ranks}
     if len(checksums) != 1:
         failures.append(f"dp parameter checksums differ: {checksums}")
     if failures:
         raise AssertionError("; ".join(failures))
     wall = time.perf_counter() - t0
-    print(f"data parallelism: phase 18 took {wall:.1f} s wall (the ranks {ranks_s:.1f} s, "
-          f"the torchrun CLI {cli_s:.1f} s, the dry run {dry['seconds']:.1f} s of its own) "
-          f"[{card}]")
-    return launches, {"ranks": ranks, "cli_s": cli_s, "dryrun": dry, "seconds": wall}
+    gs_s = max(res.get("gs_seconds", 0.0) for res in ranks)
+    print(f"data parallelism: phase 18 took {wall:.1f} s wall (the ranks {ranks_s:.1f} s, of "
+          f"which phase 19's steps {gs_s:.1f} s; then at the same time the torchrun CLI "
+          f"{cli_s:.1f} s, the dry run {dry['seconds']:.1f} s of its own and phase 19's "
+          f"torchrun GAN CLI {processes.get('gs_cli', 0.0):.1f} s) [{card}]")
+    return launches, {"ranks": ranks, "ranks_s": ranks_s, "processes": processes,
+                      "seconds": wall}
+
+
+def _dp_processes(card, phases=(18, 19), dev="cuda"):
+    """The process groups of phases 18 and 19, started at the same time
+    (mostly their processes' start-up on the host, each waited on in a
+    thread): phase 18's torchrun CLI (:func:`_dp_cli`) and dry run
+    (:func:`_dp_dryrun`), phase 19's torchrun GAN CLI (:func:`_gs_cli`).
+    Their results by name; a failed check raises."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as t18, tempfile.TemporaryDirectory() as t19, \
+            ThreadPoolExecutor(3) as pool:
+        jobs = {}
+        if 18 in phases:
+            jobs["dp_cli"] = pool.submit(_dp_cli, card, t18, dev)
+            jobs["dryrun"] = pool.submit(_dp_dryrun, card)
+        if 19 in phases:
+            jobs["gs_cli"] = pool.submit(_gs_cli, card, t19, dev)
+        return {k: f.result() for k, f in jobs.items()}
+
+
+# 19. global batch statistics over the ranks (synced BatchNorm, the eager
+# FlowNetCV's feature moments): every regime's step over two ranks against
+# the single-process step on the whole batch, in phase 18's ranks
+GS_SEED = 19
+GS_SIZE = (8, 448, 1024)       # the zoo's global batch (4 a rank)
+GS_LR = 1e-4
+GS_METRIC_REL, GS_METRIC_ABS = 1e-4, 1e-12  # fp32 metrics: relative (and absolute: smooth2, weighted 0)
+GS_GRAD_REL = 1e-3             # fp32: each gradient, max-abs over its net's max|grad|
+GS_STATS_REL = 1e-5            # fp32: each running statistic, max-abs over its max
+GS_BF16_LOSS_REL = 2e-2        # the bf16 joint step's loss, relative
+# the GAN, GC and joint steps' fp32 gradients: one process's own fp32 step
+# lies ~1e-2 of the net's max|grad| from the fp64 step there (InpaintingNet's
+# and the gated generator's train-mode BatchNorms carry fp32 rounding far:
+# read 6.6e-3-1.9e-2 on the CPU at 2x128x256, as far as the ranks' step), so
+# the ranks' fp32 step is held against the single-process fp64 step: per
+# net, its worst per-tensor error and its relative L2 each within
+# GS_WITNESS_RATIO times the single-process fp32 step's own, plus
+# GS_WITNESS_SLACK of the net's max|grad| (and of the net's norm)
+GS_WITNESS_RATIO, GS_WITNESS_SLACK = 2.0, 1e-3
+# the zoo: network_type, cost-volume launches (forward, backward) of a rank's step
+GS_ZOO = {"pwc": ("flow", (5, 5)), "flowoccnetc": ("flow-occ", (1, 1)),
+          "flownet": ("flow", (5, 5)), "flownetc": ("unsupervised", (2, 1))}
+# configs/inpainting_gan_fullres.yaml through torchrun: these cuts only (8
+# samples: 6 / 0 / 2, 3 steps of 2 pairs)
+GS_CLI_CUTS = {"dataset_size": 8, "max_epochs": 1, "log_every_n_steps": 1,
+               "log_image_every_epoch": 1}
+
+
+@contextlib.contextmanager
+def _collectives_counted():
+    """Inside, the count of ``Mesh.psum`` calls (the synced statistics'
+    forward collectives: BatchNorm, feature moments) and of every
+    ``all_reduce`` (their backward, the gradients' and metrics' sums too)."""
+    import torch.distributed as dist
+
+    from ocflow_torch.parallel import mesh as mesh_mod
+
+    box = {"psum": 0, "all_reduce": 0}
+    psum, all_reduce = mesh_mod.Mesh.psum, dist.all_reduce
+
+    def counted_psum(self, t):
+        box["psum"] += 1
+        return psum(self, t)
+
+    def counted_all_reduce(*a, **k):
+        box["all_reduce"] += 1
+        return all_reduce(*a, **k)
+
+    mesh_mod.Mesh.psum, dist.all_reduce = counted_psum, counted_all_reduce
+    try:
+        yield box
+    finally:
+        mesh_mod.Mesh.psum, dist.all_reduce = psum, all_reduce
+
+
+def _gs_parts(state):
+    """``[(net name, model, optimizer)]`` of a train state or of a GAN
+    pair; a ``ModuleDict`` under one optimizer is split into its nets."""
+    if isinstance(state, tuple):
+        return [("G", state[0].model, state[0].optimizer),
+                ("D", state[1].model, state[1].optimizer)]
+    if isinstance(state.model, torch.nn.ModuleDict):
+        return [(k, m, state.optimizer) for k, m in state.model.items()]
+    return [("net", state.model, state.optimizer)]
+
+
+def _gs_step(state, step, batch):
+    """One train step; its metrics, every net's gradients (recorded before
+    the optimizer, which may gate them) and running statistics."""
+    grads = {}
+    parts = _gs_parts(state)
+    wrapped = []
+    for opt in {id(o): o for _, _, o in parts}.values():
+        inner = opt.step
+
+        def snap(*a, _inner=inner, **k):
+            for name, model, _ in parts:
+                for n, p in model.named_parameters():
+                    if p.grad is not None:
+                        grads[f"{name}.{n}"] = p.grad.detach().clone()
+            return _inner(*a, **k)
+
+        opt.step = snap
+        wrapped.append((opt, inner))
+    try:
+        _, metrics = step(state, batch)
+    finally:
+        for opt, inner in wrapped:
+            opt.step = inner
+    stats = {f"{name}.{n}": b.detach().clone() for name, model, _ in parts
+             for n, b in model.named_buffers() if n.endswith(("running_mean", "running_var"))}
+    return {k: float(v) for k, v in metrics.items()}, grads, stats
+
+
+def _gs_net_errors(grads, ref):
+    """Per net (the names' first part): the worst per-tensor max-abs error
+    of ``grads`` against ``ref`` over the net's max|ref| (name, value), and
+    the relative L2 over the net."""
+    out = {}
+    for net in sorted({k.split(".")[0] for k in ref}):
+        keys = [k for k in ref if k.split(".")[0] == net]
+        top = max(ref[k].abs().max().item() for k in keys)
+        errs = {k: (grads[k].double() - ref[k].double()).abs().max().item() / max(top, 1e-300)
+                for k in keys}
+        worst = max(errs, key=errs.get)
+        num = sum(((grads[k].double() - ref[k].double()) ** 2).sum().item() for k in keys)
+        den = sum((ref[k].double() ** 2).sum().item() for k in keys)
+        out[net] = {"worst": worst, "max": errs[worst], "l2": (num / max(den, 1e-300)) ** 0.5}
+    return out
+
+
+def _gs_compare(label, got, want, bf16, failures, witness=None):
+    """The ranks' step against the single-process step (the phase-19
+    constants); with ``witness`` (the single-process fp64 step's
+    gradients) the gradients are held against it instead; returns the
+    readings."""
+    metrics, grads, stats = got
+    ref_metrics, ref_grads, ref_stats = want
+    mrel = {k: abs(metrics[k] - v) / max(abs(v), 1e-30) for k, v in ref_metrics.items()}
+    out = {"metrics": metrics, "single_metrics": ref_metrics, "metric_rel": mrel}
+    if bf16:
+        ok = mrel["loss"] <= GS_BF16_LOSS_REL
+    else:
+        ok = set(metrics) == set(ref_metrics) and all(
+            abs(metrics[k] - v) <= GS_METRIC_REL * abs(v) + GS_METRIC_ABS
+            for k, v in ref_metrics.items())
+        nets = {k.split(".")[0] for k in ref_grads}
+        top = {n: max(g.abs().max().item() for k, g in ref_grads.items()
+                      if k.split(".")[0] == n) for n in nets}
+        gerr = {k: (grads[k] - g).abs().max().item() / max(top[k.split(".")[0]], 1e-30)
+                for k, g in ref_grads.items()}
+        own = {k: (grads[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+               for k, g in ref_grads.items()}
+        serr = {k: (stats[k] - s).abs().max().item() / max(s.abs().max().item(), 1e-30)
+                for k, s in ref_stats.items()}
+        out.update(grad_worst=_worst(gerr), grad_max=max(gerr.values()),
+                   grad_own_worst=_worst(own), grad_tensors=len(gerr),
+                   stats_worst=_worst(serr) if serr else None, stats_buffers=len(serr))
+        if witness is None:
+            grads_ok = max(gerr.values()) <= GS_GRAD_REL
+        else:
+            ranks64, single64 = _gs_net_errors(grads, witness), _gs_net_errors(ref_grads,
+                                                                               witness)
+            out["witness"] = {"ranks": ranks64, "single": single64}
+            grads_ok = all(
+                ranks64[n][k] <= GS_WITNESS_RATIO * single64[n][k] + GS_WITNESS_SLACK
+                for n in single64 for k in ("max", "l2"))
+        ok = ok and set(grads) == set(ref_grads) and grads_ok \
+            and (not serr or max(serr.values()) <= GS_STATS_REL)
+    out["ok"] = ok
+    if not ok:
+        failures.append(f"gs {label} vs the single-process step: {out}")
+    return out
+
+
+def _gs_cases(dev):
+    """``{label: (make, net module or None, expected launches, replay dtype
+    or None, witness, reference)}``; ``make(step_mesh, dtype=float32)``
+    builds from the seeds (each net drawn once, then copied) a fresh train
+    state on ``dev`` in ``dtype``, its train step built for ``step_mesh``
+    and the whole global batch (CPU); ``witness``: the gradients are held
+    against the single-process fp64 step (``GS_WITNESS_RATIO``);
+    ``reference``: the case whose single-process readings stand for this
+    one's (the same weights, batch and step: the GC step before and after
+    the inpainter unfreezes computes the same gradient, and only its
+    optimizer gates it)."""
+    from ocflow_torch.bench import smooth_images
+    from ocflow_torch.models import flow_occ_nets, registry
+    from ocflow_torch.train import TrainState
+    from ocflow_torch.train import config as config_lib
+    from ocflow_torch.train import steps
+    from ocflow_torch.train.steps_inpainting import make_gan_inpainting_step
+    from ocflow_torch.train.steps_joint import make_joint_step
+    from ocflow_torch.train.steps_two_stage import (make_two_stage_gc_optimizer,
+                                                    make_two_stage_gc_step)
+
+    b, h, w = GS_SIZE
+    g = torch.Generator().manual_seed(GS_SEED)
+    share = torch.linspace(0.05, 0.6, b).view(b, 1, 1, 1)
+    zoo_batch = {"images": smooth_images(torch.rand((b, 6, h // 8, w // 8), generator=g) * 2 - 1),
+                 "flow": torch.randn((b, h, w, 2), generator=g) * 3,
+                 "occ": (torch.rand((b, h, w, 1), generator=g) < share).float()}
+    unsup_hp = {**config_lib.load_config("configs/longrun_synthetic.yaml").as_hparams(),
+                "compute_dtype": "float32"}
+
+    drawn = {}
+
+    def once(name, build):
+        """A fresh copy of the net(s) ``build()`` draws, drawn once."""
+        if name not in drawn:
+            drawn[name] = build()
+        return copy.deepcopy(drawn[name])
+
+    def zoo(key):
+        kind = GS_ZOO[key][0]
+        family = "flow_occ" if kind == "flow-occ" else "flow"
+
+        def make(m, dtype=torch.float32):
+            model = once(key, lambda: registry.build(
+                family, key, generator=torch.Generator().manual_seed(GS_SEED)))
+            if kind == "unsupervised":
+                step, _ = steps.make_unsupervised_flow_step(
+                    {**unsup_hp, "model": key, "_fast_mesh": m})
+            else:
+                factory = {"flow": steps.make_supervised_flow_step,
+                           "flow-occ": steps.make_supervised_flow_occ_step}[kind]
+                step, _ = factory({"model": key, "_fast_mesh": m})
+            return TrainState(model.to(dev, dtype), torch.optim.Adam(
+                model.parameters(), lr=GS_LR)), step, zoo_batch
+        return make
+
+    gan_cfg = config_lib.load_config("configs/inpainting_gan_fullres.yaml")
+
+    def gan(m, dtype=torch.float32):
+        # SGD at the config's rates (D at 4x), not the CLI's Adam: the D
+        # step comes first, and Adam would move D's weights whose gradient
+        # is rounding (a bias before a train-mode BatchNorm) by about the
+        # learning rate in another direction on the ranks than in one
+        # process, and g_loss reads the moved D (phase 15's check steps so)
+        gen, dis = (n.to(dev, dtype) for n in once(
+            "gan", lambda: _gan_nets("gated", remat=gan_cfg.remat)))
+        lr = gan_cfg.learning_rate
+        states = (TrainState(gen, torch.optim.SGD(gen.parameters(), lr=lr)),
+                  TrainState(dis, torch.optim.SGD(dis.parameters(), lr=4 * lr)))
+        return (states, make_gan_inpainting_step({**gan_cfg.as_hparams(), "_fast_mesh": m}),
+                _gan_batch(GAN_SIZE))
+
+    gc_cfg = config_lib.load_config("configs/two_stage_gc_fullres.yaml")
+
+    def gc(unfreeze_step):
+        def make(m, dtype=torch.float32):
+            pair = once("gc", lambda: _gc_pair("gated", remat=gc_cfg.remat,
+                                               perturb=True)).to(dev, dtype)
+            opt = make_two_stage_gc_optimizer(pair, gc_cfg.learning_rate, gc_cfg.finetune_lr,
+                                              unfreeze_step)
+            step, _ = make_two_stage_gc_step({**gc_cfg.as_hparams(), "_fast_mesh": m})
+            return TrainState(pair, opt), step, _gc_batch(GC_SIZE)
+        return make
+
+    joint_batch = _joint_batch("cpu")
+
+    def joint(policy):
+        def make(m, dtype=torch.float32):
+            pair = once("joint", _joint_pair).to(dev, dtype)
+            step, _ = make_joint_step({"dtype": policy, "_fast_mesh": m})
+            return (TrainState(pair, torch.optim.Adam(pair.parameters(), lr=GS_LR)), step,
+                    joint_batch)
+        return make
+
+    cases = {key: (zoo(key), _net_module(key), GS_ZOO[key][1], torch.float32, False, key)
+             for key in GS_ZOO}
+    cases.update({
+        "gan": (gan, None, (0, 0), None, True, "gan"),
+        "gc_before_unfreeze": (gc(1), None, (0, 0), None, True, "gc_before_unfreeze"),
+        "gc_after_unfreeze": (gc(0), None, (0, 0), None, True, "gc_before_unfreeze"),
+        "joint_fp32": (joint(None), flow_occ_nets, (5, 5), torch.float32, True, "joint_fp32"),
+        "joint_bf16": (joint("bfloat16"), flow_occ_nets, (5, 5), torch.bfloat16, False,
+                       "joint_bf16")})
+    return cases
+
+
+def _gs_single(make, batch, dev, witness, module):
+    """The single-process step of a phase-19 case on the whole batch: its
+    readings (:func:`_gs_step`), with ``witness`` the gradients of the fp64
+    step (``module``'s ``cost_volume``, if any, on the plain version
+    meanwhile: the kernels are fp32 and bf16), and the ms of a second step
+    (host clock)."""
+    from ocflow_torch import parallel
+    from ocflow_torch.kernels import cost_volume as cv_mod
+
+    alone = parallel.Mesh(0, 1)
+    single, single_step, _ = make(alone)
+    whole = {k: v.to(dev) for k, v in batch.items()}
+    want = _gs_step(single, single_step, whole)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single_step(single, whole)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    del single
+    torch.cuda.empty_cache()
+    grads64 = None
+    if witness:
+        exact, exact_step, _ = make(alone, torch.float64)
+        saved = module.cost_volume if module else None
+        if module:
+            module.cost_volume = cv_mod.cost_volume_plain
+        try:
+            grads64 = _gs_step(exact, exact_step, {k: v.double() for k, v in whole.items()})[1]
+        finally:
+            if module:
+                module.cost_volume = saved
+        del exact
+        torch.cuda.empty_cache()
+    return want, grads64, ms
+
+
+def _gs_rank(mesh, dev, failures, max_err):
+    """Phase 19 on this rank: each case of :func:`_gs_cases` over the ranks
+    (deterministic algorithms): one step on this rank's block with its
+    launches counted, its kernel calls recorded and its collectives
+    counted; a second step and the replicas checked equal bit for bit
+    (parameters and buffers), that step's ms; rank 0 then runs the
+    single-process step on the whole batch and holds the ranks' step
+    against it (and times a second one); the recorded calls replayed against
+    their plain versions, the fp32 ones on rank 0, the bf16 ones on rank 1.
+    Returns the readings by case."""
+    import os
+
+    import torch.distributed as dist
+
+    from ocflow_torch import parallel
+    from ocflow_torch.kernels import cost_volume as cv_mod
+    from ocflow_torch.train.loop import _models
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    alone = parallel.Mesh(0, 1)
+    out, singles = {}, {}
+    try:
+        for label, (make, module, expect, replay, witness, ref) in _gs_cases(dev).items():
+            dist.barrier()
+            state, step, batch = make(mesh)
+            block = {k: v.to(dev) for k, v in parallel.shard_batch(batch, mesh).items()}
+            targets = [(module, "cost_volume"), (cv_mod, "cost_volume_backward")] if module \
+                else []
+            box = {}
+            _zero_counts()
+            with _collectives_counted() as coll:
+                calls = _record(targets, lambda: box.update(r=_gs_step(state, step, block)))
+            counts = _read_counts()
+            launches = {"cost_volume": counts["cost_volume"],
+                        "cost_volume_bwd": counts["cost_volume_bwd"]}
+            res = {"launches": counts, "collectives": dict(coll)}
+            if (launches["cost_volume"], launches["cost_volume_bwd"]) != expect or any(
+                    v for k, v in counts.items() if k not in launches):
+                failures.append(f"gs {label} rank {mesh.rank} launches {counts}, want "
+                                f"{expect}")
+            mine = box.pop("r")
+            # a second step: the replicas after two steps, the rank step's ms
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            step(state, block)
+            torch.cuda.synchronize()
+            res["rank_step_ms"] = (time.perf_counter() - t0) * 1e3
+            try:
+                parallel.check_replicated(_models(state), mesh)
+                res["replicas_equal"] = True
+            except RuntimeError:
+                res["replicas_equal"] = False
+                failures.append(f"gs {label}: the ranks' nets differ after two steps")
+            del state, block
+            torch.cuda.empty_cache()
+            dist.barrier()
+            if mesh.rank == 0:
+                if ref not in singles:
+                    singles[ref] = _gs_single(make, batch, dev, witness, module)
+                want, witness64, res["single_step_ms"] = singles[ref]
+                res.update(_gs_compare(label, mine, want, replay == torch.bfloat16, failures,
+                                       witness64))
+            del mine
+            torch.cuda.empty_cache()
+            if replay is not None and mesh.rank == (0 if replay == torch.float32 else 1):
+                for k, (kind, args) in enumerate(calls):
+                    _check_float("cost_volume_bwd" if kind == "cost_volume_backward" else kind,
+                                 args, replay, max_err, f"gs {label} rank {mesh.rank} "
+                                 f"d={args[-1]} call {k} ")
+                res["replayed"] = len(calls)
+            del calls
+            torch.cuda.empty_cache()
+            out[label] = res
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    dist.barrier()
+    return out
+
+
+def _gs_cli(card, tmp, dev="cuda"):
+    """``torchrun --standalone --nproc_per_node 2 -m
+    ocflow_torch.train_unsupervised --dist_backend gloo`` on
+    ``configs/inpainting_gan_fullres.yaml`` with ``GS_CLI_CUTS``: exit 0
+    (``fit`` checks at its end that the replicas, generator and
+    discriminator, are equal, and raises if not), one ``fit:``, one ``test:``
+    and one ``generator checkpoint:`` line (rank 0 prints), one CSV header
+    with 3 train rows (rank 0 writes), one TensorBoard event file, the
+    exported generator loadable. Returns its wall time."""
+    import csv
+    import os
+    import subprocess
+
+    from ocflow_torch.train import config as config_lib
+    from ocflow_torch.utils.checkpoint import load_pytree
+
+    with open("configs/inpainting_gan_fullres.yaml") as f:
+        raw = config_lib.parse_flat_yaml(f.read())
+    raw.update(GS_CLI_CUTS)
+    raw.update({k: os.path.join(tmp, v) for k, v in (
+        ("metrics_csv", "metrics.csv"), ("log_dir", "tb"), ("checkpoint_dir", "ckpt"),
+        ("result_dir", "."))})
+    path = os.path.join(tmp, "gan.yaml")
+    with open(path, "w") as f:
+        f.write("".join(f"{k}: {_yaml_value(v)}\n" for k, v in raw.items()))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", str(DP_WORLD), "-m",
+                           "ocflow_torch.train_unsupervised", "--config", path,
+                           "--device", dev, "--dist_backend", "gloo"],
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    picked = {k: [ln for ln in lines if ln.startswith(k)]
+              for k in ("fit:", "test:", "generator checkpoint:")}
+    with open(raw["metrics_csv"]) as f:
+        text = f.read().splitlines()
+    rows = list(csv.DictReader(text))
+    phases = [r["phase"] for r in rows]
+    events = [n for n in os.listdir(raw["log_dir"]) if n.startswith("events")]
+    gen_path = os.path.join(raw["checkpoint_dir"], "generator")
+    exported = os.path.exists(gen_path) and "params" in load_pytree(gen_path)
+    print(f"gs torchrun GAN CLI (2 gloo ranks on one card, inpainting_gan_fullres.yaml with "
+          f"{GS_CLI_CUTS}: 448x1024, B=2, 1 a rank, remat): exit {proc.returncode}, "
+          f"{picked['fit:']}, {picked['test:']}, {picked['generator checkpoint:']}; CSV "
+          f"{sum(t.startswith('phase,') for t in text)} header, {phases.count('train')} train "
+          f"rows (steps {[r['step'] for r in rows]}), {len(events)} TensorBoard event file, "
+          f"generator exported {exported}; {wall:.1f} s wall (torchrun, both ranks' start and "
+          f"TensorBoard included) [{card}]")
+    if proc.returncode != 0 or any(len(v) != 1 for v in picked.values()) \
+            or sum(t.startswith("phase,") for t in text) != 1 or phases != ["train"] * 3 \
+            or len(events) != 1 or not exported:
+        raise AssertionError(f"gs torchrun GAN CLI: {proc.returncode} {phases} {events} "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    return wall
+
+
+def _phase19(card, ranks, cli_s):
+    """Phase 19 (module docstring): the readings of :func:`_gs_rank` from
+    each rank; ``cli_s``: the wall time of its torchrun GAN CLI
+    (:func:`_gs_cli`, run beside phase 18's processes). Returns the launches
+    of its paths, per rank, and its numbers."""
+    t0 = time.perf_counter()
+    launches, failures = {}, []
+    label = f"[two ranks sharing one card, gloo; {card}]"
+    for res in ranks:
+        r = res["rank"]
+        failures += [f"rank {r}: {f}" for f in res.get("gs_failures", [])]
+        for case, c in res["gs"].items():
+            launches[f"gs_{case}_rank{r}"] = c["launches"]
+            print(f"gs rank {r} {case}: launches {c['launches']}; collectives of the step "
+                  f"{c['collectives']} (psum: the synced statistics' forward collectives; "
+                  f"all_reduce: every collective, their backward and the gradients' and "
+                  f"metrics' sums included); replicas equal after two steps "
+                  f"{c['replicas_equal']}; replayed calls {c.get('replayed', 0)}")
+            if "metrics" in c:
+                held = "printed" if "witness" in c else f"tol {GS_GRAD_REL}"
+                extra = ("" if "grad_worst" not in c else
+                         f"; gradients worst {c['grad_worst']} of the net's max|grad| ({held}; "
+                         f"of the tensor's own max {c['grad_own_worst']}, printed) over "
+                         f"{c['grad_tensors']} tensors; running statistics worst "
+                         f"{c['stats_worst']} over {c['stats_buffers']} buffers (tol "
+                         f"{GS_STATS_REL})")
+                if "witness" in c:
+                    w = c["witness"]
+                    extra += ("; against the single-process fp64 step, per net (worst "
+                              "per-tensor over the net's max|grad|, relative L2), the ranks' "
+                              "fp32 step " + ", ".join(
+                                  f"{n} {v['max']:.3e} ({v['worst']}) / {v['l2']:.3e}"
+                                  for n, v in w["ranks"].items())
+                              + "; the single-process fp32 step " + ", ".join(
+                                  f"{n} {v['max']:.3e} / {v['l2']:.3e}"
+                                  for n, v in w["single"].items())
+                              + f" (held: the ranks' within {GS_WITNESS_RATIO}x the single "
+                              f"step's + {GS_WITNESS_SLACK})")
+                tol = GS_BF16_LOSS_REL if case == "joint_bf16" else GS_METRIC_REL
+                print(f"gs {case} over two ranks vs the single-process step on the whole "
+                      f"batch: metrics {c['metrics']} vs {c['single_metrics']}, relative "
+                      f"{_worst(c['metric_rel'])} (tol {tol}"
+                      f"{', the loss' if case == 'joint_bf16' else ''}){extra}")
+                print(f"time gs {case}: single-process step {c['single_step_ms']:.3f} ms, "
+                      f"rank 0's block {c['rank_step_ms']:.3f} ms (host clock, both ranks "
+                      f"stepping at once; for the record only) {label}")
+            else:
+                print(f"time gs {case}: rank {r}'s block {c['rank_step_ms']:.3f} ms {label}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    steps_s = max(res["gs_seconds"] for res in ranks)
+    print(f"global batch statistics: phase 19's steps took {steps_s:.1f} s in phase 18's "
+          f"ranks, its torchrun GAN CLI {cli_s:.1f} s beside phase 18's processes [{card}]")
+    return launches, {"cli_s": cli_s, "steps_s": steps_s, "seconds": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -5500,8 +6071,11 @@ def main() -> int:
     more, _ = _phase17(card, max_err)
     launches.update(more)
 
-    # 18. data parallelism: two gloo ranks sharing the card
-    more, _ = _phase18(card, max_err)
+    # 18. data parallelism: two gloo ranks sharing the card; 19. global
+    # batch statistics, every regime's step in the same ranks
+    more, p18 = _phase18(card, max_err)
+    launches.update(more)
+    more, _ = _phase19(card, p18["ranks"], p18["processes"]["gs_cli"])
     launches.update(more)
 
     # per kernel: its source, the TPU kernel it replaces, and the path whose

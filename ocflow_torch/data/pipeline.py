@@ -196,7 +196,7 @@ class DeviceCacheLoader(DataLoader):
             else:
                 samples = [self.dataset[i] for i in range(n)]
             arrays = {}
-            for k in samples[0]:
+            for k in samples[0] if samples else ():  # an empty split caches nothing
                 stacked = torch.stack([torch.as_tensor(s[k]) for s in samples])
                 if stacked.is_floating_point():
                     target = torch.float32 if k in self.fp32_keys else self.cache_dtype

@@ -2,7 +2,10 @@
 ``ocflow_tpu/losses/reconstruction.py``). Elementwise and reduced over every
 element, so any layout works whose mask broadcasts against the images
 (``[B, H, W, C]`` with ``[B, H, W, 1]``, or ``[B, C, H, W]`` with ``[B, 1,
-H, W]``); 1 = hole."""
+H, W]``); 1 = hole. ``reduce`` (data parallelism, as in
+``losses.photometric``): a function that sums a tensor over the ranks,
+without gradient; the ratio loss then returns this rank's share of the
+global-batch value."""
 
 from __future__ import annotations
 
@@ -10,10 +13,14 @@ import torch
 
 
 def masked_l1_loss(img_completed: torch.Tensor, img: torch.Tensor,
-                   occ: torch.Tensor) -> torch.Tensor:
+                   occ: torch.Tensor, reduce=None) -> torch.Tensor:
     """Supervised inpainting loss, the L1 over the hole normalized by its
-    area times 3 channels: ``sum(|Ic - I| occ) / (3 sum(occ) + 1e-16)``."""
-    return (img_completed - img).abs().mul(occ).sum() / (3.0 * occ.sum() + 1e-16)
+    area times 3 channels: ``sum(|Ic - I| occ) / (3 sum(occ) + 1e-16)``;
+    ``reduce``: the module docstring."""
+    den = occ.sum()
+    if reduce is not None:
+        den = reduce(den)
+    return (img_completed - img).abs().mul(occ).sum() / (3.0 * den + 1e-16)
 
 
 def _split_l1(imgs, out, masks, mask_mean):

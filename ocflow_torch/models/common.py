@@ -53,18 +53,29 @@ class BatchNorm(nn.BatchNorm2d):
     scaled back by (n - 1) / n. Eval mode is ``BatchNorm2d``'s. With
     ``update_stats`` false (:func:`frozen_stats`) a train-mode forward
     normalizes by the batch and leaves the running statistics as they are,
-    as a flax apply in train mode whose ``batch_stats`` are not kept."""
+    as a flax apply in train mode whose ``batch_stats`` are not kept.
+
+    With ``sync_mesh`` set (``parallel.synced_stats``: data parallelism, each
+    rank holding a block of the global batch) a train-mode forward takes
+    the global batch's statistics, as flax's BatchNorm computes them under
+    ``jit`` on global arrays: the global mean and biased variance (see
+    :meth:`_global_moments`), the normalization, and the running update
+    ``ra = 0.9 ra + 0.1 batch`` from those global values. Eval mode takes
+    no collective."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, device=None, dtype=None):
         super().__init__(num_features, eps=eps, momentum=0.1, device=device, dtype=dtype)
         self.update_stats = True
         self.policy_dtype = None
+        self.sync_mesh = None
 
     def forward(self, x):
         if self.policy_dtype is not None:
             return self._mixed(x)
         if not self.training:
             return super().forward(x)
+        if self.sync_mesh is not None:
+            return self._synced(x)
         n = x.numel() // x.shape[1]
         # copies, updated by the op: autograd keeps the running statistics
         # the op was given
@@ -78,6 +89,48 @@ class BatchNorm(nn.BatchNorm2d):
                 self.num_batches_tracked.add_(1)
         return y
 
+    def _global_moments(self, x: torch.Tensor):
+        """The global batch's per-channel mean and biased variance of ``x``
+        over ``sync_mesh``, in ``x``'s dtype, in one collective: each rank
+        puts its count ``n_r``, its sums ``s_r`` and its centred sums of
+        squares ``M2_r`` in its row of an ``[N, 2C + 1]`` matrix, zeros
+        elsewhere, and ``Mesh.psum`` (differentiable: the backward's terms
+        reach every rank) gathers the rows; then, in rank order on every
+        rank, ``mean = sum(s_r) / n`` and ``var = sum(M2_r + n_r (s_r / n_r
+        - mean)^2) / n`` (Chan's combination). That is flax's variance
+        ``E[x^2] - E[x]^2`` without its cancellation in fp32, which at a few
+        values a channel (InpaintingNet's deepest BatchNorms at 64x64) put
+        the joint step's gradient over the ranks ten times further from the
+        fp64 step than this combination does."""
+        c, mesh = x.shape[1], self.sync_mesh
+        n = x.numel() // c
+        mean = x.mean((0, 2, 3))
+        m2 = (x - mean.reshape(1, -1, 1, 1)).square().sum((0, 2, 3))
+        rows = x.new_zeros((mesh.size, 2 * c + 1))
+        rows[mesh.rank] = torch.cat([x.new_full((1,), n), mean * n, m2])
+        rows = mesh.psum(rows)
+        counts, sums, m2s = rows[:, :1], rows[:, 1:c + 1], rows[:, c + 1:]
+        total = counts.sum()
+        mean = sums.sum(0) / total
+        var = (m2s + counts * (sums / counts - mean).square()).sum(0) / total
+        return mean, var
+
+    def _synced(self, x):
+        """The train-mode forward over ``sync_mesh`` (the class docstring),
+        in ``x``'s dtype, fp32 at least."""
+        acc = torch.promote_types(x.dtype, torch.float32)
+        xa = x.to(acc)
+        mean, var = self._global_moments(xa)
+        if self.update_stats:
+            with torch.no_grad():
+                for stat, batch in ((self.running_mean, mean), (self.running_var, var)):
+                    stat.copy_((1.0 - self.momentum) * stat + self.momentum * batch)
+                self.num_batches_tracked.add_(1)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(acc)
+        y = (xa - mean.reshape(shape)) * mul.reshape(shape) + self.bias.to(acc).reshape(shape)
+        return y.to(x.dtype)
+
     def _mixed(self, x):
         """flax's BatchNorm on the variables cast to ``policy_dtype``
         (``models.precision.apply_mixed``; ``weight`` and ``bias`` arrive
@@ -88,7 +141,9 @@ class BatchNorm(nn.BatchNorm2d):
         0.8984375, ``bf16(eps)``). Train mode: the batch's mean and biased
         variance in fp32 (``E[x^2] - E[x]^2``, clipped at 0); the update
         ``bf16(0.9) * bf16(ra) + 0.1 * batch`` in fp32 into the buffers.
-        Eval mode: the cast running statistics."""
+        Eval mode: the cast running statistics. Over ``sync_mesh`` the
+        train-mode moments are the global batch's, from the ranks' fp32
+        moments (:meth:`_global_moments`)."""
         half = self.policy_dtype
         shape = (1, -1, 1, 1)
 
@@ -98,8 +153,11 @@ class BatchNorm(nn.BatchNorm2d):
         eps = float(torch.tensor(self.eps, dtype=half))
         x32 = x.float()
         if self.training:
-            mean = x32.mean((0, 2, 3))
-            var = ((x32 * x32).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            if self.sync_mesh is not None:
+                mean, var = self._global_moments(x32)
+            else:
+                mean = x32.mean((0, 2, 3))
+                var = ((x32 * x32).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
             if self.update_stats:
                 keep = float(torch.tensor(1.0 - self.momentum, dtype=half))
                 with torch.no_grad():

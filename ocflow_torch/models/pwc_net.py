@@ -155,6 +155,9 @@ class FlowNetCV(nn.Module):
         self.warp_scales = tuple(warp_scales)
         self.normalize = normalize
         self.warp_align_corners = warp_align_corners
+        # the mesh of a data-parallel step (parallel.synced_stats): the
+        # features are normalized by the global batch's moments
+        self.sync_mesh = None
         kw = dict(device=device, dtype=dtype)
         nk = (2 * displacement + 1) ** 2
         encoder = SiameseEncoder(**kw)
@@ -193,7 +196,7 @@ class FlowNetCV(nn.Module):
 
         c16, c26 = f1[5], f2[5]
         if self.normalize:
-            c16, c26 = normalize_features([c16, c26])
+            c16, c26 = normalize_features([c16, c26], mesh=self.sync_mesh)
         corr = _leaky(cost_volume(c16, c26, d))
         flow, feat = self.decoders[0](corr)
         deconv, upfeat = self.upsamplers(6)
@@ -205,7 +208,7 @@ class FlowNetCV(nn.Module):
                           align_corners=self.warp_align_corners)
             c1n, wn = f1[lvl], warped
             if self.normalize:
-                c1n, wn = normalize_features([c1n, wn])
+                c1n, wn = normalize_features([c1n, wn], mesh=self.sync_mesh)
             corr = _leaky(cost_volume(c1n, wn, d))
             # the decoder reads the NORMALIZED level features
             xcat = torch.cat([corr, c1n, up_flow, up_feat], 1)

@@ -9,7 +9,7 @@ Port of ``ocflow_tpu/ops/cost_volume.py`` in NCHW:
   ``ocflow_torch.kernels.cost_volume``.
 - ``normalize_features``: centre and scale every tensor by moments that
   are collapsed across the batch AND across the list (biased variance,
-  ``sqrt(var + eps)``).
+  ``sqrt(var + eps)``); over a mesh, across the global batch.
 """
 
 from __future__ import annotations
@@ -38,14 +38,31 @@ def cost_volume(f1: torch.Tensor, f2: torch.Tensor,
     return out.to(f1.dtype)
 
 
-def normalize_features(feature_list, eps: float = 1e-16):
+def normalize_features(feature_list, eps: float = 1e-16, mesh=None):
     """Normalize ``[B, C, H, W]`` tensors before correlation (UFlow recipe).
 
     Per-image biased mean/variance over (C, H, W), averaged across the
     batch and the list into one scalar pair; every tensor is centred by the
     mean and divided by ``sqrt(var + eps)``. Moments are computed in fp32
     whatever the input dtype; results come back in the input dtype.
+
+    ``mesh`` (several ranks, each holding a block of the global batch): the
+    batch averages are the global batch's, as the JAX package computes them
+    on global arrays: each tensor's sums of per-image means and variances
+    and its image count, summed over the ranks in one collective
+    (``Mesh.psum``, differentiable).
     """
+    if mesh is not None and mesh.size > 1:
+        sums = []
+        for f in feature_list:
+            f32 = f.float()
+            mean = f32.mean(dim=(1, 2, 3), keepdim=True)
+            sums += [mean.sum(), ((f32 - mean) ** 2).mean(dim=(1, 2, 3)).sum(),
+                     f32.new_tensor(float(f.shape[0]))]
+        total = mesh.psum(torch.stack(sums))
+        mean = (total[0::3] / total[2::3]).mean()
+        scale = torch.sqrt((total[1::3] / total[2::3]).mean() + eps)
+        return [((f.float() - mean) / scale).to(f.dtype) for f in feature_list]
     means, variances = [], []
     for f in feature_list:
         f32 = f.float()

@@ -1,13 +1,15 @@
 """Data parallelism over several processes (port of ``ocflow_tpu.parallel``):
-the process group, the data mesh and its collectives, the rank-wide
-metrics, and the height-sharded cost volume and warp."""
+the process group, the data mesh and its collectives, global-batch
+statistics (``synced_stats``), the rank-wide metrics, and the
+height-sharded cost volume and warp."""
 
 from ocflow_torch.parallel.distributed import (BACKENDS, global_mean_metrics, initialize,
                                                is_main_process, local_device,
                                                local_shard_info, process_group,
                                                world_size)
 from ocflow_torch.parallel.mesh import (Mesh, batch_sharding, check_replicated,
-                                        default_mesh, make_mesh, replicated, shard_batch)
+                                        default_mesh, make_mesh, replicated, shard_batch,
+                                        synced_stats)
 from ocflow_torch.parallel.spatial import halo_exchange, spatial_cost_volume, spatial_warp
 
 __all__ = [
@@ -19,6 +21,7 @@ __all__ = [
     "replicated",
     "check_replicated",
     "shard_batch",
+    "synced_stats",
     "initialize",
     "is_main_process",
     "global_mean_metrics",

@@ -12,10 +12,17 @@ rank 0's), and the training step sums its gradients over the ranks.
 Under gloo, ``all_reduce`` and ``broadcast`` take CUDA tensors as they are;
 ``all_gather`` and point-to-point exchanges of CUDA tensors go through the
 host, where gloo carries them.
+
+Global-batch statistics (the JAX package's BatchNorm and feature moments
+under ``jit`` on global arrays): :meth:`Mesh.psum` is the differentiable
+sum over the ranks, and :func:`synced_stats` hands a mesh to every module of
+a model that takes one (``sync_mesh``: the port's ``BatchNorm`` and
+``FlowNetCV``'s feature normalization) for the length of a step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Sequence
@@ -57,6 +64,13 @@ class Mesh:
         """A detached copy of ``t`` summed over the ranks."""
         return self.all_reduce(t.detach().clone())
 
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks, differentiable (``jax.lax.psum``):
+        the backward sums the cotangent over the ranks, so that each rank's
+        input receives the gradient of the global loss, whose shares the
+        ranks hold. One collective each way."""
+        return _PSum.apply(t, self)
+
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` concatenated on dim 0, rank order."""
         if self.size == 1:
@@ -97,6 +111,53 @@ class Mesh:
         if staged:
             return bufs[2].to(to_next.device), bufs[3].to(to_prev.device)
         return bufs[2], bufs[3]
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce(t.detach().contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce(grad.contiguous().clone()), None
+
+
+@contextlib.contextmanager
+def synced_stats(module: nn.Module, mesh: "Mesh | None"):
+    """Inside, every sub-module of ``module`` with a ``sync_mesh`` attribute
+    (``models.common.BatchNorm``, ``models.pwc_net.FlowNetCV``) takes its
+    batch statistics over the global batch of ``mesh`` (each one given back
+    on exit): a train-mode BatchNorm normalizes by the global mean and
+    variance and updates its running statistics with them, and FlowNetCV's
+    eager forward normalizes its features by the global batch's moments,
+    in either mode. A step runs its forward and its backward inside, so the
+    backward's collectives (``Mesh.psum``) and a remat recompute's see the
+    mesh too. Nothing is set for ``mesh`` None or a mesh of one: the
+    single-process path, bit for bit.
+
+    Every rank must issue the same collectives in the same order, or gloo
+    pairs the wrong ones (or waits forever). The ranks run the same model
+    on blocks of the same shape, so their forwards issue the same sequence;
+    autograd's engine runs a graph's backward nodes in an order fixed by
+    the graph (a ready node of higher sequence number first), and a
+    non-reentrant ``torch.utils.checkpoint`` recomputes its segment when
+    the backward first unpacks one of its saved tensors, a node of that
+    same order, stopping after the same op on every rank: equal graphs,
+    equal sequences of collectives."""
+    if mesh is None or mesh.size == 1:
+        yield
+        return
+    mods = [m for m in module.modules() if hasattr(m, "sync_mesh")]
+    saved = [m.sync_mesh for m in mods]
+    for m in mods:
+        m.sync_mesh = mesh
+    try:
+        yield
+    finally:
+        for m, v in zip(mods, saved):
+            m.sync_mesh = v
 
 
 def make_mesh(axis_shapes: Sequence[int] | None = None,
@@ -145,23 +206,30 @@ def shard_batch(batch, mesh: Mesh):
     return {k: v[block] for k, v in batch.items()}
 
 
-def replicated(module: nn.Module, mesh: Mesh) -> nn.Module:
-    """Rank 0's parameters and buffers broadcast into ``module`` on every
-    rank (in place); returns it."""
+def _tensors(module: nn.Module) -> list[torch.Tensor]:
+    """The parameters and buffers of ``module``, or of each module of a
+    sequence (a GAN run's generator and discriminator)."""
+    modules = module if isinstance(module, (list, tuple)) else (module,)
+    return [t for m in modules for t in (*m.parameters(), *m.buffers())]
+
+
+def replicated(module, mesh: Mesh):
+    """Rank 0's parameters and buffers broadcast into ``module`` (or into
+    each module of a sequence) on every rank, in place; returns it."""
     if mesh.size > 1:
         with torch.no_grad():
-            for t in [*module.parameters(), *module.buffers()]:
+            for t in _tensors(module):
                 mesh.broadcast(t.data)
     return module
 
 
-def check_replicated(module: nn.Module, mesh: Mesh) -> None:
-    """Raise unless every rank's parameters and buffers equal rank 0's bit
-    for bit (rank 0's flattened copy broadcast and compared on each rank)."""
+def check_replicated(module, mesh: Mesh) -> None:
+    """Raise unless every rank's parameters and buffers (of ``module``, or
+    of each module of a sequence) equal rank 0's bit for bit (rank 0's
+    flattened copy broadcast and compared on each rank)."""
     if mesh.size == 1:
         return
-    tensors = [t.detach().reshape(-1) for t in [*module.parameters(), *module.buffers()]
-               if t.is_floating_point()]
+    tensors = [t.detach().reshape(-1) for t in _tensors(module) if t.is_floating_point()]
     flat = torch.cat([t.double() for t in tensors])
     ref = mesh.broadcast(flat.clone())
     bad = torch.tensor([float(not torch.equal(flat, ref))], device=flat.device)

@@ -22,9 +22,10 @@ of the registry's family (``simple``, ``gated``, ``gated_org``). Runs on
 ``cuda`` unless ``--device`` says otherwise.
 
 Under ``torchrun`` (``--dist_backend nccl | gloo``, as
-``ocflow_torch.train_unsupervised``) the ``flow``, ``occ`` and ``flow-occ``
-regimes train data-parallel on nets without BatchNorm; ``inpainting`` and
-``find_best_lr`` raise there.
+``ocflow_torch.train_unsupervised``) every regime trains data-parallel,
+BatchNorm nets included (the global batch's statistics); ``find_best_lr``
+raises there: the JAX ``lr_find`` runs each process on its own shard
+without a mesh, so it defines no range test over several processes.
 """
 
 from __future__ import annotations

@@ -10,7 +10,10 @@ batch of ``batch_size``, the state starts from rank 0's parameters, the
 steps (built for the same mesh) return global-batch metrics, the val means
 go through ``global_mean_metrics`` so every rank takes the same early-stop
 decision, and only the main process writes TensorBoard, the CSV, the panels
-and the checkpoints. After the run the replicas are checked equal.
+and the checkpoints. After the run the replicas are checked equal: every
+model of the state (a GAN run's generator and discriminator, a pipeline's
+``ModuleDict``), parameters and buffers (BatchNorm statistics, spectral-norm
+vectors).
 """
 
 from __future__ import annotations
@@ -180,9 +183,14 @@ def _data_mesh(cfg: Config, mesh, device, *steps):
         if built is None or built.size != mesh.size:
             raise NotImplementedError(
                 f"{getattr(step, '__qualname__', step)} was not built for {mesh.size} ranks: "
-                "data parallelism covers the flow steps of train.steps (their hparams' "
-                "_fast_mesh, or the default mesh)")
+                "build the step for the mesh (its hparams' _fast_mesh, or the default mesh)")
     return mesh
+
+
+def _models(state) -> list:
+    """The models of a ``TrainState`` or of a GAN run's ``(gen_state,
+    dis_state)``."""
+    return [s.model for s in (state if isinstance(state, tuple) else (state,))]
 
 
 def fit(cfg: Config, state, train_step: Callable, eval_step: Callable, train_loader,
@@ -204,7 +212,7 @@ def fit(cfg: Config, state, train_step: Callable, eval_step: Callable, train_loa
     device = state_device(state)
     mesh = _data_mesh(cfg, mesh, device, train_step, eval_step)
     if mesh is not None:
-        parallel.replicated(state.model, mesh)
+        parallel.replicated(_models(state), mesh)
     main = parallel.is_main_process()
     logger = SummaryLogger(cfg.log_dir, enabled=main)
     csv = CsvLogger(cfg.get("metrics_csv", "") if main else "")
@@ -273,7 +281,7 @@ def fit(cfg: Config, state, train_step: Callable, eval_step: Callable, train_loa
     finally:
         logger.close()
     if mesh is not None:
-        parallel.check_replicated(state.model, mesh)
+        parallel.check_replicated(_models(state), mesh)
     return state
 
 

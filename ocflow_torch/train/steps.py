@@ -14,6 +14,8 @@ BatchNorm (the ``_apply_flow_net`` contract of the JAX package):
 batch's statistics and updates the running ones (flax's update,
 ``models.common.BatchNorm``); ``eval_step`` puts it in eval mode (the
 running statistics, no update), as the JAX eval step runs ``train=False``.
+The unsupervised step's no-gradient backward-flow pass runs in train mode
+too and keeps its update, as the JAX step does.
 
 Mixed precision (``compute_dtype='bfloat16'``): the fused forward casts the
 images, and the weights inside the graph, to bf16; Adam updates the fp32
@@ -32,13 +34,18 @@ is this rank's block of the global batch (``shard_batch``,
 every loss and metric is its global-batch value, as the JAX step computes
 them on global arrays. A mean is the block's mean over the world size; a
 ratio loss (photometric, census) the block's numerator over the denominator
-summed over the ranks, without gradient. These shares sum over the ranks to
-the global values: the metrics are all-reduced, the parameter gradients
-summed between ``backward`` and the optimizer step, so the replicas stay
-equal bit for bit. A net with BatchNorm raises there: the JAX semantics are
-global-batch statistics, not ported yet. ``hparams['_blocks'] = k`` runs the
-forward on ``k`` blocks of the batch in one process and the losses on the
-whole: the single-process oracle of a step over ``k`` ranks.
+summed over the ranks, without gradient, its epsilon added once. These
+shares sum over the ranks to the global values: the metrics are
+all-reduced, the parameter gradients summed between ``backward`` and the
+optimizer step, so the replicas stay equal bit for bit. The batch
+statistics are the global batch's too (``parallel.synced_stats`` around
+the forward and the backward, train and eval steps): every train-mode
+BatchNorm, in each pass, and the eager FlowNetCV's feature moments, in
+either mode. The fused FlowNetCV (``fast_apply``) normalizes per block, as
+the JAX package's ``shard_map`` forward does. ``hparams['_blocks'] = k``
+runs the fused forward on ``k`` blocks of the batch in one process and the
+losses on the whole: the single-process oracle of a step over ``k`` ranks
+(an eager net's step over ``k`` ranks equals its step on the whole batch).
 """
 
 from __future__ import annotations
@@ -69,17 +76,19 @@ def _step_mesh(hparams: dict | None):
     return mesh if mesh is not None and mesh.size > 1 else None
 
 
-def _check_data_parallel(model, mesh) -> None:
-    if mesh is not None and any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
-                                for m in model.modules()):
-        raise NotImplementedError(
-            f"{type(model).__name__} has BatchNorm: under data parallelism the JAX "
-            "package normalizes by the global batch's statistics, which the port does "
-            "not compute yet (synced BatchNorm); train it on one rank")
+def _shares(mesh):
+    """``(mean, reduce)`` of a step over ``mesh`` (the module docstring):
+    ``mean(t)`` turns a block's mean into its share of the global mean,
+    ``reduce`` the ratio losses' keyword arguments (the denominator summed
+    over the ranks); the identity and ``{}`` for one rank."""
+    if mesh is None:
+        return (lambda t: t), {}
+    return (lambda t: t / mesh.size), {"reduce": mesh.sum}
 
 
 def _sync_grads(model, mesh) -> None:
-    """Sum the parameter gradients over the ranks, in one collective."""
+    """Sum the parameter gradients over the ranks, in one collective (a
+    parameter without a gradient has none on every rank: the same graph)."""
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
     off = 0
@@ -89,8 +98,13 @@ def _sync_grads(model, mesh) -> None:
 
 
 def _sync_metrics(metrics: dict, mesh) -> dict:
-    """Each rank's shares summed over the ranks: the global values."""
-    vec = mesh.all_reduce(torch.stack([v.detach().float().reshape(()) for v in metrics.values()]))
+    """Each rank's shares summed over the ranks, in one collective, in their
+    widest dtype (fp32 at least): the global values."""
+    dtype = torch.float32
+    for v in metrics.values():
+        dtype = torch.promote_types(dtype, v.dtype)
+    vec = mesh.all_reduce(torch.stack([v.detach().to(dtype).reshape(())
+                                       for v in metrics.values()]))
     return dict(zip(metrics, vec.unbind()))
 
 
@@ -141,12 +155,12 @@ def _build_steps(loss_fn, compute_dtype: torch.dtype | None = None, mesh=None):
         return loss, metrics
 
     def train_step(state, batch):
-        _check_data_parallel(state.model, mesh)
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = run(state, batch)
-        with full_fp32_convs(torch.float32):
-            loss.backward()
+        with parallel.synced_stats(state.model, mesh):
+            loss, metrics = run(state, batch)
+            with full_fp32_convs(torch.float32):
+                loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if mesh is not None:
             _sync_grads(state.model, mesh)
@@ -156,9 +170,8 @@ def _build_steps(loss_fn, compute_dtype: torch.dtype | None = None, mesh=None):
         return state, metrics
 
     def eval_step(state, batch):
-        _check_data_parallel(state.model, mesh)
         state.model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), parallel.synced_stats(state.model, mesh):
             metrics = run(state, batch)[1]
         return _sync_metrics(metrics, mesh) if mesh is not None else metrics
 
@@ -266,11 +279,11 @@ def make_unsupervised_flow_step(hparams: dict):
     if mesh is not None and blocks != 1:
         raise ValueError("_blocks is the single-process oracle of a sharded step; "
                          "it takes no mesh")
+    if blocks != 1 and not (is_pwc and fast_mode == "both"):
+        raise ValueError("_blocks is the oracle of the fused forward (fast_forward: both); "
+                         "an eager net over several ranks equals its step on the whole batch")
     # global-batch values from this rank's block (the module docstring)
-    red = {} if mesh is None else {"reduce": mesh.sum}
-
-    def mean(t):
-        return t if mesh is None else t / mesh.size
+    mean, red = _shares(mesh)
 
     def _photo(img_warped, img1, occ):
         if photo_loss == "census":
@@ -395,10 +408,9 @@ def make_unsupervised_flow_step(hparams: dict):
     step_dtype = (cdt or torch.float32) if is_pwc else torch.float32
 
     def train_step(state, batch):
-        _check_data_parallel(state.model, mesh)
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        with full_fp32_convs(step_dtype):
+        with full_fp32_convs(step_dtype), parallel.synced_stats(state.model, mesh):
             loss, metrics = loss_fn(state, batch)
             loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -412,9 +424,9 @@ def make_unsupervised_flow_step(hparams: dict):
         return state, metrics
 
     def eval_step(state, batch):
-        _check_data_parallel(state.model, mesh)
         state.model.eval()
-        with torch.no_grad(), full_fp32_convs(step_dtype):
+        with torch.no_grad(), full_fp32_convs(step_dtype), \
+                parallel.synced_stats(state.model, mesh):
             metrics = loss_fn(state, batch)[1]
         return _sync_metrics(metrics, mesh) if mesh is not None else metrics
 

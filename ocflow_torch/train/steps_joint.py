@@ -23,18 +23,26 @@ import torch
 from ocflow_torch import losses
 from ocflow_torch.models.precision import apply_mixed, resolve_dtype
 from ocflow_torch.ops.ste import hard_threshold_ste
+from ocflow_torch.train.steps import _shares, _step_mesh
 from ocflow_torch.train.steps_inpainting import _build_steps
 from ocflow_torch.train.steps_two_stage import _warp_nhwc
 
 
 def masked_flow_l1(flow_pred: torch.Tensor, flow_gt: torch.Tensor,
-                   valid: torch.Tensor | None = None) -> torch.Tensor:
+                   valid: torch.Tensor | None = None, reduce=None) -> torch.Tensor:
     """The L1 of the flow over the valid pixels, ``sum(|d| valid) / (2
-    sum(valid) + 1e-8)``; the plain mean without ``valid``."""
+    sum(valid) + 1e-8)``; the plain mean without ``valid``. ``reduce``
+    (data parallelism, as in ``losses.photometric``): a function that sums
+    a tensor over the ranks, without gradient; with ``valid`` this rank's
+    share of the global-batch value comes back (its numerator over the
+    summed denominator), without it the plain mean of the block."""
     diff = (flow_pred - flow_gt).abs()
     if valid is None:
         return diff.mean()
-    return (diff * valid).sum() / (2.0 * valid.sum() + 1e-8)
+    den = valid.sum()
+    if reduce is not None:
+        den = reduce(den)
+    return (diff * valid).sum() / (2.0 * den + 1e-8)
 
 
 def make_joint_step(hparams: dict):
@@ -47,20 +55,29 @@ def make_joint_step(hparams: dict):
     ``flow_weight``, ``occ_bce_weight``, ``photo_weight``,
     ``reconst_weight`` (1 each). Metrics ``loss``, ``flow_l1``,
     ``occ_bce`` (0 without ``occ``), ``photometric``, ``reconst`` and
-    ``epe`` (the end-point error over the valid pixels)."""
+    ``epe`` (the end-point error over the valid pixels). Over several ranks
+    (``hparams['_fast_mesh']``, ``train.steps_inpainting``'s module
+    docstring) the valid-masked ratios take their denominators summed over
+    the ranks, every other term is the block's mean over the world size,
+    and the inpainter's BatchNorms (``_mixed`` under bf16 too) take the
+    global batch's statistics."""
     flow_w = hparams.get("flow_weight", 1.0)
     occ_w = hparams.get("occ_bce_weight", 1.0)
     photo_w = hparams.get("photo_weight", 1.0)
     reconst_w = hparams.get("reconst_weight", 1.0)
     dtype = resolve_dtype(hparams.get("dtype"))
+    mesh = _step_mesh(hparams)
+    mean, red = _shares(mesh)
 
     def loss_fn(model, batch):
         imgs = batch["images"]
         img1, img2 = imgs[..., :3], imgs[..., 3:]
         flow, occ = apply_mixed(model["flow_occ"], imgs, dtype=dtype)
         valid = batch.get("valid")
-        flow_loss = masked_flow_l1(flow, batch["flow"], valid)
-        occ_loss = (losses.binary_cross_entropy(occ, batch["occ"]) if "occ" in batch
+        flow_loss = masked_flow_l1(flow, batch["flow"], valid, **red)
+        if valid is None:
+            flow_loss = mean(flow_loss)
+        occ_loss = (mean(losses.binary_cross_entropy(occ, batch["occ"])) if "occ" in batch
                     else torch.zeros((), device=imgs.device))
         img_warped = _warp_nhwc(img2, flow)
         occ_hard = hard_threshold_ste(occ)
@@ -68,13 +85,17 @@ def make_joint_step(hparams: dict):
                                 dtype=dtype)
         if isinstance(completed, tuple):
             completed = completed[1]  # a gated generator's (coarse, refined)
-        photo = losses.photometric_error(img_warped * (1.0 - occ), img1 * (1.0 - occ))
-        reconst, _, _ = losses.recon_loss(completed, img1, occ)
+        photo = mean(losses.photometric_error(img_warped * (1.0 - occ), img1 * (1.0 - occ)))
+        reconst = mean(losses.recon_loss(completed, img1, occ)[0])
         loss = flow_w * flow_loss + occ_w * occ_loss + photo_w * photo + reconst_w * reconst
         epe = torch.linalg.vector_norm(flow - batch["flow"], dim=-1, keepdim=True)
-        epe = (epe * valid).sum() / (valid.sum() + 1e-8) if valid is not None else epe.mean()
+        if valid is None:
+            epe = mean(epe.mean())
+        else:
+            den = valid.sum() if mesh is None else mesh.sum(valid.sum())
+            epe = (epe * valid).sum() / (den + 1e-8)
         return loss, {"loss": loss, "flow_l1": flow_loss, "occ_bce": occ_loss,
                       "photometric": photo, "reconst": reconst, "epe": epe}
 
-    return _build_steps(loss_fn)
+    return _build_steps(loss_fn, mesh)
 

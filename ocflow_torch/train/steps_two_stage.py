@@ -14,7 +14,12 @@
 Batches are dicts of NHWC tensors (``images`` [B, H, W, 6], the GC step's
 ``flow`` [B, H, W, 2], optional ``occ``). The steps run in fp32 with full
 fp32 convolutions and matmuls (``full_fp32_convs``), as the JAX steps
-compute.
+compute. Over several ranks (``hparams['_fast_mesh']``,
+``train.steps_inpainting``'s module docstring) each loss and metric is its
+share of the global-batch value, every BatchNorm in train mode takes the
+global batch's statistics, and the gradients are summed over the ranks
+before the optimizer (``GatedAdam`` too: every rank takes the same gated
+or unfrozen branch, and a parameter without a gradient has none on any).
 """
 
 from __future__ import annotations
@@ -22,9 +27,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ocflow_torch import losses
+from ocflow_torch import losses, parallel
 from ocflow_torch.losses.perceptual import vgg_perceptual_loss
 from ocflow_torch.ops import warp
+from ocflow_torch.train.steps import _shares, _step_mesh
 from ocflow_torch.train.steps_inpainting import _apply_generator, _build_steps, check_vgg
 
 
@@ -55,27 +61,31 @@ def make_two_stage_step(hparams: dict):
     and ``bce_loss`` when the batch has ``occ``."""
     smooth_w = hparams.get("smoothness_weight", 0.0)
     reconst_w = hparams.get("reconst_weight", 1.0)
+    mesh = _step_mesh(hparams)
+    mean, _ = _shares(mesh)
 
     def loss_fn(model, frozen, batch):
         imgs = batch["images"]
         img1, img2 = imgs[..., :3], imgs[..., 3:]
         flow_net = frozen["flow"].eval()
-        with torch.no_grad():
+        # eval mode: running statistics, but FlowNetCV's feature moments
+        # are the global batch's in either mode
+        with torch.no_grad(), parallel.synced_stats(flow_net, mesh):
             flow = flow_net(imgs)
             flow = flow[0] if isinstance(flow, tuple) else flow
             img_warped = _warp_nhwc(img2, flow)
         occ = model(imgs)
-        smooth = losses.first_order_smoothness_loss(_nchw(img1), _nchw(flow))
-        photo = losses.photometric_error(img_warped * (1.0 - occ), img1 * (1.0 - occ))
-        reconst = losses.photometric_error(img_warped * occ, img1 * occ)
+        smooth = mean(losses.first_order_smoothness_loss(_nchw(img1), _nchw(flow)))
+        photo = mean(losses.photometric_error(img_warped * (1.0 - occ), img1 * (1.0 - occ)))
+        reconst = mean(losses.photometric_error(img_warped * occ, img1 * occ))
         loss = photo + reconst_w * reconst + smooth_w * smooth
         metrics = {"loss": loss, "photometric": photo, "reconst": reconst,
                    "smoothness": smooth}
         if "occ" in batch:
-            metrics["bce_loss"] = losses.binary_cross_entropy(occ, batch["occ"])
+            metrics["bce_loss"] = mean(losses.binary_cross_entropy(occ, batch["occ"]))
         return loss, metrics
 
-    return _build_steps(loss_fn)
+    return _build_steps(loss_fn, mesh)
 
 
 class GatedAdam(torch.optim.Adam):
@@ -142,6 +152,8 @@ def make_two_stage_gc_step(hparams: dict, vgg=None):
     smooth1_w = hparams.get("smooth1_weight", 1.0)
     pixelwise_w = hparams.get("pixelwise_weight", 1.0)
     check_vgg(loss_type, vgg)
+    mesh = _step_mesh(hparams)
+    mean, _ = _shares(mesh)
 
     def loss_fn(model, batch):
         imgs = batch["images"]
@@ -149,21 +161,21 @@ def make_two_stage_gc_step(hparams: dict, vgg=None):
         with torch.no_grad():
             img_warped = _warp_nhwc(img2, batch["flow"])
         occ = model["occ"](imgs)
-        smooth = losses.first_order_smoothness_loss(_nchw(img_warped), _nchw(occ))
+        smooth = mean(losses.first_order_smoothness_loss(_nchw(img_warped), _nchw(occ)))
         completed = _apply_generator(model["inpaint"], img_warped, occ)[1]
-        photo = losses.photometric_error(img_warped * (1.0 - occ), img1 * (1.0 - occ))
-        photo_occ = losses.photometric_error(img_warped * occ, img1 * occ)
+        photo = mean(losses.photometric_error(img_warped * (1.0 - occ), img1 * (1.0 - occ)))
+        photo_occ = mean(losses.photometric_error(img_warped * occ, img1 * occ))
         if loss_type == "vgg":
-            reconst = vgg_perceptual_loss(vgg, occ * completed, occ * img1)
+            reconst = mean(vgg_perceptual_loss(vgg, occ * completed, occ * img1))
         else:
-            reconst = losses.photometric_error(occ * completed, occ * img1)
-        pixelwise, _, _ = losses.recon_loss(completed, img1, occ)
+            reconst = mean(losses.photometric_error(occ * completed, occ * img1))
+        pixelwise = mean(losses.recon_loss(completed, img1, occ)[0])
         loss = (photo_w * photo + reconst_w * reconst + smooth1_w * smooth
                 + pixelwise_w * pixelwise)
         metrics = {"loss": loss, "photometric": photo, "photometric_occluded": photo_occ,
                    "reconst": reconst, "smoothness": smooth, "pixelwise": pixelwise}
         if "occ" in batch:
-            metrics["bce_loss"] = losses.binary_cross_entropy(occ, batch["occ"])
+            metrics["bce_loss"] = mean(losses.binary_cross_entropy(occ, batch["occ"]))
         return loss, metrics
 
-    return _build_steps(loss_fn)
+    return _build_steps(loss_fn, mesh)

@@ -63,12 +63,14 @@ number, so none is built and ``inpainting_root`` is not read). Runs on
 ``cuda`` unless ``--device`` says otherwise; on the card the run ends by
 printing its peak memory.
 
-Several processes (``network_type: flow``): launched by ``torchrun``, each
+Several processes (every ``network_type``): launched by ``torchrun``, each
 rank joins the group from its environment (``parallel.initialize``,
 ``--dist_backend nccl`` by default on CUDA, ``gloo`` on the CPU and for
 ranks that share a GPU) and runs on ``cuda:LOCAL_RANK`` (gloo: ``LOCAL_RANK
 % device_count``); ``batch_size`` is the global batch, each rank trains on
-its block, and only rank 0 prints, logs and saves::
+its block with the global batch's statistics (BatchNorm, the eager
+FlowNetCV's feature moments), and only rank 0 prints, logs and saves (a GAN
+run's exported generator too)::
 
     torchrun --nproc_per_node 4 -m ocflow_torch.train_unsupervised --config C
     torchrun --nproc_per_node 2 -m ocflow_torch.train_unsupervised --config C \\
@@ -188,10 +190,11 @@ def load_params(path: str) -> dict:
     return (tree[0] if isinstance(tree, (list, tuple)) else tree)["params"]
 
 
-def build_two_stage(cfg: config_lib.Config, steps_per_epoch: int, device, vgg=None):
+def build_two_stage(cfg: config_lib.Config, steps_per_epoch: int, device, vgg=None,
+                    mesh=None):
     """``(state, train_step, eval_step, step_args)`` of ``network_type:
-    twostage`` (the module docstring)."""
-    hparams = cfg.as_hparams()
+    twostage`` (the module docstring), the steps built for ``mesh``."""
+    hparams = {**cfg.as_hparams(), "_fast_mesh": mesh}
     if not cfg.with_gt_flow:
         # the reference's frozen inpainter feeds nothing of the loss (dead
         # under jax.jit): no inpainter is built here, so inpainting_root
@@ -256,10 +259,6 @@ def main(argv=None) -> dict:
         cfg.max_epochs = args.max_epochs
     check_supported(cfg)
     with parallel.process_group(args.dist_backend, args.device) as multi:
-        if multi and cfg.network_type != "flow":
-            raise NotImplementedError(
-                f"network_type {cfg.network_type!r} over several processes: data "
-                "parallelism covers network_type flow")
         device = parallel.local_device(args.device) if multi else resolve_device(args.device)
         return _run(cfg, device, parallel.default_mesh(cfg.mesh_shape, device))
 
@@ -273,9 +272,10 @@ def _run(cfg: config_lib.Config, device: torch.device, mesh) -> dict:
            if cfg.loss_type == "vgg" else None)
     step_args = ()
     gan = cfg.network_type == "inpainting" and cfg.adversarial_loss
+    hparams = {**cfg.as_hparams(), "_fast_mesh": mesh}
     if cfg.network_type == "twostage":
         state, train_step, eval_step, step_args = build_two_stage(
-            cfg, len(train_loader), device, vgg)
+            cfg, len(train_loader), device, vgg, mesh)
         show = pipeline_viz_fn if cfg.with_gt_flow else None
     else:
         state = create_train_state(build_net(cfg), cfg.learning_rate, device=device)
@@ -284,25 +284,25 @@ def _run(cfg: config_lib.Config, device: torch.device, mesh) -> dict:
                              generator=_seeded(1))
         # D trains at 4x the G learning rate, as the JAX CLI sets it
         state = (state, create_train_state(dis, 4 * cfg.learning_rate, device=device))
-        train_step = make_gan_inpainting_step(cfg.as_hparams(), vgg)
-        _, stage_eval = make_inpainting_stage_step({**cfg.as_hparams(), "loss_type": "pixel-wise"})
+        train_step = make_gan_inpainting_step(hparams, vgg)
+        _, stage_eval = make_inpainting_stage_step({**hparams, "loss_type": "pixel-wise"})
 
         def eval_step(pair, batch):
             return stage_eval(pair[0], batch)
 
+        eval_step.mesh = stage_eval.mesh
         show = inpaint_viz_fn
     elif cfg.network_type == "inpainting":
-        train_step, eval_step = make_inpainting_stage_step(cfg.as_hparams(), vgg)
+        train_step, eval_step = make_inpainting_stage_step(hparams, vgg)
         show = inpaint_viz_fn
     elif cfg.network_type == "flow":
-        train_step, eval_step = make_unsupervised_flow_step(
-            {**cfg.as_hparams(), "_fast_mesh": mesh})
+        train_step, eval_step = make_unsupervised_flow_step(hparams)
         show = viz_fn
     state = loop.fit(cfg, state, train_step, eval_step, train_loader, val_loader,
                      step_args=step_args, viz_fn=show, mesh=mesh)
     fit_s = time.perf_counter() - t0
     steps = (state[0] if gan else state).step
-    if gan:
+    if gan and main_rank:
         gen_path = os.path.join(cfg.checkpoint_dir, "generator")
         save_pytree(gen_path, {"params": state[0].model.state_dict()})
         print("generator checkpoint:", gen_path)

@@ -11,8 +11,11 @@
 - on two gloo ranks joined through a ``file://`` store
   (``tests/torch_parallel_ranks.py``): the collectives,
   ``global_mean_metrics`` (the mean of the ranks' means), the replicas'
-  broadcast and check, the meshes that raise, the steps that refuse a
-  BatchNorm net, ``fit`` refusing a step not built for the mesh, and
+  broadcast and check, the meshes that raise, SimpleFlowNet's unsupervised
+  and supervised steps (train-mode BatchNorms, synced over the ranks, fp64)
+  equal to the single-process steps on the whole batch (metrics 1e-6
+  relative, gradients 1e-5 of max|grad|), ``fit`` refusing a step not
+  built for the mesh, and
   ``fast_apply_sharded`` / ``fast_apply_pair_sharded`` (each rank's block
   and the gathered batch) equal to the single-process forwards of the
   blocks bit for bit; the supervised flow step (PWCNet, MSE) over the ranks
@@ -189,10 +192,37 @@ def test_meshes_and_batches_that_do_not_fit_raise(dist):
         assert "does not split" in res["ragged"]
 
 
+def _one_process(fn, *args):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the ranks run: a CPU conv sums in another order on more
+    try:
+        return fn(*args)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _hold_step(got, want):
+    """Every metric within 1e-6 relative, every gradient within 1e-5 of its
+    max|grad|; a gradient zero but for rounding (within 1e-12 of the net's
+    largest: a bias that reaches the loss only through a train-mode
+    BatchNorm) against the net's largest."""
+    assert set(got["metrics"]) == set(want["metrics"])
+    for k, v in want["metrics"].items():
+        assert abs(got["metrics"][k] - v) <= 1e-6 * abs(v), (k, got["metrics"][k], v)
+    top = max(g.abs().max().item() for g in want["grads"].values())
+    for n, g in want["grads"].items():
+        scale = g.abs().max().item()
+        scale = top if scale <= 1e-12 * top else scale
+        err = (got["grads"][n] - g).abs().max().item() / scale
+        assert err <= 1e-5, (n, err)
+
+
 @pytest.mark.parametrize("step", ["unsupervised", "supervised"])
-def test_batchnorm_nets_raise_over_two_ranks(dist, step):
+def test_batchnorm_nets_over_two_ranks_equal_one_process(dist, step):
+    want = _one_process(ranks.simple_step, step, {"_fast_mesh": parallel.Mesh(0, 1)},
+                        ranks.smooth_batch(8, 2))
     for res in dist:
-        assert "BatchNorm" in res[f"bn_{step}"] and "BatchNorm" in res[f"bn_{step}_eval"]
+        _hold_step(res[f"bn_{step}"], want)
 
 
 def test_fit_refuses_a_step_built_without_the_mesh(dist):
