@@ -248,8 +248,19 @@ Phases (any failure raises and exits non-zero):
    (``tests/data/jpeg_frames.json``): each frame's decode against its
    recorded sha256 of the JAX ``read_gen`` decode, each ``.flo`` within
    1e-4 of max|flow| of the eager forward on the decoded pair, launches per
-   pair; the host decode ms of a 436x1024 frame as JPEG, as an Adam7 PNG
-   (written by this file's writer) and as a plain PNG, on 1 and 6 threads.
+   pair; the same ``infer`` run on the committed progressive copies of those
+   frames (``infer_jpg_progressive``: their decodes against the baseline
+   frames' sha256, the ``.flo`` files against the eager forward, launches
+   per pair, and the largest difference to the baseline run's ``.flo``
+   files, 0 expected); the committed 436x1024 CMYK frame against its
+   sha256; the first frame written as 16-bit P6 and as ASCII P3 and read
+   back bit for bit; a FlyingChairs-layout pair of 16-bit P6 frames through
+   ``build_dataset`` and the ``DataLoader`` (the fused pair path gives None,
+   the samples equal the generic path's of the 8-bit frames bit for bit);
+   the host decode ms of a 436x1024 frame as JPEG, as an Adam7 PNG
+   (written by this file's writer), as a plain PNG, as progressive and CMYK
+   JPEG, as 16-bit P6 and ASCII P3, on 1 and 6 threads; the wall time the
+   progressive and PNM checks added.
 
 18. data parallelism (``ocflow_torch.parallel``) over two gloo ranks that
    share cuda:0 (NCCL refuses two ranks on one GPU), spawned with a
@@ -4650,12 +4661,14 @@ def _imported_generator_check(card, ckpt, dev="cuda"):
         raise AssertionError(f"imported generator: {errs} {counts}")
 
 
-def _jpeg_infer_check(card, tmp, ckpt, dev="cuda"):
+def _jpeg_infer_check(card, tmp, ckpt, dev="cuda", key="frames", label="infer_jpg"):
     """``python -m ocflow_torch.infer --checkpoint <imported> --iext jpg
-    --save_flo`` over the committed JPEG frames: each frame's decode against
-    its recorded sha256 (the JAX package's ``read_gen``), each ``.flo``
-    against the eager fp32 forward of the imported net on the same decoded
-    pair, launches per pair. Returns the launches of the first pair."""
+    --save_flo`` over the committed JPEG frames ``jpeg_frames.json[key]``
+    (the baseline frames, or their progressive copies): each frame's decode
+    against its recorded sha256 (the JAX package's ``read_gen``), each
+    ``.flo`` against the eager fp32 forward of the imported net on the same
+    decoded pair, launches per pair. Returns the launches of the first pair
+    and the ``.flo`` files."""
     import hashlib
     import json
     import os
@@ -4665,21 +4678,21 @@ def _jpeg_infer_check(card, tmp, ckpt, dev="cuda"):
     from ocflow_torch.data import build_dataset, read_flo, read_gen
     from ocflow_torch.models import load_model, pwc_fast
 
-    meta = json.load(open(JPEG_FRAMES))
-    frames = os.path.join(tmp, "jpeg_frames")
+    entries = json.load(open(JPEG_FRAMES))[key]
+    frames = os.path.join(tmp, f"{label}_frames")
     os.makedirs(frames)
     decoded = {}
-    for e in meta["frames"]:
+    for e in entries:
         path = shutil.copy(os.path.join(os.path.dirname(JPEG_FRAMES), e["file"]), frames)
         im = read_gen(path)
         decoded[e["file"]] = hashlib.sha256(im.tobytes()).hexdigest() == e["decode_sha256"] \
             and im.shape == (e["height"], e["width"], 3)
-    print(f"jpeg frames: {len(decoded)} committed {meta['frames'][0]['height']}x"
-          f"{meta['frames'][0]['width']} frames decoded by the port to the recorded sha256 of "
+    print(f"jpeg frames ({key}): {len(decoded)} committed {entries[0]['height']}x"
+          f"{entries[0]['width']} frames decoded by the port to the recorded sha256 of "
           f"the JAX read_gen decode {decoded}")
     if not all(decoded.values()):
         raise AssertionError(f"JPEG decode sha256 {decoded}")
-    dst = os.path.join(tmp, "infer_jpg")
+    dst = os.path.join(tmp, label)
     with _Timed(infer, "fast_apply", keep=True) as timed:
         t0 = time.perf_counter()
         paths = infer.main(["--input", frames, "--output", dst, "--iext", "jpg", "--save_flo",
@@ -4697,7 +4710,7 @@ def _jpeg_infer_check(card, tmp, ckpt, dev="cuda"):
         errs.append(float(abs(flo - ref).max()) / scale if flo.shape == ref.shape else 1.0)
     want = {"cost_volume": 5, "cost_volume_bwd": 0, "conv_group_diff": 0, "gemm_probe": 0,
             **pwc_fast.prepare(model, torch.float32, dev).launch_counts()}
-    print(f"main path infer_jpg (python -m ocflow_torch.infer --iext jpg --save_flo "
+    print(f"main path {label} (python -m ocflow_torch.infer --iext jpg --save_flo "
           f"--checkpoint <imported FlowNetCV>, {len(ds)} pairs of {ds.render_size}) launches per "
           f"pair: {timed.counts} (expected {want} each); each .flo vs the eager fp32 forward "
           f"on the decoded pair {[f'{e:.3e}' for e in errs]} of max|flow| (tol "
@@ -4705,15 +4718,100 @@ def _jpeg_infer_check(card, tmp, ckpt, dev="cuda"):
           f"included) [{card}]")
     if len(timed.counts) != len(ds) or any(c != want for c in timed.counts) \
             or len(paths) != 2 * len(ds) or max(errs) > E2E_FP32_TOL:
-        raise AssertionError(f"infer --iext jpg: {timed.counts}, {errs}")
-    return timed.counts[0]
+        raise AssertionError(f"{label}: {timed.counts}, {errs}")
+    return timed.counts[0], [paths[2 * i + 1] for i in range(len(ds))]
 
 
-def _decode_timing(card, tmp):
+def _write_pnm(path, img, magic=b"P6", maxval=255):
+    """``img`` (uint8 [H, W, 3]) as binary P6 (``maxval`` 65535: each value
+    times 257, big-endian) or ASCII P3."""
+    import numpy as np
+
+    h, w = img.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"%s\n%d %d\n%d\n" % (magic, w, h, maxval))
+        if magic == b"P3":
+            f.write(" ".join(map(str, img.ravel().tolist())).encode() + b"\n")
+        elif maxval == 65535:
+            f.write((img.astype(np.uint32) * 257).astype(">u2").tobytes())
+        else:
+            f.write(img.tobytes())
+    return path
+
+
+def _frames_check(card, tmp):
+    """The frames past baseline JPEG and 8-bit PNM: the committed CMYK frame
+    against its recorded sha256; the first frame written here as 16-bit P6
+    and as ASCII P3 (maxval 255), each read back bit for bit; a
+    FlyingChairs-layout pair of 16-bit P6 frames through ``build_dataset``
+    and the port's ``DataLoader``: the fused pair path gives None (C8), and
+    the samples equal those the generic path makes of the 8-bit frames bit
+    for bit (the 8-bit dataset's fused samples, x * (1 / 127.5) - 1 in one
+    pass, are printed beside them). Returns its paths for the timing."""
+    import hashlib
+    import json
+    import os
+    import shutil
+
+    import numpy as np
+
+    from ocflow_torch.data import build_dataset, native_io, read_gen
+    from ocflow_torch.data.datasets import center_crop, normalize_image
+    from ocflow_torch.data.pipeline import DataLoader
+
+    data = os.path.dirname(JPEG_FRAMES)
+    e = json.load(open(JPEG_FRAMES))["cmyk_frame"]
+    cmyk = shutil.copy(os.path.join(data, e["file"]), tmp)
+    im = read_gen(cmyk)
+    cmyk_ok = hashlib.sha256(im.tobytes()).hexdigest() == e["decode_sha256"] \
+        and im.shape == (e["height"], e["width"], 3)
+    frames = [read_gen(os.path.join(data, f"frame_{i:04d}.jpg")) for i in range(2)]
+    p16 = _write_pnm(os.path.join(tmp, "f16.ppm"), frames[0], maxval=65535)
+    p3 = _write_pnm(os.path.join(tmp, "f_ascii.ppm"), frames[0], b"P3")
+    trips = {k: bool(read_gen(p).dtype == np.uint8 and np.array_equal(read_gen(p), frames[0]))
+             for k, p in (("p6 16-bit", p16), ("p3 ascii", p3))}
+    roots = {}
+    for bits in (8, 16):
+        roots[bits] = os.path.join(tmp, f"chairs{bits}")
+        os.makedirs(roots[bits])
+        for k, img in enumerate(frames):
+            _write_pnm(os.path.join(roots[bits], f"00000_img{k + 1}.ppm"), img,
+                       maxval=65535 if bits == 16 else 255)
+        h, w = frames[0].shape[:2]
+        with open(os.path.join(roots[bits], "00000_flow.flo"), "wb") as f:
+            f.write(np.array([202021.25], np.float32).tobytes()
+                    + np.array([w, h], np.int32).tobytes() + np.zeros((h, w, 2), np.float32).tobytes())
+    samples = {}
+    for bits, root in roots.items():
+        ds = build_dataset("FlyingChairs", root=root)
+        samples[bits] = next(iter(DataLoader(ds, 1, num_workers=2, drop_last=False)))
+    th, tw = ds.render_size
+    fused = {bits: native_io.read_pair_norm(os.path.join(roots[bits], "00000_img1.ppm"),
+                                            os.path.join(roots[bits], "00000_img2.ppm"), th, tw)
+             for bits in roots}
+    generic = np.concatenate([normalize_image(center_crop(f, th, tw)) for f in frames], -1)
+    got = samples[16]["images"][0].numpy()
+    chairs_ok = fused[16] is None and fused[8] is not None and np.array_equal(got, generic) \
+        and np.array_equal(samples[16]["flow"], samples[8]["flow"])
+    gap = float(np.abs(samples[8]["images"][0].numpy() - generic).max())
+    print(f"frames: committed CMYK frame decoded to its recorded sha256 {cmyk_ok}; 16-bit P6 "
+          f"and ASCII P3 of the first frame read back bit for bit {trips}; FlyingChairs "
+          f"layout on 16-bit P6 through build_dataset and DataLoader ({th}x{tw}): fused pair "
+          f"path None {fused[16] is None} (8-bit: an array {fused[8] is not None}), samples "
+          f"equal to the generic path's of the 8-bit frames bit for bit {chairs_ok} (the 8-bit "
+          f"fused samples {gap:.3e} from them) [{card}]")
+    if not (cmyk_ok and all(trips.values()) and chairs_ok):
+        raise AssertionError(f"frames: cmyk {cmyk_ok} {trips} chairs {chairs_ok}")
+    return {"cmyk jpeg": cmyk, "p6 16-bit": p16, "p3 ascii": p3}
+
+
+def _decode_timing(card, tmp, more=None):
     """Host decode of one 436x1024 frame as JPEG (the first committed frame),
     as an interlaced PNG of the same pixels (this file's writer) and as a
-    plain PNG (the port's writer, phase 11's format): ms per frame on one
-    thread and on the loader's 6; the PNGs read back bit for bit."""
+    plain PNG (the port's writer, phase 11's format), and of the frames in
+    ``more`` (kind -> path: the progressive copy, the CMYK frame, 16-bit and
+    ASCII PNM): ms per frame on one thread and on the loader's 6; the PNGs
+    read back bit for bit. Returns the ms and each kind's wall seconds."""
     import os
     import shutil
 
@@ -4730,9 +4828,11 @@ def _decode_timing(card, tmp):
         f.write(encode_png(img, 4))
     exact = {k: bool((native_io.read_image(p) == img).all()) for k, p in paths.items()
              if k != "jpeg"}
-    ms = {}
+    paths.update(more or {})
+    ms, walls = {}, {}
     with ThreadPoolExecutor(6) as pool:
         for kind, path in paths.items():
+            t_kind = time.perf_counter()
             native_io.read_image(path)
             t0 = time.perf_counter()
             for _ in range(DECODE_PASSES):
@@ -4743,6 +4843,7 @@ def _decode_timing(card, tmp):
             list(pool.map(native_io.read_image, [path] * (6 * DECODE_PASSES)))
             six = (time.perf_counter() - t0) * 1e3 / (6 * DECODE_PASSES)
             ms[kind] = (one, six)
+            walls[kind] = time.perf_counter() - t_kind
     sizes = {k: os.path.getsize(p) for k, p in paths.items()}
     print(f"decode {img.shape[0]}x{img.shape[1]} frame (host clock, {os.cpu_count()} CPUs): "
           + "; ".join(f"{k} ({sizes[k]} B) {a:.2f} ms on one thread, {b:.2f} ms per frame on 6"
@@ -4750,15 +4851,18 @@ def _decode_timing(card, tmp):
           + f"; the PNGs read back bit for bit {exact} [{card}]")
     if not all(exact.values()):
         raise AssertionError(f"decode round trip {exact}")
-    return ms
+    return ms, walls
 
 
 def _phase17(card, max_err, dev="cuda"):
     """Phase 17 (module docstring): original checkpoints imported and
-    served, JPEG and interlaced PNG frames. Returns the launches of its
-    paths and its numbers."""
+    served, JPEG (baseline, progressive, CMYK), interlaced PNG and PNM
+    frames. Returns the launches of its paths and its numbers."""
     import os
+    import shutil
     import tempfile
+
+    from ocflow_torch.data import read_flo
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4767,10 +4871,25 @@ def _phase17(card, max_err, dev="cuda"):
         ckpt, import_s = _import_check(card, src, out)
         launches, ms = _serve_imported(card, max_err, ckpt["flownetcv"], dev)
         _imported_generator_check(card, ckpt["sanet"], dev)
-        launches["infer_jpg"] = _jpeg_infer_check(card, tmp, ckpt["flownetcv"], dev)
-        decode = _decode_timing(card, tmp)
-    print(f"import and frames: phase 17 took {time.perf_counter() - t0:.1f} s wall [{card}]")
-    return launches, {"import_s": import_s, "ms": ms, "decode_ms": decode}
+        launches["infer_jpg"], base_flo = _jpeg_infer_check(card, tmp, ckpt["flownetcv"], dev)
+        t1 = time.perf_counter()
+        launches["infer_jpg_progressive"], prog_flo = _jpeg_infer_check(
+            card, tmp, ckpt["flownetcv"], dev, "progressive_frames", "infer_jpg_progressive")
+        flo_gap = max(float(abs(read_flo(a) - read_flo(b)).max())
+                      for a, b in zip(base_flo, prog_flo))
+        print(f"infer_jpg_progressive vs infer_jpg: the .flo files differ by {flo_gap:.3e} at "
+              f"most (0 expected: the progressive frames decode to the same pixels) [{card}]")
+        more = _frames_check(card, tmp)
+        more["progressive jpeg"] = shutil.copy(
+            os.path.join(os.path.dirname(JPEG_FRAMES), "frame_prog_0000.jpg"), tmp)
+        checks = time.perf_counter() - t1
+        decode, walls = _decode_timing(card, tmp, more)
+        timing = sum(walls[k] for k in more)
+    print(f"import and frames: phase 17 took {time.perf_counter() - t0:.1f} s wall, of which "
+          f"{checks + timing:.1f} s for the progressive, CMYK and PNM frames: the progressive "
+          f"infer run and the checks {checks:.1f} s, their decode timing {timing:.1f} s "
+          f"[{card}]")
+    return launches, {"import_s": import_s, "ms": ms, "decode_ms": decode, "flo_gap": flo_gap}
 
 
 # phase 18: data parallelism over two gloo ranks that share cuda:0

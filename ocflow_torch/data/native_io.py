@@ -1,20 +1,26 @@
 """The port's host decoders (``_native/decode.cc``), loaded with ctypes:
-``.flo``, ``.ppm`` / ``.pgm`` (P5, P6), PNG and baseline JPEG, with no
-library linked.
+``.flo``, PNM, PNG and JPEG, with no library linked. Each frame decodes to
+what the JAX package's ``read_gen`` returns for it, bit for bit: its shape,
+dtype and values.
 
 A PNG's chunks are walked here and its IDAT stream inflated with the
 standard library's ``zlib``; the C++ side undoes the five row filters (pass
 by pass for interlaced, Adam7, images) and normalizes the pixels as libpng
 does for the JAX package's decoder (``ocflow_tpu/data/_native/decode.cc``:
 palette -> RGB, gray of 1/2/4 bits -> 8 bits, tRNS -> alpha, 16-bit samples
-in host order). JPEG frames are decoded whole in C++ with libjpeg's
-arithmetic (integer IDCT, fancy upsampling, fixed-point YCbCr -> RGB), as
-the JAX package's ``read_gen`` decodes them through imageio and Pillow's
-libjpeg-turbo; no EXIF orientation is applied, as there. Baseline only
-(SOF0, SOF1, Huffman, 8-bit, gray or three components, 4:4:4 / 4:2:2 /
-4:2:0); other JPEGs raise ``ValueError`` naming what they are (ROADMAP A8).
-``zlib`` and every ctypes call release the GIL, so the loader's threads
-decode in parallel.
+in host order). JPEG frames are decoded whole in C++ with libjpeg-turbo
+3.1.3's arithmetic, as the JAX package's ``read_gen`` decodes them through
+imageio and Pillow: sequential and progressive Huffman-coded files, 1, 3 or
+4 components (four come out as the first three channels of Pillow's
+inverted CMYK), every integral sampling ratio, block smoothing where a
+progressive file's scans leave low coefficients incomplete; no EXIF
+orientation is applied, as there. Arithmetic-coded, lossless, hierarchical
+and 12-bit JPEGs raise ``ValueError`` naming what they are (ROADMAP A8 and
+C). Binary P5 / P6 files with a maxval up to 255 are read as the JAX
+package's own decoder reads them (the raw bytes); every other PNM (16-bit,
+ASCII, bitmaps, ``Pf``) as Pillow reads it, which is where the JAX reader
+sends them. ``zlib`` and every ctypes call release the GIL, so the loader's
+threads decode in parallel.
 
 The library is compiled with ``g++ -O2 -shared -fPIC`` at first use into
 ``build/ocflow_torch_native/`` at the repository root, its file name keyed
@@ -22,7 +28,6 @@ by a digest of the source and the flags, and moved into place with
 ``os.replace`` (concurrent processes never load a half-written file). A
 failed build raises: there is no pure-Python decoder.
 """
-
 from __future__ import annotations
 
 import ctypes
@@ -61,25 +66,35 @@ _SIGNATURES = {
     "png_decode_norm_f32": _PNG_ARGS + [_VP, _I64, _I32, _I32, _F32, _F32],
     "jpeg_probe": [_U8P, _I64, _I32P, _I32P, _I32P],
     "jpeg_decode": [_U8P, _I64, _VP],
+    "pnm_probe": [_U8P, _I64, _I32P, _I32P, _I32P, _I32P],
+    "pnm_decode": [_U8P, _I64, _VP],
 }
 _ERRORS = {-2: "bad header", -3: "bad header", -4: "truncated", -5: "bad header",
            -6: "bad palette", -7: "unknown row filter", -8: "pixel data too short",
            -11: "crop larger than the image",
            -20: "not a JPEG",
-           -21: "progressive (or differential) JPEG: the port decodes baseline JPEG only "
-                "(ROADMAP A8 queues the rest)",
-           -22: "arithmetic-coded JPEG: the port decodes Huffman-coded baseline JPEG only "
-                "(ROADMAP A8 queues the rest)",
-           -23: "lossless or hierarchical JPEG: the port decodes baseline JPEG only "
-                "(ROADMAP A8 queues the rest)",
-           -24: "JPEG of a sample precision other than 8 bits (12-bit?): the port decodes "
-                "8-bit baseline JPEG only (ROADMAP A8 queues the rest)",
-           -25: "JPEG of neither 1 nor 3 components (CMYK / YCCK?): the port decodes gray "
-                "and three-component JPEG only (ROADMAP A8 queues the rest)",
-           -26: "JPEG sampling factors other than 4:4:4, 4:2:2 and 4:2:0 (ROADMAP A8 "
-                "queues the rest)",
+           -21: "hierarchical (differential) JPEG, which libjpeg refuses too",
+           -23: "arithmetic-coded lossless JPEG (SOF11), which libjpeg refuses too",
+           -24: "JPEG of a sample precision other than 8 bits (12-bit?), which Pillow "
+                "refuses too",
+           -25: "JPEG of 2 or more than 4 components, which Pillow refuses too",
+           -26: "JPEG sampling factors of a ratio that is not an integer, which libjpeg "
+                "refuses too",
            -27: "corrupt JPEG data", -28: "truncated JPEG", -29: "JPEG without a frame",
-           -30: "JPEG too large for memory"}
+           -30: "JPEG too large for memory",
+           -31: "progressive JPEG scan with bad Ss, Se, Ah or Al",
+           -32: "JPEG scan of more than 10 blocks an MCU",
+           -33: "lossless JPEG that needs a colour conversion (YCbCr, YCCK), which "
+                "libjpeg refuses",
+           -34: "lossless JPEG with a restart interval not of whole MCU rows",
+           -40: "not a PNM magic Pillow reads",
+           -41: "Pillow's private PNM magic (P0CMYK, PyP, PyRGBA, PyCMYK; ROADMAP A8 "
+                "queues them)",
+           -42: "bad PNM header", -43: "PNM data truncated",
+           -44: "PNM data token Pillow refuses",
+           -35: "JPEG past Pillow's 178956970 pixels (its decompression-bomb limit)",
+           -45: "PNM past Pillow's 178956970 pixels (its decompression-bomb limit)"}
+PNM_TYPES = {0: np.uint8, 1: np.int32, 2: np.bool_, 3: np.float32}
 JPEG_SIGNATURE = b"\xff\xd8\xff"
 
 
@@ -201,9 +216,10 @@ def decode_png(buf: bytes, path="") -> np.ndarray:
 
 
 def decode_jpeg(buf: bytes, path="") -> np.ndarray:
-    """Baseline JPEG bytes -> ``[H, W, 3]`` uint8 RGB, or ``[H, W, 1]`` for
-    gray; equal to libjpeg-turbo's decode (``JDCT_ISLOW``, fancy
-    upsampling). Other JPEGs raise ``ValueError``."""
+    """JPEG bytes -> ``[H, W, 3]`` uint8, or ``[H, W, 1]`` for gray; equal to
+    Pillow's decode through libjpeg-turbo (``JDCT_ISLOW``, fancy upsampling,
+    block smoothing) followed by ``read_gen``'s ``[..., :3]``. Formats the
+    port does not decode raise ``ValueError``."""
     lib = load()
     w, h, ch = _I32(), _I32(), _I32()
     _check(lib.jpeg_probe(_ptr(buf), len(buf), ctypes.byref(w), ctypes.byref(h),
@@ -214,7 +230,8 @@ def decode_jpeg(buf: bytes, path="") -> np.ndarray:
 
 
 def decode_ppm(buf: bytes, path="") -> np.ndarray:
-    """P5 / P6 bytes (maxval <= 255) -> ``[H, W, 1 or 3]`` uint8."""
+    """P5 / P6 bytes (maxval <= 255) -> ``[H, W, 1 or 3]`` uint8, the bytes
+    as stored (the JAX package's own decoder)."""
     lib = load()
     w, h, ch = _I32(), _I32(), _I32()
     _check(lib.ppm_probe(_ptr(buf), len(buf), ctypes.byref(w), ctypes.byref(h),
@@ -224,17 +241,39 @@ def decode_ppm(buf: bytes, path="") -> np.ndarray:
     return out
 
 
-def read_image(path) -> np.ndarray:
-    """PNG, JPEG or P5 / P6 PPM (by signature) -> ``[H, W, C]`` uint8
-    (uint16 for 16-bit PNGs). Anything else raises ``ValueError``."""
+def decode_pnm(buf: bytes, path="") -> np.ndarray:
+    """Any PNM as Pillow reads it -> ``[H, W, 1 or 3]``: uint8 (scaled to
+    255 unless maxval is 255), int32 for 16-bit gray, bool for bitmaps (true
+    where the bit is 0), float32 for ``Pf``."""
+    lib = load()
+    w, h, ch, kind = _I32(), _I32(), _I32(), _I32()
+    _check(lib.pnm_probe(_ptr(buf), len(buf), ctypes.byref(w), ctypes.byref(h),
+                         ctypes.byref(ch), ctypes.byref(kind)), path, "PNM")
+    out = np.empty((h.value, w.value, ch.value), PNM_TYPES[kind.value])
+    _check(lib.pnm_decode(_ptr(buf), len(buf), out.ctypes.data), path, "PNM")
+    return out
+
+
+def read_image(path, native_pnm: bool = True) -> np.ndarray:
+    """PNG, JPEG or PNM (by signature) -> ``[H, W, C]``. A binary P5 / P6 of
+    maxval <= 255 is read raw unless ``native_pnm`` is false (the JAX
+    ``read_gen`` sends ``.jpg`` / ``.jpeg`` files straight to Pillow, which
+    scales it); every other PNM as Pillow reads it. Anything else raises
+    ``ValueError``."""
     buf = _read(path)
     if buf[:8] == PNG_SIGNATURE:
         return decode_png(buf, path)
     if buf[:3] == JPEG_SIGNATURE:
         return decode_jpeg(buf, path)
-    if buf[:2] in (b"P5", b"P6"):
-        return decode_ppm(buf, path)
-    raise ValueError(f"{path}: neither a PNG, a JPEG nor a binary PPM")
+    if native_pnm and buf[:2] in (b"P5", b"P6"):
+        lib = load()
+        w, h, ch = _I32(), _I32(), _I32()
+        if not lib.ppm_probe(_ptr(buf), len(buf), ctypes.byref(w), ctypes.byref(h),
+                             ctypes.byref(ch)):
+            return decode_ppm(buf, path)
+    if buf[:1] == b"P":
+        return decode_pnm(buf, path)
+    raise ValueError(f"{path}: neither a PNG, a JPEG nor a PNM")
 
 
 def read_pair_norm(path1, path2, th: int, tw: int, scale: float = 1.0 / 127.5,
@@ -242,22 +281,26 @@ def read_pair_norm(path1, path2, th: int, tw: int, scale: float = 1.0 / 127.5,
     """Both frames decoded, centre-cropped to ``(th, tw)`` and mapped to
     ``x * scale + offset`` in float32, channel-interleaved into one ``[th,
     tw, 6]`` array, each frame in one C++ pass (the JAX package's
-    ``read_pair_norm``). None when a frame needs the generic path, as there:
-    a PNG that is 16-bit, interlaced or has fewer than 3 channels, a P5 PPM,
-    a JPEG."""
+    ``read_pair_norm``). None wherever the JAX one gives None, so that the
+    caller takes the generic path: a frame that is not an 8-bit PNG of 3 or
+    more channels, not interlaced, nor a binary P6 of maxval <= 255, and
+    any frame this pass cannot decode or crop (the generic path then decodes
+    it, or raises its own error)."""
     lib = load()
     out = np.empty((th, tw, 6), np.float32)
     for i, path in enumerate((path1, path2)):
         buf = _read(path)
         dst = out.ctypes.data + 4 * 3 * i
         if buf[:8] == PNG_SIGNATURE:
-            png = Png(buf, path)  # holds the buffers the call reads
+            try:
+                png = Png(buf, path)  # holds the buffers the call reads
+            except ValueError:
+                return None
             rc = lib.png_decode_norm_f32(*png.args(), dst, 6, th, tw, scale, offset)
         elif buf[:2] == b"P6":
             rc = lib.ppm_decode_norm_f32(_ptr(buf), len(buf), dst, 6, th, tw, scale, offset)
         else:
             return None
-        if rc == -10:
+        if rc:
             return None
-        _check(rc, path, "decode")
     return out

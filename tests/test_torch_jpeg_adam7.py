@@ -14,9 +14,12 @@ JPEGs), bit for bit, on the CPU.
 - ``ImagesFromFolder(iext="jpg")`` samples against the JAX package's;
 - the committed 436x1024 frames (``tests/data/jpeg_frames.json``) against
   their recorded sha256;
-- progressive JPEGs raise ``ValueError`` naming the format.
+- a progressive and a CMYK JPEG decode as the JAX reader decodes them, a
+  truncated one raises (``test_torch_jpeg_{progressive,cmyk,sampling}.py``
+  hold the rest of those formats).
 
-``PYTHONPATH=. python tests/test_torch_jpeg_adam7.py`` writes the committed frames anew.
+``PYTHONPATH=. python tests/test_torch_jpeg_adam7.py`` writes the committed
+frames anew: the baseline ones, their progressive copies and the CMYK frame.
 """
 
 import hashlib
@@ -197,20 +200,27 @@ def test_jpeg_exif_orientation_is_not_applied(tmp_path):
 
 
 def test_progressive_and_other_jpegs_raise(tmp_path):
+    """Progressive and CMYK JPEGs decode as the JAX reader decodes them (the
+    port refused both until it read every frame the JAX reader reads); a
+    truncated JPEG raises in both."""
     img = _smooth(_rng(5), 24, 40, 3)
     path = str(tmp_path / "p.jpg")
     Image.fromarray(img).save(path, progressive=True)
-    with pytest.raises(ValueError, match="progressive.*ROADMAP A8"):
-        frame_io.read_gen(path)
+    got = frame_io.read_gen(path)
+    assert got.shape == (24, 40, 3)
+    assert got.tobytes() == jframe_io.read_gen(path).tobytes()
     Image.fromarray(np.concatenate([img, img[..., :1]], -1), "CMYK").save(path)
-    with pytest.raises(ValueError, match="CMYK.*ROADMAP A8"):
-        frame_io.read_gen(path)
+    got = frame_io.read_gen(path)
+    assert got.shape == (24, 40, 3)
+    assert got.tobytes() == jframe_io.read_gen(path).tobytes()
     Image.fromarray(img).save(path)
     buf = open(path, "rb").read()
     with open(path, "wb") as fh:
         fh.write(buf[:len(buf) // 2])
     with pytest.raises(ValueError, match="truncated JPEG"):
         frame_io.read_gen(path)
+    with pytest.raises(OSError):
+        jframe_io.read_gen(path)
 
 
 def test_images_from_folder_jpg_matches_jax(tmp_path):
@@ -227,9 +237,12 @@ def test_images_from_folder_jpg_matches_jax(tmp_path):
             assert np.array_equal(ds[k]["images"], ref[k]["images"]), (size, k)
 
 
-def make_frames(root: str) -> list[str]:
+def make_frames(root: str, progressive: bool = False) -> list[str]:
     """The committed frames: a seeded smooth texture, each frame shifted
-    by ``FRAMES["shift"]`` pixels from the last, saved by Pillow."""
+    by ``FRAMES["shift"]`` pixels from the last, saved by Pillow; with
+    ``progressive``, the same saved progressive (``frame_prog_*``: Pillow's
+    script sends every coefficient, so each decodes to its baseline
+    frame's pixels)."""
     f = FRAMES
     rng = np.random.default_rng(f["seed"])
     n, h, w = f["count"], f["height"], f["width"]
@@ -239,9 +252,9 @@ def make_frames(root: str) -> list[str]:
     paths = []
     for i in range(n):
         y, x = pad + i * sy, pad + i * sx
-        path = os.path.join(root, f"frame_{i:04d}.jpg")
+        path = os.path.join(root, f"frame_{'prog_' if progressive else ''}{i:04d}.jpg")
         Image.fromarray(base[y:y + h, x:x + w]).save(
-            path, quality=f["quality"], subsampling=f["subsampling"])
+            path, quality=f["quality"], subsampling=f["subsampling"], progressive=progressive)
         paths.append(path)
     return paths
 
@@ -262,21 +275,37 @@ def test_committed_frames_decode_to_their_sha256():
     assert total <= 1 << 20
 
 
+def make_cmyk_frame(root: str) -> str:
+    """The first frame's decode as CMYK (255 - RGB, and K half the green),
+    saved by Pillow at the frames' quality."""
+    rgb = jframe_io.read_gen(os.path.join(root, "frame_0000.jpg")).astype(np.int64)
+    cmyk = np.concatenate([255 - rgb, rgb[..., 1:2] // 2], -1).astype(np.uint8)
+    path = os.path.join(root, "frame_cmyk_0000.jpg")
+    Image.fromarray(cmyk, "CMYK").save(path, quality=FRAMES["quality"])
+    return path
+
+
+def _entry(path, **extra):
+    im = jframe_io.read_gen(path)
+    return {"file": os.path.basename(path), "height": im.shape[0], "width": im.shape[1],
+            **extra, "file_sha256": hashlib.sha256(open(path, "rb").read()).hexdigest(),
+            "decode_sha256": hashlib.sha256(im.tobytes()).hexdigest()}
+
+
 if __name__ == "__main__":
-    out = []
-    for path in make_frames(DATA):
-        im = jframe_io.read_gen(path)
-        out.append({"file": os.path.basename(path), "height": im.shape[0],
-                    "width": im.shape[1],
-                    "file_sha256": hashlib.sha256(open(path, "rb").read()).hexdigest(),
-                    "decode_sha256": hashlib.sha256(im.tobytes()).hexdigest()})
+    out = [_entry(p) for p in make_frames(DATA)]
+    prog = [_entry(p, baseline=f"frame_{i:04d}.jpg")
+            for i, p in enumerate(make_frames(DATA, progressive=True))]
+    cmyk = _entry(make_cmyk_frame(DATA))
     with open(FRAMES_JSON, "w") as fh:
         made_by = (f"PYTHONPATH=. python tests/test_torch_jpeg_adam7.py (make_frames: Pillow "
                    f"{Image.__version__}, quality {FRAMES['quality']}, 4:2:0, a seeded smooth "
-                   f"texture shifted {FRAMES['shift']} px a frame); decode_sha256: the JAX "
-                   "package's read_gen (imageio, libjpeg-turbo) of each file, uint8 [H, W, 3] "
-                   "C order")
-        json.dump({"made_by": made_by,
-                   "frames": out}, fh, indent=1)
+                   f"texture shifted {FRAMES['shift']} px a frame; progressive_frames: the "
+                   "same with progressive=True; cmyk_frame: make_cmyk_frame, the first "
+                   "frame's decode as CMYK); decode_sha256: the JAX package's read_gen "
+                   "(imageio, libjpeg-turbo) of each file, uint8 [H, W, 3] C order")
+        json.dump({"made_by": made_by, "frames": out, "progressive_frames": prog,
+                   "cmyk_frame": cmyk}, fh, indent=1)
         fh.write("\n")
-    print(json.dumps(out, indent=1))
+    print(json.dumps({"frames": out, "progressive_frames": prog, "cmyk_frame": cmyk},
+                     indent=1))
