@@ -20,9 +20,11 @@ Phases (any failure raises and exits non-zero):
    the bf16 conv groups within 2^-6, cost volumes as in phase 3;
 5. drive each path once with every launch counter zeroed just before and
    read just after: the bf16 forward (5 cost volumes, one bf16 conv launch
-   per conv, 59, of which 53 on the staged kernel: all but the six stride-2
-   encoder convs), the W8A8 forward (5, 24 bf16 of which 18 staged, 35
-   int8 launches, all 35 on the staged int8 kernel), the opt-in W8A8
+   per conv, 59, of which 53 of stride 1 ("staged": all but the six
+   stride-2 encoder convs), all 53 on the TMA kernel
+   ``csrc/conv_group_tma.cu``), the W8A8 forward (5, 24 bf16 of which 18
+   staged, all on the TMA kernel, 35 int8 launches, all 35 on the staged
+   int8 kernel), the opt-in W8A8
    forward (as ``launch_counts()`` reckons: its six stride-2 encoder convs
    and four dilated context convs on the int8 gather kernel) and the GEMM
    probe ``ocflow_torch.tools.spike_int8`` (2048^3, int8 exact, bf16 within
@@ -32,8 +34,11 @@ Phases (any failure raises and exits non-zero):
    W8A8 against the eager fp32 forward;
 7. time every kernel at the path's shapes against its plain version, its
    bound and a library yardstick (conv groups with their TFLOP/s or TOP/s
-   and share of the bound), and the bf16 and W8A8 forwards end to end
-   (pairs/s) in turns;
+   and share of the bound, and the staged kernel of PR 5 on the same
+   groups); every conv the TMA kernel takes, replayed alone against its
+   plain version and timed queued behind a spin beside the staged kernel,
+   cuDNN and its bound; the bf16 and W8A8 forwards end to end (pairs/s) in
+   turns;
 8. training (``longrun_synthetic.yaml`` hparams, seeded FlowNetCV and
    smooth seeded frames, 448x1024, B=8): record every kernel call of one
    fp32 and one bf16 step (pair + loss + backward) and replay each against
@@ -45,8 +50,9 @@ Phases (any failure raises and exits non-zero):
    the fused run's occlusion mask held); bf16 vs fp32
    gradients; launches of one bf16 step (10 cost volumes, 5 backward, 31
    ``conv_group_diff`` conv launches, 72 conv launches in all, every one
-   staged) and of one with a W8A8 backward decode (37 staged, 35 int8, all
-   on the staged int8 kernel);
+   of stride 1 on the TMA kernel) and of one with a W8A8 backward decode
+   (37 staged, all on the TMA kernel, 35 int8, all on the staged int8
+   kernel);
    five bf16 Adam steps;
    the bf16 step end to end, and the new kernels' calls against plain,
    bound and cuDNN;
@@ -606,10 +612,19 @@ def _check_float(kind, args, dtype, max_err, label=""):
         ref = conv_chain.conv_group_plain(inputs, group)
         shape = tuple(inputs[0].shape)
     else:
-        got = conv_chain.conv_group(*args)
-        ref = conv_chain.conv_group_plain(*args)
-        shape = tuple(args[0][0].shape)
+        # bf16: every block (each conv's launch, the TMA kernel's included)
+        inputs, group = args
+        group = _emit_all(group) if dtype == torch.bfloat16 else group
+        got = conv_chain.conv_group(inputs, group)
+        ref = conv_chain.conv_group_plain(inputs, group)
+        shape = tuple(inputs[0].shape)
     torch.cuda.synchronize()
+    if kind.startswith("conv_group") and dtype == torch.bfloat16:
+        # each block within 2^-6 of its own max|plain|
+        for j, (g, r) in enumerate(zip(got, ref)):
+            e, sc = (g.float() - r.float()).abs().max().item(), r.float().abs().max().item()
+            if not e <= KERNEL_TOL[dtype] * max(sc, 1e-6):
+                raise AssertionError(f"{kind} {shape} block {j}: {e} > 2^-6 of {sc}")
     err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
     scale = max(r.float().abs().max().item() for r in ref)
     # gradients of a mean over millions of pixels are ~1e-6: no floor there
@@ -660,6 +675,89 @@ def _check_q8(args, max_err, label=""):
     max_err["conv_group_q8"] = max(max_err["conv_group_q8"], err8)
     max_err["conv_group"] = max(max_err["conv_group"], err16)
     return plain_ms
+
+
+def _tma_conv_timing(card, calls, max_err, per):
+    """Every conv of the bf16 forward's ``conv_group`` calls that the TMA
+    kernel (``csrc/conv_group_tma.cu``) takes, replayed alone on the blocks
+    a kernel run filled: held against its plain version (one fp32 conv, one
+    bf16 rounding) within 2^-6 of max|plain|, and timed queued behind a spin
+    (``spike_int8.queued_ms``: the card's time, not the host's) beside the
+    staged kernel of PR 5 on the same conv, one cuDNN call (bf16
+    ``F.conv2d`` over the concat of its reads, with its bias) and its bound
+    (reads, weights and output moved once; 2 x MACs at the bf16 peak)."""
+    import torch.nn.functional as F
+
+    from ocflow_torch.bench import cuda_ms
+    from ocflow_torch.kernels import conv_chain
+    from ocflow_torch.tools.spike_int8 import queued_ms
+
+    p, n_all = per["conv_group_tma"], 0
+    for kind, args in calls:
+        if kind != "conv_group":
+            continue
+        inputs, group = args
+        blocks = list(inputs) + conv_chain.conv_group(inputs, _emit_all(group))
+        b, (ho, wo) = inputs[0].shape[0], blocks[-1].shape[2:]
+        g = dict.fromkeys(("ms", "staged_ms", "library_ms", "plain_ms", "bound_ms"), 0.0)
+        n = 0
+        for j, s in enumerate(group.specs):
+            reads = [blocks[r] for r in s.reads]
+            segs = conv_chain.merge_segments(reads)
+            if not (conv_chain.is_tma(group.dtype, s, (ho, wo)) and conv_chain._tma_aligned(segs)):
+                continue
+            out = torch.empty((b, s.cout, ho, wo), dtype=group.dtype, device=inputs[0].device)
+            out_s = torch.empty_like(out)
+            w, bias = group.weights[j], group.biases[j]
+            xcat = torch.cat(reads, 1)
+
+            def run():
+                conv_chain.launch_tma(segs, group.packed[j], bias, out, s,  # noqa: B023
+                                      "chip_smoke conv_group_tma", group.tma[j])  # noqa: B023
+
+            def plain():
+                y = F.conv2d(xcat.float(), w.float(), bias, padding=1)  # noqa: B023
+                return (F.leaky_relu(y, 0.1) if s.act else y).to(group.dtype)  # noqa: B023
+
+            run()
+            ref = plain()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            if not err <= KERNEL_TOL[torch.bfloat16] * max(scale, 1e-6):
+                raise AssertionError(f"conv_group_tma {tuple(inputs[0].shape)} conv {j}: "
+                                     f"{err} > 2^-6 of {scale}")
+            max_err["conv_group_tma"] = max(max_err["conv_group_tma"], err)
+            g["ms"] += queued_ms(run, 20)[0]
+            g["staged_ms"] += queued_ms(lambda: conv_chain.launch_conv(  # noqa: B023
+                reads, group.packed[j], bias, out_s, s, "chip_smoke staged",  # noqa: B023
+                staged=True), 20)[0]
+            b16 = bias.to(group.dtype)
+            g["library_ms"] += queued_ms(lambda: F.conv2d(  # noqa: B023
+                xcat, w, b16, padding=1), 20)[0]  # noqa: B023
+            g["plain_ms"] += cuda_ms(plain, 3)
+            nbytes = (sum(t.numel() for t in reads) + w.numel() + out.numel()) * 2
+            flops = 2 * w.numel() * b * ho * wo
+            b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+            g["bound_ms"] += max(b_ms, o_ms)
+            p["bytes_ms"] += b_ms
+            p["ops_ms"] += o_ms
+            n += 1
+        if not n:
+            continue
+        n_all += n
+        for k, v in g.items():
+            p[k] += v
+        print(f"time conv_group_tma bf16 {tuple(inputs[0].shape)} ({n} of {len(group.specs)} "
+              f"convs, device time queued): kernel {g['ms']:.4f} ms, staged kernel (PR 5) "
+              f"{g['staged_ms']:.4f} ms, cuDNN {g['library_ms']:.4f} ms, plain "
+              f"{g['plain_ms']:.4f} ms, bound {g['bound_ms']:.4f} ms "
+              f"({100 * g['bound_ms'] / g['ms']:.2f}% of bound) [{card}]")
+    print(f"time conv_group_tma sum over the bf16 forward's {n_all} TMA convs (device time "
+          f"queued): kernel {p['ms']:.4f} ms, staged kernel (PR 5) {p['staged_ms']:.4f} ms, "
+          f"cuDNN {p['library_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms "
+          f"({100 * p['bound_ms'] / p['ms']:.2f}% of bound); max_abs_err "
+          f"{max_err['conv_group_tma']:.3e} [{card}]")
 
 
 def _diff_group(inputs, weights, biases, specs):
@@ -774,6 +872,7 @@ def _zero_counts():
         fn.launches = 0
     for k in STAGED:
         counters[k].staged_launches = 0
+    counters["conv_group"].tma_launches = 0
 
 
 def _read_counts():
@@ -793,6 +892,15 @@ def _count_launches(run):
     out = run()
     torch.cuda.synchronize()
     return _read_counts(), out
+
+
+def _count_launches_tma(run):
+    """:func:`_count_launches` with ``conv_group_tma`` too: the conv
+    launches on the TMA kernel (``csrc/conv_group_tma.cu``), a part of
+    ``conv_group_staged``."""
+    counts, out = _count_launches(run)
+    counts["conv_group_tma"] = _counters()["conv_group"].tma_launches
+    return counts, out
 
 
 def _rate(flops, ms, bound_ms):
@@ -959,14 +1067,19 @@ def _train_phase(card, max_err, per, add, failures):
         step(state, batch)  # packs the weights
         # the pair runs the serving decode only: no encoder groups
         fw = pwc_fast.prepare(state.model, torch.bfloat16, dev, q8)
+        size = (BATCH, HEIGHT, WIDTH)
         n_enc = sum(len(g.specs) for g in fw.encoder)
         n_enc_staged = sum(conv_chain.is_staged(g.dtype, s)
                            for g in fw.encoder for s in g.specs)
-        launches[path], _ = _count_launches(lambda: step(state, batch))
-        want = fw.launch_counts()
+        n_enc_tma = sum(conv_chain.is_tma(g.dtype, s, shape[1:])
+                        for g, shape in zip(fw.encoder, fw.group_shapes(size)) for s in g.specs)
+        launches[path], _ = _count_launches_tma(lambda: step(state, batch))
+        want = fw.launch_counts(size)
+        # every conv_group_diff conv reads the cost volume: all on the TMA kernel
         expect = {"cost_volume": 10, "cost_volume_bwd": 5,
                   "conv_group": n_diff + want["conv_group"] - n_enc,
                   "conv_group_staged": n_diff + want["conv_group_staged"] - n_enc_staged,
+                  "conv_group_tma": n_diff + want["conv_group_tma"] - n_enc_tma,
                   "conv_group_diff": n_diff,
                   "conv_group_q8": want["conv_group_q8"],
                   "conv_group_q8_staged": want["conv_group_q8_staged"], "gemm_probe": 0}
@@ -975,10 +1088,13 @@ def _train_phase(card, max_err, per, add, failures):
         if launches[path] != expect:
             raise AssertionError(f"{path} launch counts {launches[path]}")
         del state
-    # every conv of the step is stride 1, dilation 1: all staged
+    # every conv of the step is stride 1, dilation 1: all staged, all on
+    # the TMA kernel
     if [launches[p][k] for p in ("train", "train_q8")
-            for k in ("conv_group_staged", "conv_group_q8_staged")] != [72, 0, 37, 35]:
-        raise AssertionError(f"staged launches per step {launches}, want 72 / 0, 37 / 35")
+            for k in ("conv_group_staged", "conv_group_tma", "conv_group_q8_staged")] \
+            != [72, 72, 0, 37, 37, 35]:
+        raise AssertionError(f"staged launches per step {launches}, want 72 / 72 / 0, "
+                             "37 / 37 / 35")
 
     # 5. five bf16 Adam steps
     state = create_train_state(copy.deepcopy(model0), lr, device=dev)
@@ -1024,8 +1140,20 @@ def _train_phase(card, max_err, per, add, failures):
             with torch.no_grad():
                 outs = conv_chain.conv_group(inputs, group)
                 k_ms = cuda_ms(lambda: conv_chain.conv_group_diff(*args), 5)
+                # the forward's kernels alone (weights packed), the PR 5
+                # staged kernel in their place, and what packing for the TMA
+                # kernel adds to each call's prepare_group
+                t_ms = cuda_ms(lambda: conv_chain.conv_group(inputs, group), 5)
+                s_ms = cuda_ms(lambda: conv_chain.conv_group(inputs, group, staged=True), 5)
+                in_ch = [x.shape[1] for x in inputs]
+                prep = [cuda_ms(lambda: conv_chain.prepare_group(  # noqa: B023
+                    weights, biases, group.specs, len(inputs), inputs[0].dtype,  # noqa: B023
+                    inputs[0].device, ch), 5) for ch in (None, in_ch)]  # noqa: B023
                 p_ms = cuda_ms(lambda: conv_chain.conv_group_plain(inputs, group), 3)
                 lib_ms = cuda_ms(lambda: _eager_chain(*args), 5)
+            per["conv_group_diff"]["tma_ms"] += t_ms
+            per["conv_group_diff"]["staged_ms"] += s_ms
+            per["conv_group_diff"]["pack_ms"] += prep[1] - prep[0]
             gouts = [torch.randn_like(o) for o in outs]
             leaves = [t.clone().requires_grad_() for t in (*inputs, *weights, *biases)]
             n_in, n = len(inputs), len(specs)
@@ -1046,7 +1174,9 @@ def _train_phase(card, max_err, per, add, failures):
             per["conv_group_diff"]["library_bwd_ms"] += lib_bwd_ms
             per["conv_group_diff"]["bwd_bound_ms"] += b_bound
             print(f"time conv_group_diff bf16 {tuple(inputs[0].shape)} ({n} convs): "
-                  f"forward kernel {k_ms:.4f} ms ({_rate(flops, k_ms, bound)}), "
+                  f"forward kernel {k_ms:.4f} ms ({_rate(flops, k_ms, bound)}; the kernels "
+                  f"alone {t_ms:.4f} ms, staged kernel (PR 5) {s_ms:.4f} ms, TMA packing "
+                  f"{prep[1] - prep[0]:.4f} ms of its prepare_group {prep[1]:.4f} ms), "
                   f"plain {p_ms:.4f} ms, library "
                   f"(cuDNN over the concat) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
                   f"{nbytes} B, {flops} flop); backward (cuDNN conv VJPs) {bwd_ms:.4f} ms, "
@@ -1054,7 +1184,11 @@ def _train_phase(card, max_err, per, add, failures):
                   f"({b_bytes} B, {b_ops} flop: dX and dW) [{card}]")
     p = per["conv_group_diff"]
     print(f"time conv_group_diff sum over the bf16 step's groups: forward kernel "
-          f"{p['ms']:.4f} ms, bound {p['bound_ms']:.4f} ms; backward {p['bwd_ms']:.4f} ms, "
+          f"{p['ms']:.4f} ms (the kernels alone {p['tma_ms']:.4f} ms, "
+          f"{100 * p['bound_ms'] / p['tma_ms']:.2f}% of bound; staged kernel (PR 5) "
+          f"{p['staged_ms']:.4f} ms; TMA packing {p['pack_ms']:.4f} ms a step), cuDNN over "
+          f"the concat {p['library_ms']:.4f} ms, "
+          f"bound {p['bound_ms']:.4f} ms; backward {p['bwd_ms']:.4f} ms, "
           f"bound {p['bwd_bound_ms']:.4f} ms ({100 * p['bwd_bound_ms'] / p['bwd_ms']:.2f}% of "
           f"it), library autograd {p['library_bwd_ms']:.4f} ms [{card}]")
     return launches
@@ -5915,7 +6049,7 @@ def main() -> int:
     xb = x32.bfloat16()
     max_err = {"cost_volume": 0.0, "conv_group": 0.0, "conv_group_q8": 0.0,
                "cost_volume_bwd": 0.0, "conv_group_diff": 0.0, "cost_volume_general": 0.0,
-               "cost_volume_bwd_general": 0.0}
+               "cost_volume_bwd_general": 0.0, "conv_group_tma": 0.0}
     serving = [(pwc_fast, n) for n in ("cost_volume", "conv_group", "conv_group_q8")]
 
     # 3. every kernel call of the bf16/fp32 path, kernel vs plain
@@ -5949,15 +6083,18 @@ def main() -> int:
                 _check_float(kind, args, torch.bfloat16, max_err, label)
         del calls
 
-    # 5. each path once, its launches counted
-    want = {"bf16": pwc_fast.prepare(model_b, torch.bfloat16, dev).launch_counts()}
-    want.update({mode: pwc_fast.prepare(model_b, torch.bfloat16, dev, sc).launch_counts()
+    # 5. each path once, its launches counted (conv_group_tma: those of
+    # the stride-1 bf16 convs on the TMA kernel, as launch_counts reckons
+    # them at this input size)
+    size = (BATCH, HEIGHT, WIDTH)
+    want = {"bf16": pwc_fast.prepare(model_b, torch.bfloat16, dev).launch_counts(size)}
+    want.update({mode: pwc_fast.prepare(model_b, torch.bfloat16, dev, sc).launch_counts(size)
                  for mode, sc in scales.items()})
     launches, outs = {}, {}
-    launches["bf16"], outs["bf16"] = _count_launches(
+    launches["bf16"], outs["bf16"] = _count_launches_tma(
         lambda: pwc_fast.fast_apply(model_b, xb))
     for mode, sc in scales.items():
-        launches[mode], outs[mode] = _count_launches(
+        launches[mode], outs[mode] = _count_launches_tma(
             lambda: pwc_fast.fast_apply(model_b, xb, q8=sc))  # noqa: B023
     launches["spike_int8"], gemm_res = _count_launches(
         spike_int8.probe)
@@ -5968,11 +6105,14 @@ def main() -> int:
         if launches[path] != expect:
             raise AssertionError(f"{path} launch counts {launches[path]}")
     # staged: every bf16 conv but the encoders' six stride-2 convs, every
-    # int8 conv of the default W8A8 forward
-    counted = ("conv_group", "conv_group_staged", "conv_group_q8", "conv_group_q8_staged")
+    # int8 conv of the default W8A8 forward; all those bf16 convs on the
+    # TMA kernel
+    counted = ("conv_group", "conv_group_staged", "conv_group_tma", "conv_group_q8",
+               "conv_group_q8_staged")
     if [launches[p][k] for p in ("bf16", "w8a8") for k in counted] \
-            != [59, 53, 0, 0, 24, 18, 35, 35]:
-        raise AssertionError(f"launches {launches}, want 59 / 53 / 0 / 0 and 24 / 18 / 35 / 35")
+            != [59, 53, 53, 0, 0, 24, 18, 18, 35, 35]:
+        raise AssertionError(f"launches {launches}, want 59 / 53 / 53 / 0 / 0 and "
+                             "24 / 18 / 18 / 35 / 35")
     print(f"main path spike_int8 launches: {launches['spike_int8']}")
     if launches["spike_int8"]["gemm_probe"] < 2:
         raise AssertionError("the GEMM probe did not launch its kernel")
@@ -6050,8 +6190,11 @@ def main() -> int:
     per = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                "bound_ms": 0.0, "library_ms": 0.0}
            for k in ("cost_volume", "cost_volume_bwd", "conv_group",
-                     "conv_group_diff", "conv_group_q8")}
-    per["conv_group_diff"].update(bwd_ms=0.0, library_bwd_ms=0.0, bwd_bound_ms=0.0)
+                     "conv_group_diff", "conv_group_q8", "conv_group_tma")}
+    per["conv_group_diff"].update(bwd_ms=0.0, library_bwd_ms=0.0, bwd_bound_ms=0.0,
+                                  staged_ms=0.0, tma_ms=0.0, pack_ms=0.0)
+    per["conv_group"]["staged_ms"] = 0.0
+    per["conv_group_tma"]["staged_ms"] = 0.0
 
     def add(kind, k_ms, p_ms, nbytes, ops, peak, lib_ms):
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -6075,13 +6218,17 @@ def main() -> int:
         else:
             outs_cg = conv_chain.conv_group(*args)
             k_ms = cuda_ms(lambda: conv_chain.conv_group(*args), 5)
+            # the PR 5 staged kernel on every stride-1 conv of the group
+            s_ms = cuda_ms(lambda: conv_chain.conv_group(*args, staged=True), 5)
+            per[kind]["staged_ms"] += s_ms
             p_ms = cuda_ms(lambda: conv_chain.conv_group_plain(*args), 3)
             lib_ms = cuda_ms(_library_conv(*args, outs_cg), 5)
             nbytes, flops = _cg_cost(*args, outs_cg)
             shape = tuple(args[0][0].shape)
         bound, by = add(kind, k_ms, p_ms, nbytes, flops, PEAK_FLOPS[torch.bfloat16], lib_ms)
-        print(f"time {kind} bf16 {shape}: kernel {k_ms:.4f} ms ({_rate(flops, k_ms, bound)}), "
-              f"plain {p_ms:.4f} ms, library "
+        staged = "" if kind == "cost_volume" else f", staged kernel (PR 5) {s_ms:.4f} ms"
+        print(f"time {kind} bf16 {shape}: kernel {k_ms:.4f} ms ({_rate(flops, k_ms, bound)})"
+              f"{staged}, plain {p_ms:.4f} ms, library "
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
               f"bound {bound:.4f} ms ({by}; {nbytes} B, {flops} flop) [{card}]")
 
@@ -6116,10 +6263,13 @@ def main() -> int:
               f"{ops} op) [{card}]")
     for kind in ("conv_group", "conv_group_q8"):
         p = per[kind]
+        staged = (f", staged kernel (PR 5) {p['staged_ms']:.4f} ms" if "staged_ms" in p
+                  else "")
         print(f"time {kind} sum over the {'bf16' if kind == 'conv_group' else 'w8a8'} "
-              f"forward's groups: kernel {p['ms']:.4f} ms, bound {p['bound_ms']:.4f} ms "
-              f"({100 * p['bound_ms'] / p['ms']:.2f}% of bound), cuDNN "
-              f"{p.get('yard_ms', p['library_ms']):.4f} ms [{card}]")
+              f"forward's groups: kernel {p['ms']:.4f} ms{staged}, bound "
+              f"{p['bound_ms']:.4f} ms ({100 * p['bound_ms'] / p['ms']:.2f}% of bound), "
+              f"cuDNN {p.get('yard_ms', p['library_ms']):.4f} ms [{card}]")
+    _tma_conv_timing(card, recorded[torch.bfloat16], max_err, per)
     for name, r in gemm_res.items():
         same = r["library_same_output_ms"]
         print(f"time gemm_probe {name} {spike_int8.SIZE}^3 (calls queued behind a spin "
@@ -6206,6 +6356,10 @@ def main() -> int:
                             "ocflow_tpu/ops/pallas/cost_volume_kernel.py:187", "train"),
         "conv_group": ("ocflow_torch/csrc/conv_group.cu",
                        "ocflow_tpu/ops/pallas/conv_chain_kernel.py:463", "bf16"),
+        # the TMA kernel's own launches on the bf16 forward (a part of
+        # conv_group's), each timed alone
+        "conv_group_tma": ("ocflow_torch/csrc/conv_group_tma.cu",
+                           "ocflow_tpu/ops/pallas/conv_chain_kernel.py:463", "bf16"),
         "conv_group_diff": ("ocflow_torch/csrc/conv_group.cu",
                             "ocflow_tpu/ops/pallas/conv_chain_kernel.py:1198", "train"),
         "conv_group_q8": ("ocflow_torch/csrc/conv_group_q8.cu",
@@ -6223,7 +6377,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "path": path, "launches": launches[path][name],
-            "launches_by_path": {k: c[name] for k, c in launches.items()},
+            "launches_by_path": {k: c[name] for k, c in launches.items() if name in c},
             **({"staged_launches_by_path": {k: c[f"{name}_staged"]
                                             for k, c in launches.items()}}
                if name in ("conv_group", "conv_group_q8") else {}),
@@ -6231,10 +6385,10 @@ def main() -> int:
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
             "bound_by": p["bound_by"],
             "library_ms": p["library_ms"] if name in (
-                "conv_group", "conv_group_diff", "gemm_probe") else None,
+                "conv_group", "conv_group_diff", "conv_group_tma", "gemm_probe") else None,
             **({"library_reason": NO_LIBRARY[name]} if name in NO_LIBRARY else {}),
-            **{k: p[k] for k in ("bwd_ms", "library_bwd_ms", "bwd_bound_ms", "yard_ms")
-               if k in p},
+            **{k: p[k] for k in ("bwd_ms", "library_bwd_ms", "bwd_bound_ms", "yard_ms",
+                                 "staged_ms", "tma_ms", "pack_ms") if k in p},
         })
         if name == "gemm_probe":
             # the numbers above are int8's; bf16's beside them

@@ -47,8 +47,12 @@
 //  - fp32: the CUDA cores, BM x BN tiles of 256 threads with TM x TN
 //    register tiles, the same gather (fp32 runs only to check the
 //    algorithm).
-// No wgmma, TMA, cp.async pipeline or channels-last blocks yet, and the
-// chain is not kept on chip between its convs.
+// No wgmma, TMA, cp.async pipeline or channels-last blocks here, and the
+// chain is not kept on chip between its convs. The bf16 convs of stride 1
+// and dilation 1 whose rows are 16-byte multiples (every one of the
+// 448x1024 paths) run conv_group_tma.cu instead (kernels/conv_chain.py:
+// is_tma); the staged kernel takes the other widths (KITTI's 76, 38, 19)
+// and serves as the yardstick (conv_group(..., staged=True)).
 
 #include <mma.h>
 

@@ -57,15 +57,14 @@
 //   With more tiles than SMs the producer's loads of the next tile overlap
 //   it.
 // The tensor maps are encoded on the host at every call
-// (cuTensorMapEncodeTiled, looked up in libcuda at run time).
-
-#include <cuda.h>
-#include <dlfcn.h>
+// (cuTensorMapEncodeTiled, looked up in libcuda at run time). The PTX
+// wrappers and that lookup live in hopper.cuh, shared with
+// conv_group_tma.cu.
 
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -81,81 +80,17 @@ constexpr int STAGE_BYTES = 384 * BKB;  // A and B tiles: 48 KB in either type
 // the ring, its 2 x STAGES barriers, and room to align the base to 1 KB
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// returns once the phase of parity `parity` has completed; a ring that
-// never completes (a broken phase) traps, seconds on, instead of hanging
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done, tries = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (!done && ++tries == (1u << 28)) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// box at (c0 innermost, c1) of the map into shared memory; completes on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma (no code)
-template <typename Acc>
-__device__ __forceinline__ void fence_acc(Acc (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) {
-    if constexpr (std::is_same_v<Acc, float>)
-      asm volatile("" : "+f"(d[i])::"memory");
-    else
-      asm volatile("" : "+r"(d[i])::"memory");
-  }
-}
+using ocf::fence_acc;
+using ocf::mbar_arrive;
+using ocf::mbar_expect_tx;
+using ocf::mbar_init;
+using ocf::mbar_wait;
+using ocf::smem_desc;
+using ocf::smem_u32;
+using ocf::tma_load;
+using ocf::wgmma_commit;
+using ocf::wgmma_fence;
+using ocf::wgmma_wait;
 
 #define OCF_D128                                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
@@ -233,13 +168,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // one arrive per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    ocf::mbar_init_fence();
   }
   __syncthreads();
 
   if (wg == 0) {
     // producer: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    ocf::setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       int it = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -263,7 +198,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   } else {
     // consumers: bf16 rows 64 cw of the tile; int8 columns 64 cw
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    ocf::setmaxnreg_inc<232>();
     const int cw = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     // int8: this lane's ldmatrix row in each K slice of 32: matrix i = lane
     // / 8 holds K rows 4 (j / 2) + j % 2 + 2 (i % 2) + 16 (i / 2) (j = lane
@@ -356,28 +291,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the tensor map encoder, from the libcuda the runtime has loaded (no
-// -lcuda at build time)
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
 // a row-major [rows, cols] matrix, boxes of box_cols x box_rows, 128-byte
 // swizzle
 int encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rows, int cols,
            int elem_bytes, int box_cols, int box_rows) {
-  const EncodeTiled enc = encoder();
+  const ocf::EncodeTiled enc = ocf::encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};

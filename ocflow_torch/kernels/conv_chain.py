@@ -9,12 +9,17 @@ so a DenseNet concat is never built. Each conv applies bias and optional
 LeakyReLU(0.1) and stores in the group's dtype (fp32 or bf16); later convs
 read the stored values, as the TPU kernel reads its VMEM stripe.
 
-On CUDA tensors ``conv_group`` launches ``csrc/conv_group.cu`` once per
-conv (``conv_group.launches`` counts the launches; a bf16 conv of stride 1
-and dilation 1 runs its staged kernel, on the tiles of :func:`staged_tile`,
-and ``conv_group.staged_launches`` counts those too); on CPU tensors it runs
-the plain version ``conv_group_plain``. There is no fallback from one to the
-other. The TPU kernel's lane packing, W-pair stride-2 packing, im2col and
+On CUDA tensors ``conv_group`` launches one kernel per conv
+(``conv_group.launches`` counts the launches). A bf16 conv of stride 1 and
+dilation 1 (:func:`is_staged`; ``conv_group.staged_launches`` counts those)
+runs ``csrc/conv_group_tma.cu`` where :func:`is_tma` takes its shape
+(``conv_group.tma_launches``: a TMA ring and wgmma, split K on the coarse
+levels, weights packed by :func:`pack_tma_weights`), else the staged kernel
+of ``csrc/conv_group.cu`` on the tiles of :func:`staged_tile`; every other
+conv runs ``csrc/conv_group.cu``'s gather or fp32 kernel. On CPU tensors it
+runs the plain version ``conv_group_plain``. There is no fallback from one
+kernel to another, or to the plain version: the routing is decided by
+shape. The TPU kernel's lane packing, W-pair stride-2 packing, im2col and
 16-channel padding are TPU layout devices and have no counterpart here: a
 stride-2 conv reads its (unpacked) input directly.
 """
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -70,17 +76,24 @@ class ConvGroup:
     offsets: list[int]           # stripe channel offset of each conv's block
     width: int                   # stripe channels
     dtype: torch.dtype
+    # per conv: the TMA kernel's packing, by the channel counts of the
+    # segments it was packed for (pack_tma_weights; filled on first use)
+    tma: list[dict] = dataclasses.field(default_factory=list)
 
 
 def prepare_group(weights: Sequence[torch.Tensor],
                   biases: Sequence[torch.Tensor],
                   specs: Sequence[ConvSpec], n_inputs: int,
-                  dtype: torch.dtype, device) -> ConvGroup:
+                  dtype: torch.dtype, device,
+                  in_channels: Sequence[int] | None = None) -> ConvGroup:
     """Pack a chain's weights for the kernel.
 
     weights[j]: ``[cout_j, Cin_j, 3, 3]`` (OIHW) whose input channels are
     the concatenation of ``specs[j].reads`` in read order; biases[j]:
-    ``[cout_j]``.
+    ``[cout_j]``. On a CUDA device with ``in_channels`` (the inputs'
+    channel counts) the bf16 convs of stride 1 and dilation 1 are also
+    packed for the TMA kernel here, for the segments :func:`tma_segments`
+    predicts; otherwise (or for other segments) at their first launch.
     """
     specs = tuple(specs)
     if dtype not in _DTYPES:
@@ -102,7 +115,13 @@ def prepare_group(weights: Sequence[torch.Tensor],
         bs.append(b.contiguous())
         offsets.append(off)
         off += s.cout
-    return ConvGroup(specs, n_inputs, ws, bs, packed, offsets, off, dtype)
+    tma = [{} for _ in specs]
+    if in_channels is not None and torch.device(device).type == "cuda":
+        for j, s in enumerate(specs):
+            if is_staged(dtype, s):
+                chans = tma_segments(s, in_channels, specs)
+                tma[j][chans] = pack_tma_weights(packed[j], chans, s.cout)
+    return ConvGroup(specs, n_inputs, ws, bs, packed, offsets, off, dtype, tma)
 
 
 def check_spec(s: ConvSpec, j: int, n_inputs: int) -> None:
@@ -281,26 +300,204 @@ def staged_tile(wo: int) -> tuple[int, int]:
     return min(STAGE_PIXELS // c, STAGE_MAX_ROWS), c
 
 
+# The TMA kernel (these match csrc/conv_group_tma.cu): tiles of TMA_TILE
+# output pixels, TMA_CHUNK input channels of one segment per K chunk (one
+# stage of its ring and one TMA box; a segment's last chunk is zero-filled
+# past its end), couts in tiles of one of TMA_COUT_TILES.
+TMA_TILE = 256
+TMA_CHUNK = 16
+TMA_MAX_CHUNKS = 64
+TMA_COUT_TILES = (16, 32, 64, 96, 128)
+H100_SMS = 132          # one wave of blocks on the H100 (split-K's target)
+
+
+def is_tma(dtype: torch.dtype, spec: ConvSpec, hw: tuple[int, int]) -> bool:
+    """Whether a conv whose output is ``hw = (H, W)`` runs the TMA kernel:
+    bf16, stride 1, dilation 1, and rows whose pitch (``W`` bf16) is a
+    multiple of 16 bytes, as TMA wants of every stride (the segments' base
+    addresses must be 16-byte aligned too: the launch checks them). Any
+    cout and any Cin: the card measured it faster than the staged kernel on
+    every such conv of the forward and the step (PERF.md). Every other conv
+    stays on ``csrc/conv_group.cu``: KITTI's 320x1216 levels of width 76, 38
+    and 19 on the staged kernel."""
+    return is_staged(dtype, spec) and hw[1] % 8 == 0
+
+
+def tma_tile_cols(w: int) -> int:
+    """Tile columns C (``TMA_TILE // C`` rows): 64 bf16 (a 128-byte
+    swizzle span), or 32 / 16 where the image is no wider."""
+    return 16 if w <= 16 else 32 if w <= 32 else 64
+
+
+def tma_cout_tile(cout: int) -> tuple[int, int]:
+    """``(couts per tile, tiles)``: the smallest wgmma n of
+    ``TMA_COUT_TILES`` that holds ``cout``, or tiles of 128."""
+    for n in TMA_COUT_TILES:
+        if cout <= n:
+            return n, 1
+    return 128, -(-cout // 128)
+
+
+@functools.lru_cache(maxsize=None)
+def _tma_plan(chans: tuple[int, ...]):
+    """The chunk codes of segments of ``chans`` channels as the C entry
+    point takes them (a ctypes array, never written)."""
+    chunks = tma_chunks(chans)
+    return (ctypes.c_int * len(chunks))(*[seg | c0 << 3 for seg, c0 in chunks]), len(chunks)
+
+
+def tma_chunks(chans: Sequence[int]) -> list[tuple[int, int]]:
+    """The K chunks of a conv over segments of ``chans`` channels, in
+    order: ``(segment, first channel)``, ``TMA_CHUNK`` channels each."""
+    out = [(s, c0) for s, c in enumerate(chans) for c0 in range(0, c, TMA_CHUNK)]
+    if len(out) > TMA_MAX_CHUNKS:
+        raise ValueError(f"{len(out)} K chunks > {TMA_MAX_CHUNKS}")
+    return out
+
+
+def tma_units(b: int, h: int, w: int, cout: int) -> int:
+    """Work units of one conv before split K: tiles x cout tiles."""
+    tc = tma_tile_cols(w)
+    return b * -(-h // (TMA_TILE // tc)) * -(-w // tc) * tma_cout_tile(cout)[1]
+
+
+@functools.lru_cache(maxsize=None)
+def tma_split(b: int, h: int, w: int, cout: int, nchunk: int) -> int:
+    """Blocks that share one unit's K: 1 where the units fill one wave of
+    the H100's SMs, else as many as fill it, each with one or more of the
+    conv's ``nchunk`` K chunks (one ring stage each)."""
+    units = tma_units(b, h, w, cout)
+    if units >= H100_SMS:
+        return 1
+    return max(1, min(H100_SMS // units, nchunk))
+
+
+def tma_segments(spec: ConvSpec, in_channels: Sequence[int],
+                 specs: Sequence[ConvSpec]) -> tuple[int, ...]:
+    """The channel counts of a conv's segments as :func:`merge_segments`
+    forms them when every group input is a tensor of its own: each input
+    a segment, consecutive stripe blocks merged."""
+    n_in = len(in_channels)
+    out, prev = [], None
+    for r in spec.reads:
+        c = in_channels[r] if r < n_in else specs[r - n_in].cout
+        if prev is not None and r >= n_in and r == prev + 1:
+            out[-1] += c
+        else:
+            out.append(c)
+        prev = r if r >= n_in else None
+    return tuple(out)
+
+
+def tma_cout_row(nt: int) -> int:
+    """Couts a packed weight row holds for a cout tile of ``nt``: ``nt``,
+    96 padded to 128 (the kernel loads boxes of 64)."""
+    return 128 if nt == 96 else nt
+
+
+def pack_tma_weights(packed: torch.Tensor, chans: Sequence[int],
+                     cout: int) -> torch.Tensor:
+    """:func:`pack_weights`' ``[9*Cin, cout_pad]`` -> the TMA kernel's
+    rows ``[cout tile][chunk][tap][TMA_CHUNK channels]`` of the tile's
+    couts (``tma_cout_row``; as ``[-1, row]``): per chunk one block of 9 x
+    TMA_CHUNK rows, the kernel's weight boxes, zero past a segment's
+    channels and past ``cout``. Pads and reshapes on ``packed``'s device,
+    no index tensor: the training forward packs its groups every step."""
+    nt, ntn = tma_cout_tile(cout)
+    cpad = packed.shape[1]
+    w = packed.reshape(9, sum(chans), cpad)
+    # each segment's channels rounded up to whole chunks with zeros
+    if any(c % TMA_CHUNK for c in chans):
+        w = torch.cat([F.pad(part, (0, 0, 0, -c % TMA_CHUNK))
+                       for part, c in zip(torch.split(w, list(chans), 1), chans)], 1)
+    if cpad < ntn * nt:
+        w = F.pad(w, (0, ntn * nt - cpad))
+    w = w[:, :, :ntn * nt].reshape(9, -1, TMA_CHUNK, ntn, nt).permute(3, 1, 0, 2, 4)
+    return F.pad(w, (0, tma_cout_row(nt) - nt)).reshape(-1, tma_cout_row(nt))
+
+
+def _tma_lib():
+    lib = _build.load("conv_group_tma")
+    fn = lib.ocf_conv3x3_tma
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _tma_aligned(segs: Sequence[torch.Tensor]) -> bool:
+    """TMA's address rules: 16-byte aligned bases, batch strides of whole
+    16 bytes (the row and plane pitches follow from :func:`is_tma`)."""
+    return all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 for t in segs)
+
+
+def launch_tma(segs: Sequence[torch.Tensor], packed: torch.Tensor,
+               bias: torch.Tensor, out: torch.Tensor, spec: ConvSpec,
+               what: str, tma: dict) -> None:
+    """One conv on ``csrc/conv_group_tma.cu`` (and its split-K pass):
+    ``out`` = the conv of the segments ``segs`` with the packing of
+    ``packed`` for their channel counts (``tma`` caches it)."""
+    chans = tuple(t.shape[1] for t in segs)
+    wt = tma.get(chans)
+    if wt is None:
+        wt = tma[chans] = pack_tma_weights(packed, chans, spec.cout)
+    codes, nchunk = _tma_plan(chans)
+    ptrs, bstr, cs = segment_args(segs)
+    b, _, h, w = out.shape
+    nt, ntn = tma_cout_tile(spec.cout)
+    split = tma_split(b, h, w, spec.cout, nchunk)
+    ws = None
+    if split > 1:
+        ws = torch.empty(split * tma_units(b, h, w, spec.cout) * nt * TMA_TILE,
+                         dtype=torch.float32, device=out.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    code = _tma_lib()(len(segs), ptrs, bstr, cs, b, h, w, codes, nchunk,
+                      wt.data_ptr(), wt.shape[0], nt, ntn, bias.data_ptr(),
+                      out.data_ptr(), out.stride(0), spec.cout, int(spec.act),
+                      tma_tile_cols(w), split,
+                      None if ws is None else ws.data_ptr(), stream)
+    _build.check(code, what)
+
+
 def launch_conv(reads: Sequence[torch.Tensor], packed: torch.Tensor,
                 bias: torch.Tensor, out: torch.Tensor, spec: ConvSpec,
-                what: str, counters: Sequence = ()) -> None:
-    """One launch of ``csrc/conv_group.cu``: ``out`` (a ``[B, cout, Ho,
-    Wo]`` channel range of a stripe, in the kernel dtype) = the conv of the
-    channel concat of ``reads`` with ``packed`` (see :func:`pack_weights`)
-    and the fp32 ``bias``. Counts the launch in ``conv_group.launches``
-    (and, on the staged kernel, in ``conv_group.staged_launches``) and in
-    the ``launches`` of each of ``counters``."""
+                what: str, counters: Sequence = (), tma: dict | None = None,
+                staged: bool = False) -> None:
+    """One conv launch: ``out`` (a ``[B, cout, Ho, Wo]`` channel range of
+    a stripe, in the kernel dtype) = the conv of the channel concat of
+    ``reads`` with ``packed`` (see :func:`pack_weights`) and the fp32
+    ``bias``. On ``csrc/conv_group_tma.cu`` where :func:`is_tma` holds and
+    the segments are aligned (``tma``: the conv's cache of TMA packings),
+    else on ``csrc/conv_group.cu``; ``staged`` keeps a stride-1 conv on the
+    staged kernel (the timing yardstick, KITTI widths). Counts the launch in
+    ``conv_group.launches``, a stride-1 bf16 conv in
+    ``conv_group.staged_launches``, one on the TMA kernel also in
+    ``conv_group.tma_launches``, and the launch in the ``launches`` of each
+    of ``counters``."""
     segs = merge_segments(reads)
-    ptrs, bstr, chans = segment_args(segs)
     b, _, ho, wo = out.shape
-    hin, win = segs[0].shape[2:]
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    code = _lib()(_DTYPES[out.dtype], tile_cfg(spec.cout), len(segs), ptrs,
-                  bstr, chans, b, hin, win, packed.data_ptr(),
-                  bias.data_ptr(), out.data_ptr(), out.stride(0), spec.cout,
-                  packed.shape[1], ho, wo, spec.stride, spec.dilation,
-                  int(spec.act), *staged_tile(wo), stream)
-    _build.check(code, what)
+    if not staged and is_tma(out.dtype, spec, (ho, wo)) and _tma_aligned(segs):
+        launch_tma(segs, packed, bias, out, spec, what, {} if tma is None else tma)
+        conv_group.tma_launches += 1
+    else:
+        ptrs, bstr, chans = segment_args(segs)
+        hin, win = segs[0].shape[2:]
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        code = _lib()(_DTYPES[out.dtype], tile_cfg(spec.cout), len(segs), ptrs,
+                      bstr, chans, b, hin, win, packed.data_ptr(),
+                      bias.data_ptr(), out.data_ptr(), out.stride(0), spec.cout,
+                      packed.shape[1], ho, wo, spec.stride, spec.dilation,
+                      int(spec.act), *staged_tile(wo), stream)
+        _build.check(code, what)
     conv_group.launches += 1
     if is_staged(out.dtype, spec):
         conv_group.staged_launches += 1
@@ -321,10 +518,12 @@ def check_kernel_inputs(inputs: Sequence[torch.Tensor], weight: torch.Tensor,
 
 
 def conv_group(inputs: Sequence[torch.Tensor], group: ConvGroup,
-               counters: Sequence = ()) -> list[torch.Tensor]:
+               counters: Sequence = (), staged: bool = False) -> list[torch.Tensor]:
     """Run a conv chain; returns the emitted blocks as ``[B, cout, Ho, Wo]``
     views of the group's stripe. Kernel on CUDA, plain version on the CPU.
-    Each launch also counts in the ``launches`` of each of ``counters``."""
+    Each launch also counts in the ``launches`` of each of ``counters``.
+    ``staged``: every stride-1 bf16 conv on the staged kernel of
+    ``csrc/conv_group.cu`` instead of the TMA kernel (a yardstick)."""
     inputs = list(inputs)
     if inputs[0].device.type == "cpu":
         return conv_group_plain(inputs, group)
@@ -340,12 +539,14 @@ def conv_group(inputs: Sequence[torch.Tensor], group: ConvGroup,
         o = group.offsets[j]
         launch_conv([_block(inputs, stripe, group, r) for r in s.reads],
                     group.packed[j], group.biases[j],
-                    stripe[:, o:o + s.cout], s, f"conv_group conv {j}", counters)
+                    stripe[:, o:o + s.cout], s, f"conv_group conv {j}", counters,
+                    group.tma[j] if group.tma else None, staged)
     return _emitted(stripe, group)
 
 
 conv_group.launches = 0
 conv_group.staged_launches = 0
+conv_group.tma_launches = 0
 
 
 class _ConvGroupDiff(torch.autograd.Function):
@@ -359,7 +560,7 @@ class _ConvGroupDiff(torch.autograd.Function):
         weights = tensors[n_inputs:n_inputs + n]
         biases = tensors[n_inputs + n:]
         group = prepare_group(weights, biases, specs, n_inputs, dtype,
-                              inputs[0].device)
+                              inputs[0].device, [x.shape[1] for x in inputs])
         acts = conv_group(inputs, group, counters=(conv_group_diff,))
         ctx.specs, ctx.n_inputs = specs, n_inputs
         ctx.bias_dtypes = [b.dtype for b in biases]

@@ -27,8 +27,9 @@ accumulation, launched on the bf16 conv-group kernel of
 On CUDA tensors ``conv_group_q8`` launches ``csrc/conv_group_q8.cu`` once
 per int8-read spec (``conv_group_q8.launches``; a conv of stride 1 and
 dilation 1 runs its staged kernel, on the tiles of :func:`staged_tile_q8`,
-and ``conv_group_q8.staged_launches`` counts those too) and the bf16 kernel
-once per bf16-read spec (``conv_group.launches``); on CPU tensors it runs
+and ``conv_group_q8.staged_launches`` counts those too) and a bf16 kernel
+once per bf16-read spec (``conv_group.launches``; the TMA kernel where
+``conv_chain.is_tma`` takes it); on CPU tensors it runs
 the plain version ``conv_group_q8_plain``, which computes the integer conv
 exactly (float64 holds every int32 sum of the path) and the epilogue with
 the same fp32 operations in the same order, so the kernel's codes equal it
@@ -40,6 +41,7 @@ counterpart here.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -161,6 +163,9 @@ class ConvGroupQ8:
     offsets: list[int]              # channel offset of each block in its stripe
     width8: int                     # int8 stripe channels
     width16: int                    # bf16 side stripe channels
+    # per spec: a bf16-read conv's packings for the TMA kernel, by segment
+    # channels (filled at its first launch)
+    tma: list[dict] = dataclasses.field(default_factory=list)
 
     @property
     def n_inputs(self) -> int:
@@ -234,7 +239,8 @@ def prepare_group_q8(weights: Sequence[torch.Tensor],
     return ConvGroupQ8(specs, in_channels, float(in_scale),
                        tuple(float(sc) if s.q8 else None
                              for s, sc in zip(specs, scales)),
-                       tuple(int8_read), ws, packed, dqs, bqs, offsets, o8, o16)
+                       tuple(int8_read), ws, packed, dqs, bqs, offsets, o8, o16,
+                       [{} for _ in specs])
 
 
 def _check_inputs(inputs, group: ConvGroupQ8) -> None:
@@ -369,7 +375,7 @@ def conv_group_q8(inputs: Sequence[torch.Tensor],
                            s, f"conv_group_q8 conv {j}")
         else:
             launch_conv(reads, group.packed[j], group.bq[j], out, s,
-                        f"conv_group_q8 bf16 conv {j}")
+                        f"conv_group_q8 bf16 conv {j}", tma=group.tma[j] if group.tma else None)
     return _emitted(s8, s16, group)
 
 

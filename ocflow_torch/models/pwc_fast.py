@@ -60,7 +60,7 @@ from torch import nn
 
 from ocflow_torch import full_fp32_convs, resolve_device
 from ocflow_torch.kernels.conv_chain import (ConvGroup, ConvSpec, conv_group,
-                                              conv_group_diff, is_staged,
+                                              conv_group_diff, is_staged, is_tma,
                                               prepare_group)
 from ocflow_torch.kernels.conv_chain_q8 import (ConvGroupQ8, amax_scale, conv_group_q8,
                                                 dequantize_q8, is_staged_q8,
@@ -132,20 +132,38 @@ class FastWeights:
         """Every conv group, in the order one forward runs them."""
         return [*self.encoder, *self.decoders, self.level2, self.ctx_tail]
 
-    def launch_counts(self) -> dict[str, int]:
+    def launch_counts(self, size: tuple[int, int, int] | None = None) -> dict[str, int]:
         """Conv-kernel launches of one forward: ``conv_group`` (bf16/fp32
-        kernel), ``conv_group_staged`` (those of them on its staged kernel),
+        kernels), ``conv_group_staged`` (those of them of stride 1 and
+        dilation 1 in bf16: the staged or the TMA kernel),
         ``conv_group_q8`` (int8 kernel) and ``conv_group_q8_staged`` (those
-        of them on its staged kernel)."""
-        convs = [(torch.bfloat16 if isinstance(g, ConvGroupQ8) else g.dtype, s)
-                 for g in self.groups() for j, s in enumerate(g.specs)
+        of them on its staged kernel); with ``size``, the input's ``(B, H,
+        W)``, also ``conv_group_tma`` (those on the TMA kernel, by
+        ``is_tma`` at each group's shape)."""
+        shapes = [None] * len(self.groups()) if size is None else self.group_shapes(size)
+        convs = [(torch.bfloat16 if isinstance(g, ConvGroupQ8) else g.dtype, s,
+                  None if shape is None else shape[1:])
+                 for g, shape in zip(self.groups(), shapes) for j, s in enumerate(g.specs)
                  if not (isinstance(g, ConvGroupQ8) and g.int8_read[j])]
         convs8 = [s for g in self.groups() if isinstance(g, ConvGroupQ8)
                   for j, s in enumerate(g.specs) if g.int8_read[j]]
-        return {"conv_group": len(convs),
-                "conv_group_staged": sum(is_staged(d, s) for d, s in convs),
-                "conv_group_q8": len(convs8),
-                "conv_group_q8_staged": sum(map(is_staged_q8, convs8))}
+        out = {"conv_group": len(convs),
+               "conv_group_staged": sum(is_staged(d, s) for d, s, _ in convs),
+               "conv_group_q8": len(convs8),
+               "conv_group_q8_staged": sum(map(is_staged_q8, convs8))}
+        if size is not None:
+            out["conv_group_tma"] = sum(is_tma(*c) for c in convs)
+        return out
+
+    def group_shapes(self, size: tuple[int, int, int]) -> list[tuple[int, int, int]]:
+        """Each group's output ``(B, H, W)``, in :meth:`groups`' order, for
+        an input of ``size = (B, H, W)``: the encoder's levels over the two
+        frames (2B), the decoders at levels 6..3, level 2 and the context
+        tail at a quarter of the input."""
+        b, h, w = size
+        enc = [(2 * b, h >> lvl, w >> lvl) for lvl in range(1, len(self.encoder) + 1)]
+        dec = [(b, h >> lvl, w >> lvl) for lvl in DECODER_LEVELS[:len(self.decoders)]]
+        return [*enc, *dec, (b, h >> 2, w >> 2), (b, h >> 2, w >> 2)]
 
 
 def _decoder_specs(n_in: int, head_emit: bool, q8: bool = False) -> list[ConvSpec]:
@@ -174,7 +192,7 @@ def _group(ws, bs, specs, in_ch, dtype, device, q8=None, scales=None):
     """A bf16/fp32 group, or with ``q8`` (``{'in': s, ...}``) a W8A8 group
     whose spec scales are ``scales``."""
     if q8 is None:
-        return prepare_group(ws, bs, specs, len(in_ch), dtype, device)
+        return prepare_group(ws, bs, specs, len(in_ch), dtype, device, in_ch)
     return prepare_group_q8(ws, bs, specs, in_ch, q8["in"], scales, device)
 
 
@@ -241,7 +259,7 @@ def _build(model: FlowNetCV, dtype: torch.dtype, device, q8=None) -> FastWeights
     tail = prepare_group(
         [ctx[-2].weight, ctx[-1].weight], [ctx[-2].bias, ctx[-1].bias],
         [ConvSpec((0,), CONTEXT[-1][0]), ConvSpec((1,), 2, act=False, emit=True)],
-        1, **kw)
+        1, **kw, in_channels=(CONTEXT[-2][0],))
     return FastWeights(encoder, decoders, level2, dilated, tail)
 
 

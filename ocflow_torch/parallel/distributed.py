@@ -33,6 +33,10 @@ log = logging.getLogger(__name__)
 
 BACKENDS = ("nccl", "gloo")
 
+# the device this process joined the group with (initialize), while the
+# group runs: what a mesh built without naming a device runs on
+_JOINED: dict = {}
+
 
 def _init_method(address: str) -> str:
     if "://" in address:
@@ -46,20 +50,22 @@ def _init_method(address: str) -> str:
 
 def local_device(device=None, backend: str | None = None) -> torch.device:
     """The device of this rank: ``device`` when the caller names a CPU (or
-    an indexed) device; else ``cuda:LOCAL_RANK`` under ``nccl`` (raising
-    when there is no such GPU) and ``cuda:(LOCAL_RANK % device_count)``
-    under gloo, ranks sharing the GPUs. Without CUDA, the CPU under gloo."""
+    an indexed) device; with none named, the device :func:`initialize`
+    joined the running group with; else ``cuda:LOCAL_RANK`` under ``nccl``
+    (raising when there is no such GPU) and ``cuda:(LOCAL_RANK %
+    device_count)`` under gloo, ranks sharing the GPUs. Without CUDA it
+    raises, as ``resolve_device`` does: a run on the CPU names the CPU."""
     if device is not None:
         dev = torch.device(device)
         if dev.type != "cuda" or dev.index is not None:
             return dev
+    elif dist.is_initialized() and "device" in _JOINED:
+        return _JOINED["device"]
     backend = backend or (dist.get_backend() if dist.is_initialized() else None)
     local = int(os.environ.get("LOCAL_RANK", 0))
     if not torch.cuda.is_available():
-        if backend == "nccl" or (device is not None and torch.device(device).type == "cuda"):
-            raise RuntimeError("CUDA is not available; pass device='cpu' (backend gloo) to "
-                               "run on the CPU")
-        return torch.device("cpu")
+        raise RuntimeError("CUDA is not available; pass device='cpu' (backend gloo) to "
+                           "run on the CPU")
     count = torch.cuda.device_count()
     if backend == "nccl" and local >= count:
         raise RuntimeError(f"local rank {local} has no GPU of its own ({count} GPUs): NCCL "
@@ -127,6 +133,7 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
         raise RuntimeError(
             f"initialize: init_process_group failed with {init!r}, world {world}, rank "
             f"{rank}, backend {backend}: {e}") from e
+    _JOINED["device"] = dev
     if backend == "gloo":
         print(f"initialize: rank {rank} of {world}, backend gloo, device {dev}", flush=True)
     return world > 1
@@ -144,6 +151,7 @@ def process_group(backend: str | None = None, device=None):
     finally:
         if made and dist.is_initialized():
             dist.destroy_process_group()
+            _JOINED.clear()
 
 
 def world_size() -> int:
@@ -162,16 +170,17 @@ def local_shard_info() -> tuple[int, int]:
     return dist.get_rank(), dist.get_world_size()
 
 
-def global_mean_metrics(metrics: dict, mesh=None) -> dict:
+def global_mean_metrics(metrics: dict, mesh=None, device=None) -> dict:
     """The mean over the ranks of each rank's ``{name: float}`` means, on
     every rank (all-gathered in fp64): decisions taken from them (the best
     checkpoint, early stopping) are the same on every rank. The identity
-    for one process."""
+    for one process. Without ``mesh``, the mesh of every rank on
+    ``device`` (default :func:`local_device`)."""
     from ocflow_torch.parallel.mesh import make_mesh
 
     if world_size() == 1 or not metrics:
         return dict(metrics)
-    mesh = mesh if mesh is not None else make_mesh()
+    mesh = mesh if mesh is not None else make_mesh(device=device)
     keys = list(metrics)
     vec = torch.tensor([float(metrics[k]) for k in keys], dtype=torch.float64,
                        device=mesh.device)

@@ -2,7 +2,9 @@
 
 Times each conv of the bf16 serving forward's conv groups (FlowNetCV, B=8
 448x1024, seeded weights) with ``csrc/conv_group.cu`` as it is and with
-variants of it; with ``--q8``, each int8 conv of the W8A8 forward's groups
+variants of it (every stride-1 conv on its staged kernel, as
+``conv_group(..., staged=True)`` runs it; ``tools.conv_tma_ablation`` times
+the TMA kernel); with ``--q8``, each int8 conv of the W8A8 forward's groups
 (scales calibrated on the held-out seed-1 batch) with
 ``csrc/conv_group_q8.cu`` instead.
 
@@ -50,9 +52,9 @@ REMOVALS = {
 }
 
 
-def _compile(name: str, text: str, real, q8: bool):
+def _compile(name: str, text: str, real, entry: str):
     """``text`` built as ``build/.../ablation/lib<name>.so``; its C entry
-    point with the argument types of ``real``, the kernel's."""
+    point ``entry`` with the argument types of ``real``, the kernel's."""
     out_dir = _build.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
     src, lib = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
@@ -61,7 +63,7 @@ def _compile(name: str, text: str, real, q8: bool):
                            "-o", str(lib), str(src)], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{proc.stdout}{proc.stderr}")
-    fn = getattr(ctypes.CDLL(str(lib)), "ocf_conv3x3_q8" if q8 else "ocf_conv3x3")
+    fn = getattr(ctypes.CDLL(str(lib)), entry)
     fn.argtypes, fn.restype = real.argtypes, real.restype
     return fn
 
@@ -104,7 +106,7 @@ def _conv_ms(inputs, group) -> list[float]:
         reads = [conv_chain._block(inputs, stripe, group, r) for r in s.reads]
         per.append(cuda_ms(lambda: conv_chain.launch_conv(  # noqa: B023
             reads, group.packed[j], group.biases[j], stripe[:, o:o + s.cout], s,
-            "conv_ablation"), ITERS))
+            "conv_ablation", staged=True), ITERS))
     return per
 
 
@@ -141,7 +143,8 @@ def main(argv=None) -> dict:
     real = mod._lib()  # built before the variants, which copy its argtypes
     with ThreadPoolExecutor(max(1, len(texts))) as pool:
         built = dict(zip(texts, pool.map(
-            lambda kv: _compile(*kv, real, args.q8), texts.items())))
+            lambda kv: _compile(*kv, real, "ocf_conv3x3_q8" if args.q8 else "ocf_conv3x3"),
+            texts.items())))
     variants = {"kernel": (real, None)}
     variants.update({f"tile-cap {c}": (real, c) for c in args.tile_cap})
     variants.update({name: (fn, None) for name, fn in built.items()})

@@ -261,7 +261,7 @@ def fit(cfg: Config, state, train_step: Callable, eval_step: Callable, train_loa
             avg = {k: float(np.mean([m[k] for m in val_metrics])) for k in val_metrics[0]}
             # every rank must see the same val metric, or their early-stop
             # and best-checkpoint decisions part
-            avg = parallel.global_mean_metrics(avg, mesh)
+            avg = parallel.global_mean_metrics(avg, mesh, device)
             for k, v in avg.items():
                 logger.scalar(f"val_{k}", v, epoch)
             csv.row("val", global_step, epoch, avg)
@@ -296,4 +296,4 @@ def evaluate(cfg: Config, state, eval_step: Callable, loader, step_args: tuple =
     if not out:
         return {}
     return parallel.global_mean_metrics(
-        {k: float(np.mean([m[k] for m in out])) for k in out[0]}, mesh)
+        {k: float(np.mean([m[k] for m in out])) for k in out[0]}, mesh, device)

@@ -15,6 +15,7 @@ bounds are stated at its test.
 """
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -228,6 +229,51 @@ def test_conv_group_kernel_matches_plain(cuda_device, dtype):
             conv_chain.is_staged(dtype, s) for s in specs)
         for g, r in zip(got, ref):
             _close(g, r, dtype)
+
+
+def _tma_cases(rng):
+    """Shapes the TMA kernel takes (rows of 16-byte multiples): the mixed
+    case cut to 9x64, decoder-like chains at 9x72 (edge tiles both ways,
+    C = 64), 14x32 (C = 32) and 7x16 (C = 16), a 2-channel-input conv at
+    5x8 and at 32x512."""
+    ins, ws, bs, specs = mixed_case(rng)
+    yield [x[..., :64] for x in ins], ws, bs, specs
+    for h, w in ((9, 72), (14, 32), (7, 16)):
+        yield decoder_like_case(rng, h, w)
+    for h, w in ((5, 8), (32, 512)):
+        yield ([rng.normal(size=(2, 2, h, w))], [rng.normal(size=(8, 2, 3, 3)) * 0.3],
+               [rng.normal(size=(8,))], [ConvSpec((0,), 8, act=False, emit=True)])
+
+
+@pytest.mark.parametrize("split", [None, 1, 3, 16])
+def test_conv_group_tma_kernel_matches_plain(cuda_device, split, monkeypatch):
+    """Every conv of each case, every block emitted, within 2^-6 of its
+    max|plain|, with the router's split K and with it forced (at most the
+    conv's K chunks); ``conv_group.tma_launches`` counts the convs ``is_tma``
+    gives the kernel, and ``staged=True`` keeps them all on the staged
+    kernel."""
+    if split is not None:
+        monkeypatch.setattr(conv_chain, "tma_split",
+                            lambda b, h, w, cout, nchunk: min(split, nchunk))
+    rng = np.random.default_rng(4)
+    for inputs, weights, biases, specs in _tma_cases(rng):
+        specs = [dataclasses.replace(s, emit=True) for s in specs]
+        t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+        grp = prepare_group([t(w) for w in weights], [t(b) for b in biases],
+                            specs, len(inputs), torch.bfloat16, cuda_device)
+        xs = [t(x).to(cuda_device, torch.bfloat16) for x in inputs]
+        ho, wo = xs[0].shape[2:]
+        want = sum(conv_chain.is_tma(torch.bfloat16, s, (ho, wo)) for s in specs)
+        ref = conv_chain.conv_group_plain(xs, grp)
+        for staged in (False, True):
+            conv_group.tma_launches = conv_group.staged_launches = 0
+            got = conv_group(xs, grp, staged=staged)
+            torch.cuda.synchronize()
+            assert conv_group.tma_launches == (0 if staged else want)
+            assert conv_group.staged_launches == sum(
+                conv_chain.is_staged(torch.bfloat16, s) for s in specs)
+            for g, r in zip(got, ref, strict=True):
+                _close(g, r, torch.bfloat16)
 
 
 def test_fast_apply_on_gpu_goes_through_the_kernels(cuda_device):
@@ -627,9 +673,16 @@ def test_fast_apply_at_kitti_shape_replays_against_plain(cuda_device, mode):
             for g, r in zip(conv_group(*args), conv_chain.conv_group_plain(*args)):
                 _close(g, r, dtype)
         else:
-            for g, r in zip(conv_chain_q8.conv_group_q8(*args),
-                            conv_chain_q8.conv_group_q8_plain(*args)):
-                assert torch.equal(g, r)
+            # int8-read convs bit for bit; a bf16-read conv (the up-flow
+            # phase conv) runs a bf16 kernel: within 2^-6
+            group = args[1]
+            emitted = [j for j, s in enumerate(group.specs) if s.emit]
+            for j, g, r in zip(emitted, conv_chain_q8.conv_group_q8(*args),
+                               conv_chain_q8.conv_group_q8_plain(*args), strict=True):
+                if group.int8_read[j]:
+                    assert torch.equal(g, r)
+                else:
+                    _close(g, r, torch.bfloat16)
     assert widths == {19, 38, 76, 152, 304}
 
 
