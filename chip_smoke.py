@@ -17,16 +17,22 @@ Phases (any failure raises and exits non-zero):
    call of the W8A8 forward and of the opt-in forward (encoder and context
    chain int8 too), and replay each against its plain version: int8 codes
    and the bf16 outputs of int8-read convs bit for bit, bf16-read convs and
-   the bf16 conv groups within 2^-6, cost volumes as in phase 3;
+   the bf16 conv groups within 2^-6, cost volumes as in phase 3; and every
+   int8 conv on the int8 TMA kernel ``csrc/conv_group_q8_tma.cu`` (in both
+   forwards) once more alone, on the blocks its group's replay filled, its
+   own block poisoned first, bit for bit;
 5. drive each path once with every launch counter zeroed just before and
    read just after: the bf16 forward (5 cost volumes, one bf16 conv launch
    per conv, 59, of which 53 of stride 1 ("staged": all but the six
    stride-2 encoder convs), all 53 on the TMA kernel
    ``csrc/conv_group_tma.cu``), the W8A8 forward (5, 24 bf16 of which 18
-   staged, all on the TMA kernel, 35 int8 launches, all 35 on the staged
-   int8 kernel), the opt-in W8A8
-   forward (as ``launch_counts()`` reckons: its six stride-2 encoder convs
-   and four dilated context convs on the int8 gather kernel) and the GEMM
+   staged, all on the TMA kernel, 35 int8 launches, all 35 on the int8 TMA
+   kernel), the opt-in W8A8
+   forward (as ``launch_counts()`` reckons: the decoders' 35 int8 convs on
+   the int8 TMA kernel, its six stride-2 encoder convs and four dilated
+   context convs on the int8 gather kernel, the encoder's and context
+   chain's other 14 on the staged int8 kernel; the int8 TMA count at
+   8x320x1216 printed beside) and the GEMM
    probe ``ocflow_torch.tools.spike_int8`` (2048^3, int8 exact, bf16 within
    1e-2; timed with its calls queued behind a spin kernel);
 6. hold fp32 ``fast_apply`` against the eager fp32 ``FlowNetCV`` (cuDNN,
@@ -37,8 +43,11 @@ Phases (any failure raises and exits non-zero):
    and share of the bound, and the staged kernel of PR 5 on the same
    groups); every conv the TMA kernel takes, replayed alone against its
    plain version and timed queued behind a spin beside the staged kernel,
-   cuDNN and its bound; the bf16 and W8A8 forwards end to end (pairs/s) in
-   turns;
+   cuDNN and its bound; every int8 conv of the W8A8 forward timed alone on
+   the int8 TMA kernel, queued, beside the staged int8 kernel, the bf16 TMA
+   kernel and bf16 cuDNN on the same convs and its bound; the int8 kernel
+   of ``csrc/conv_group_q8.cu`` on the opt-in forward's encoder and context
+   groups; the bf16 and W8A8 forwards end to end (pairs/s) in turns;
 8. training (``longrun_synthetic.yaml`` hparams, seeded FlowNetCV and
    smooth seeded frames, 448x1024, B=8): record every kernel call of one
    fp32 and one bf16 step (pair + loss + backward) and replay each against
@@ -51,7 +60,7 @@ Phases (any failure raises and exits non-zero):
    gradients; launches of one bf16 step (10 cost volumes, 5 backward, 31
    ``conv_group_diff`` conv launches, 72 conv launches in all, every one
    of stride 1 on the TMA kernel) and of one with a W8A8 backward decode
-   (37 staged, all on the TMA kernel, 35 int8, all on the staged int8
+   (37 staged, all on the TMA kernel, 35 int8, all on the int8 TMA
    kernel);
    five bf16 Adam steps;
    the bf16 step end to end, and the new kernels' calls against plain,
@@ -434,7 +443,8 @@ FIT_DATA_TOL = {"images": 1e-4, "flow": 1e-4}
 # decode), no int8
 FIT_STEP_LAUNCHES = {"cost_volume": 10, "cost_volume_bwd": 5, "conv_group": 72,
                      "conv_group_diff": 31, "conv_group_q8": 0, "gemm_probe": 0,
-                     "conv_group_staged": 72, "conv_group_q8_staged": 0}
+                     "conv_group_staged": 72, "conv_group_q8_staged": 0,
+                     "conv_group_q8_tma": 0}
 # evaluate on the restored state vs the in-memory state, per metric,
 # relative: the same weights; the range map's index_add_ adds with atomics
 FIT_EVAL_REL = 1e-6
@@ -446,6 +456,8 @@ NO_LIBRARY = {
     "cost_volume_bwd": "no single PyTorch call computes its adjoint",
     "conv_group_q8": "PyTorch has no int8 convolution (bf16 cuDNN of the same "
                      "convs is printed beside its time)",
+    "conv_group_q8_tma": "PyTorch has no int8 convolution (bf16 cuDNN and the bf16 TMA "
+                         "kernel on the same convs are printed beside its time)",
 }
 
 
@@ -639,16 +651,20 @@ def _check_float(kind, args, dtype, max_err, label=""):
 
 def _check_q8(args, max_err, label=""):
     """Replay one W8A8 group call, every block emitted, through the kernels
-    and the plain version. int8-read convs: codes and bf16 values equal;
-    the bf16-read conv (bf16 kernel): within 2^-6 of max|plain|. Returns
-    the plain version's device ms (one call)."""
+    (on new stripes) and the plain version. int8-read convs: codes and bf16
+    values equal; the bf16-read conv (bf16 kernel): within 2^-6 of
+    max|plain|. In a channels-innermost group each int8 conv is then run
+    again alone on the blocks the replay filled (:func:`_check_q8_tma_convs`).
+    Returns the plain version's device ms (one call)."""
     from ocflow_torch.kernels import conv_chain_q8
 
     inputs, group = args
     every = _emit_all(group)
-    got = conv_chain_q8.conv_group_q8(inputs, every)
+    st = conv_chain_q8.stripes_q8(inputs, every)
+    got = conv_chain_q8.run_group_q8(st, every)
     ref, plain_ms = _timed_once(lambda: conv_chain_q8.conv_group_q8_plain(inputs, every))
     shape = tuple(inputs[0].shape)
+    kernel = "conv_group_q8_tma" if group.nhwc else "conv_group_q8"
     ndiff = ncodes = 0
     err8 = err16 = 0.0
     for j, (g, r) in enumerate(zip(got, ref)):
@@ -665,16 +681,45 @@ def _check_q8(args, max_err, label=""):
             if not d.max().item() <= tol:
                 raise AssertionError(f"q8 bf16-read block {j} {shape}: {d.max().item()} > {tol}")
             err16 = max(err16, d.max().item())
-    print(f"check {label}conv_group_q8 {shape} ({len(group.specs)} convs, "
+    print(f"check {label}{kernel} {shape} ({len(group.specs)} convs, "
           f"{group.n_int8} int8): differing int8-read outputs {ndiff} "
           f"({ncodes} codes), int8-read max_abs_err {err8:.3e} (exact "
           f"required); bf16-read max_abs_err {err16:.3e} (2^-6 of max|plain|); "
           f"plain {plain_ms:.2f} ms")
     if ndiff:
-        raise AssertionError(f"conv_group_q8 {shape}: {ndiff} outputs differ")
-    max_err["conv_group_q8"] = max(max_err["conv_group_q8"], err8)
+        raise AssertionError(f"{kernel} {shape}: {ndiff} outputs differ")
+    max_err[kernel] = max(max_err[kernel], err8)
     max_err["conv_group"] = max(max_err["conv_group"], err16)
+    if group.nhwc:
+        _check_q8_tma_convs(st, every, max_err, label)
     return plain_ms
+
+
+def _check_q8_tma_convs(st, group, max_err, label=""):
+    """Every int8 conv of a channels-innermost W8A8 group (on
+    ``csrc/conv_group_q8_tma.cu``), run alone on the stripes ``st`` a run of
+    the group filled: its block poisoned (int8 -128, no code's value; bf16
+    NaN), the kernel run into it, then held against the plain version on
+    the same reads, bit for bit."""
+    from ocflow_torch.tools.conv_ablation import q8_conv_checks
+
+    t0, ndiff, err = time.perf_counter(), 0, 0.0
+    cases = q8_conv_checks(st, group)
+    for c in cases:
+        c["out"].fill_(-128 if c["out"].dtype == torch.int8 else float("nan"))
+        c["run"]()
+        ref = c["plain"]()
+        torch.cuda.synchronize()
+        if not torch.equal(c["out"], ref):
+            ndiff += int((c["out"] != ref).sum().item())
+        err = max(err, (c["out"].float() - ref.float()).abs().max().item())
+    shape = tuple(st.inputs[0].shape)
+    print(f"check {label}conv_group_q8_tma {shape}: {len(cases)} int8 convs run alone on "
+          f"the blocks the replay filled, differing outputs {ndiff}, max_abs_err {err:.3e} "
+          f"(exact required; {time.perf_counter() - t0:.1f} s)")
+    if ndiff or not err == 0.0:
+        raise AssertionError(f"conv_group_q8_tma {shape}: {ndiff} differ, {err}")
+    max_err["conv_group_q8_tma"] = max(max_err["conv_group_q8_tma"], err)
 
 
 def _tma_conv_timing(card, calls, max_err, per):
@@ -758,6 +803,51 @@ def _tma_conv_timing(card, calls, max_err, per):
           f"cuDNN {p['library_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms "
           f"({100 * p['bound_ms'] / p['ms']:.2f}% of bound); max_abs_err "
           f"{max_err['conv_group_tma']:.3e} [{card}]")
+
+
+def _q8_tma_conv_timing(card, calls, max_err, per):
+    """Every int8 conv of the W8A8 forward's ``conv_group_q8`` calls (all on
+    ``csrc/conv_group_q8_tma.cu``), timed queued behind a spin
+    (``spike_int8.queued_ms``: the card's time, not the host's) beside, on
+    the same convs, the staged int8 kernel (an NCHW copy of the stripe),
+    the bf16 TMA kernel and one bf16 cuDNN call (the codes and int8 weights
+    as bf16: the yardsticks W8A8 has to beat) and its bound (reads,
+    weights, the epilogue's vectors and the output moved once; 2 x MACs at
+    the int8 peak)."""
+    from ocflow_torch.bench import cuda_ms
+    from ocflow_torch.tools.conv_ablation import q8_conv_cases
+    from ocflow_torch.tools.spike_int8 import queued_ms
+
+    p, n_all, slower, t0 = per["conv_group_q8_tma"], 0, [], time.perf_counter()
+    for inputs, group in calls:
+        cases = q8_conv_cases(inputs, group)
+        g = dict.fromkeys(("ms", "staged_ms", "bf16_tma_ms", "cudnn_ms", "plain_ms",
+                           "bound_ms", "bytes_ms", "ops_ms"), 0.0)
+        for c in cases:
+            for key, fn in (("ms", c["run"]), ("staged_ms", c["staged"]),
+                            ("bf16_tma_ms", c["bf16_tma"]), ("cudnn_ms", c["cudnn"])):
+                g[key] += queued_ms(fn, 20)[0]
+            g["plain_ms"] += cuda_ms(c["plain"], 1)
+            for key in ("bound_ms", "bytes_ms", "ops_ms"):
+                g[key] += c[key]
+        n_all += len(cases)
+        for k, v in g.items():
+            p[k] += v
+        shape = tuple(inputs[0].shape)
+        if g["ms"] > g["bf16_tma_ms"]:
+            slower.append(shape)
+        print(f"time conv_group_q8_tma w8a8 {shape} ({len(cases)} int8 convs, device time "
+              f"queued): kernel {g['ms']:.4f} ms ({100 * g['bound_ms'] / g['ms']:.2f}% of "
+              f"bound), staged int8 kernel {g['staged_ms']:.4f} ms, bf16 TMA kernel "
+              f"{g['bf16_tma_ms']:.4f} ms, bf16 cuDNN {g['cudnn_ms']:.4f} ms, plain "
+              f"{g['plain_ms']:.4f} ms, bound {g['bound_ms']:.4f} ms [{card}]")
+    print(f"time conv_group_q8_tma sum over the w8a8 forward's {n_all} int8 convs (device "
+          f"time queued): kernel {p['ms']:.4f} ms, staged int8 kernel {p['staged_ms']:.4f} "
+          f"ms, bf16 TMA kernel {p['bf16_tma_ms']:.4f} ms, bf16 cuDNN "
+          f"{p['cudnn_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms "
+          f"({100 * p['bound_ms'] / p['ms']:.2f}% of bound); groups slower than the bf16 TMA "
+          f"kernel: {slower or 'none'}; max_abs_err {max_err['conv_group_q8_tma']:.3e} "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]")
 
 
 def _diff_group(inputs, weights, biases, specs):
@@ -872,16 +962,20 @@ def _zero_counts():
         fn.launches = 0
     for k in STAGED:
         counters[k].staged_launches = 0
-    counters["conv_group"].tma_launches = 0
+        counters[k].tma_launches = 0
 
 
 def _read_counts():
-    """Every launch counter now, with ``conv_group_staged`` and
-    ``conv_group_q8_staged`` (the conv launches on the staged bf16 and int8
-    kernels)."""
+    """Every launch counter now, with ``conv_group_staged`` (the bf16 conv
+    launches of stride 1 and dilation 1: the staged or TMA kernel),
+    ``conv_group_q8_staged`` (those of ``conv_group_q8``, the launches of
+    ``csrc/conv_group_q8.cu``, on its staged kernel) and
+    ``conv_group_q8_tma`` (the int8 launches on
+    ``csrc/conv_group_q8_tma.cu``)."""
     counters = _counters()
     counts = {k: fn.launches for k, fn in counters.items()}
     counts.update({f"{k}_staged": counters[k].staged_launches for k in STAGED})
+    counts["conv_group_q8_tma"] = counters["conv_group_q8"].tma_launches
     return counts
 
 
@@ -1082,19 +1176,21 @@ def _train_phase(card, max_err, per, add, failures):
                   "conv_group_tma": n_diff + want["conv_group_tma"] - n_enc_tma,
                   "conv_group_diff": n_diff,
                   "conv_group_q8": want["conv_group_q8"],
-                  "conv_group_q8_staged": want["conv_group_q8_staged"], "gemm_probe": 0}
+                  "conv_group_q8_staged": want["conv_group_q8_staged"],
+                  "conv_group_q8_tma": want["conv_group_q8_tma"], "gemm_probe": 0}
         print(f"main path {path} (one bf16 step) launches: {launches[path]} "
               f"(expected {expect})")
         if launches[path] != expect:
             raise AssertionError(f"{path} launch counts {launches[path]}")
         del state
-    # every conv of the step is stride 1, dilation 1: all staged, all on
-    # the TMA kernel
+    # every conv of the step is stride 1, dilation 1: all on the TMA
+    # kernels (the W8A8 backward decode's 35 int8 convs on the int8 one,
+    # none on csrc/conv_group_q8.cu)
     if [launches[p][k] for p in ("train", "train_q8")
-            for k in ("conv_group_staged", "conv_group_tma", "conv_group_q8_staged")] \
-            != [72, 72, 0, 37, 37, 35]:
-        raise AssertionError(f"staged launches per step {launches}, want 72 / 72 / 0, "
-                             "37 / 37 / 35")
+            for k in ("conv_group_staged", "conv_group_tma", "conv_group_q8",
+                      "conv_group_q8_tma")] != [72, 72, 0, 0, 37, 37, 0, 35]:
+        raise AssertionError(f"staged launches per step {launches}, want 72 / 72 / 0 / 0, "
+                             "37 / 37 / 0 / 35")
 
     # 5. five bf16 Adam steps
     state = create_train_state(copy.deepcopy(model0), lr, device=dev)
@@ -2104,8 +2200,9 @@ def _files_phase(card, max_err, then=None):
                   f"{[round(a.elapsed_time(b), 2) for a, b in timed.events]} ms, idle gaps "
                   f"inside counted; the first with its calls recorded); host ms per pair "
                   f"{host} [{card}]")
-            if any(c != expect for c in timed.counts) or (want["conv_group"],
-                                                          want["conv_group_q8"]) != (24, 35):
+            if any(c != expect for c in timed.counts) or (
+                    want["conv_group"], want["conv_group_q8"], want["conv_group_q8_tma"]) \
+                    != (24, 0, 35):
                 raise AssertionError(f"{path_name} launches {timed.counts}")
             if not all(same) or len(paths) != 2 * n or not e["max_abs_rel"] <= E2E_Q8_TOL["w8a8"]:
                 raise AssertionError(f"{path_name}: flo {same}, W8A8 {e}")
@@ -4747,11 +4844,11 @@ def _serve_imported(card, max_err, ckpt, dev="cuda"):
         if launches[path] != want:
             raise AssertionError(f"{path} launch counts {launches[path]}")
     counted = ("cost_volume", "conv_group", "conv_group_staged", "conv_group_q8",
-               "conv_group_q8_staged")
+               "conv_group_q8_staged", "conv_group_q8_tma")
     got = [launches[p][k] for p in ("imported_bf16", "imported_w8a8") for k in counted]
-    if got != [5, 59, 53, 0, 0, 5, 24, 18, 35, 35]:
-        raise AssertionError(f"imported launches {got}, want 5 / 59 / 53 / 0 / 0 and "
-                             f"5 / 24 / 18 / 35 / 35")
+    if got != [5, 59, 53, 0, 0, 0, 5, 24, 18, 0, 0, 35]:
+        raise AssertionError(f"imported launches {got}, want 5 / 59 / 53 / 0 / 0 / 0 and "
+                             f"5 / 24 / 18 / 0 / 0 / 35")
     out_f = pwc_fast.fast_apply(model, x32)
     with torch.no_grad(), _plain_eager_cost_volume():
         ref = model(x32)
@@ -6049,7 +6146,8 @@ def main() -> int:
     xb = x32.bfloat16()
     max_err = {"cost_volume": 0.0, "conv_group": 0.0, "conv_group_q8": 0.0,
                "cost_volume_bwd": 0.0, "conv_group_diff": 0.0, "cost_volume_general": 0.0,
-               "cost_volume_bwd_general": 0.0, "conv_group_tma": 0.0}
+               "cost_volume_bwd_general": 0.0, "conv_group_tma": 0.0,
+               "conv_group_q8_tma": 0.0}
     serving = [(pwc_fast, n) for n in ("cost_volume", "conv_group", "conv_group_q8")]
 
     # 3. every kernel call of the bf16/fp32 path, kernel vs plain
@@ -6068,17 +6166,14 @@ def main() -> int:
     del xc
     print(f"calibrate_q8 (bf16, seed-1 batch, decoders; then + encoder and "
           f"context chain): {time.perf_counter() - t0:.2f} s host")
-    q8_plain_ms = []
+    q8_plain_ms = {mode: [] for mode in scales}
     for mode, sc in scales.items():
         label = f"{mode} "
         calls = _record(serving, lambda: pwc_fast.fast_apply(model_b, xb, q8=sc))
-        if mode == "w8a8":
-            recorded[mode] = calls
+        recorded[mode] = [args for kind, args in calls if kind == "conv_group_q8"]
         for kind, args in calls:
             if kind == "conv_group_q8":
-                ms = _check_q8(args, max_err, label)
-                if mode == "w8a8":
-                    q8_plain_ms.append(ms)
+                q8_plain_ms[mode].append(_check_q8(args, max_err, label))
             else:
                 _check_float(kind, args, torch.bfloat16, max_err, label)
         del calls
@@ -6108,11 +6203,25 @@ def main() -> int:
     # int8 conv of the default W8A8 forward; all those bf16 convs on the
     # TMA kernel
     counted = ("conv_group", "conv_group_staged", "conv_group_tma", "conv_group_q8",
-               "conv_group_q8_staged")
+               "conv_group_q8_staged", "conv_group_q8_tma")
     if [launches[p][k] for p in ("bf16", "w8a8") for k in counted] \
-            != [59, 53, 53, 0, 0, 24, 18, 18, 35, 35]:
-        raise AssertionError(f"launches {launches}, want 59 / 53 / 53 / 0 / 0 and "
-                             "24 / 18 / 18 / 35 / 35")
+            != [59, 53, 53, 0, 0, 0, 24, 18, 18, 0, 0, 35]:
+        raise AssertionError(f"launches {launches}, want 59 / 53 / 53 / 0 / 0 / 0 and "
+                             "24 / 18 / 18 / 0 / 0 / 35")
+    # the int8 TMA kernel's routing depends on no size: KITTI's 8x320x1216
+    # (levels 19, 38 and 76 wide) as launch_counts reckons it
+    kitti = {mode: pwc_fast.prepare(model_b, torch.bfloat16, dev, sc).launch_counts(
+        (BATCH, 320, 1216)) for mode, sc in scales.items()}
+    print("main path int8 TMA launches (conv_group_q8_tma of all int8 convs, the rest on "
+          "conv_group_q8): "
+          + "; ".join(f"{where}: " + ", ".join(
+              f"{p} {c['conv_group_q8_tma']} of {c['conv_group_q8_tma'] + c['conv_group_q8']}"
+              for p, c in counts.items())
+              for where, counts in (("at 8x448x1024", {p: launches[p] for p in scales}),
+                                    ("at 8x320x1216 by launch_counts", kitti))))
+    if [launches[p]["conv_group_q8_tma"] for p in ("w8a8", "w8a8_enc_ctx")] != [35, 35] or \
+            [c["conv_group_q8_tma"] for c in kitti.values()] != [35, 35]:
+        raise AssertionError(f"int8 TMA launches {launches}, {kitti}")
     print(f"main path spike_int8 launches: {launches['spike_int8']}")
     if launches["spike_int8"]["gemm_probe"] < 2:
         raise AssertionError("the GEMM probe did not launch its kernel")
@@ -6190,11 +6299,13 @@ def main() -> int:
     per = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                "bound_ms": 0.0, "library_ms": 0.0}
            for k in ("cost_volume", "cost_volume_bwd", "conv_group",
-                     "conv_group_diff", "conv_group_q8", "conv_group_tma")}
+                     "conv_group_diff", "conv_group_q8", "conv_group_tma",
+                     "conv_group_q8_tma")}
     per["conv_group_diff"].update(bwd_ms=0.0, library_bwd_ms=0.0, bwd_bound_ms=0.0,
                                   staged_ms=0.0, tma_ms=0.0, pack_ms=0.0)
     per["conv_group"]["staged_ms"] = 0.0
     per["conv_group_tma"]["staged_ms"] = 0.0
+    per["conv_group_q8_tma"].update(staged_ms=0.0, bf16_tma_ms=0.0, cudnn_ms=0.0)
 
     def add(kind, k_ms, p_ms, nbytes, ops, peak, lib_ms):
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -6237,12 +6348,19 @@ def main() -> int:
           f"{p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms "
           f"({100 * p['bound_ms'] / p['ms']:.2f}% of bound) [{card}]")
 
-    # the int8 launches of each W8A8 group (its bf16-read up-flow conv runs
-    # the bf16 kernel and is left out here)
-    q8_calls = [args for kind, args in recorded["w8a8"] if kind == "conv_group_q8"]
+    # csrc/conv_group_q8.cu's own launches: the int8 convs of the opt-in
+    # 'enc'+'ctx' forward's encoder and context groups (every int8 conv of
+    # the default forward runs the TMA kernel, timed conv by conv below),
+    # each group's int8 launches on the host's clock (events around the call
+    # loop; its bf16-read convs left out)
     skip_bf16 = conv_chain_q8.launch_conv
-    for args, p_ms in zip(q8_calls, q8_plain_ms, strict=True):
+    for args, p_ms in zip(recorded["w8a8_enc_ctx"], q8_plain_ms["w8a8_enc_ctx"], strict=True):
         inputs, group = args
+        if group.nhwc:
+            continue
+        # the kernels alone: the context group's inputs quantized once here
+        inputs = conv_chain_q8.input_codes_q8(inputs, group)
+        args = (inputs, group)
         outs_q8 = conv_chain_q8.conv_group_q8(*args)
         conv_chain_q8.launch_conv = lambda *a, **k: None
         try:
@@ -6256,7 +6374,7 @@ def main() -> int:
                         PEAK_FLOPS[torch.int8], None)
         per["conv_group_q8"]["yard_ms"] = per["conv_group_q8"].get("yard_ms", 0.0) + yard_ms
         shape = tuple(inputs[0].shape)
-        print(f"time conv_group_q8 w8a8 {shape} ({group.n_int8} int8 convs): kernel "
+        print(f"time conv_group_q8 w8a8_enc_ctx {shape} ({group.n_int8} int8 convs): kernel "
               f"{k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOP/s, {100 * bound / k_ms:.2f}% of "
               f"bound), plain {p_ms:.4f} ms, library none (bf16 cuDNN conv of the same "
               f"shapes {yard_ms:.4f} ms), bound {bound:.4f} ms ({by}; {nbytes} B, "
@@ -6265,11 +6383,13 @@ def main() -> int:
         p = per[kind]
         staged = (f", staged kernel (PR 5) {p['staged_ms']:.4f} ms" if "staged_ms" in p
                   else "")
-        print(f"time {kind} sum over the {'bf16' if kind == 'conv_group' else 'w8a8'} "
-              f"forward's groups: kernel {p['ms']:.4f} ms{staged}, bound "
+        print(f"time {kind} sum over the "
+              f"{'bf16 forward' if kind == 'conv_group' else 'w8a8_enc_ctx forward encoder and context'}"
+              f"'s groups: kernel {p['ms']:.4f} ms{staged}, bound "
               f"{p['bound_ms']:.4f} ms ({100 * p['bound_ms'] / p['ms']:.2f}% of bound), "
               f"cuDNN {p.get('yard_ms', p['library_ms']):.4f} ms [{card}]")
     _tma_conv_timing(card, recorded[torch.bfloat16], max_err, per)
+    _q8_tma_conv_timing(card, recorded["w8a8"], max_err, per)
     for name, r in gemm_res.items():
         same = r["library_same_output_ms"]
         print(f"time gemm_probe {name} {spike_int8.SIZE}^3 (calls queued behind a spin "
@@ -6362,8 +6482,12 @@ def main() -> int:
                            "ocflow_tpu/ops/pallas/conv_chain_kernel.py:463", "bf16"),
         "conv_group_diff": ("ocflow_torch/csrc/conv_group.cu",
                             "ocflow_tpu/ops/pallas/conv_chain_kernel.py:1198", "train"),
+        # the opt-in forward's encoder and context groups only
         "conv_group_q8": ("ocflow_torch/csrc/conv_group_q8.cu",
-                          "ocflow_tpu/ops/pallas/conv_chain_kernel.py:943", "w8a8"),
+                          "ocflow_tpu/ops/pallas/conv_chain_kernel.py:943", "w8a8_enc_ctx"),
+        # every int8 conv of the W8A8 forward's decoders, each timed alone
+        "conv_group_q8_tma": ("ocflow_torch/csrc/conv_group_q8_tma.cu",
+                              "ocflow_tpu/ops/pallas/conv_chain_kernel.py:943", "w8a8"),
         "gemm_probe": ("ocflow_torch/csrc/gemm_probe.cu", "tools/spike_int8.py:92",
                        "spike_int8"),
     }
@@ -6388,7 +6512,8 @@ def main() -> int:
                 "conv_group", "conv_group_diff", "conv_group_tma", "gemm_probe") else None,
             **({"library_reason": NO_LIBRARY[name]} if name in NO_LIBRARY else {}),
             **{k: p[k] for k in ("bwd_ms", "library_bwd_ms", "bwd_bound_ms", "yard_ms",
-                                 "staged_ms", "tma_ms", "pack_ms") if k in p},
+                                 "staged_ms", "tma_ms", "pack_ms", "bf16_tma_ms",
+                                 "cudnn_ms") if k in p},
         })
         if name == "gemm_probe":
             # the numbers above are int8's; bf16's beside them

@@ -84,9 +84,6 @@
 
 #include <cstdint>
 #include <cstring>
-#include <mutex>
-#include <string>
-#include <unordered_map>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -422,43 +419,6 @@ __global__ void __launch_bounds__(256)
            x] = __float2bfloat16(epilogue(v, args.bias[co], args.act));
 }
 
-// A tensor map only describes an address, a shape and a box (no driver
-// state), so a map encoded once is reused for the same arguments: the
-// stripes and weights of a forward come back at the same addresses, and
-// cuTensorMapEncodeTiled costs the host microseconds a map.
-struct MapKey {
-  const void* ptr;
-  cuuint64_t dims[4], strides[3];
-  cuuint32_t box[4];
-  int rank, swizzle;
-};
-
-int encode_cached(CUtensorMap* map, const MapKey& k) {
-  // one forward uses ~600 maps; the bound only keeps a long run of changing
-  // addresses from growing the table without end
-  constexpr size_t MAX_MAPS = 8192;
-  static std::unordered_map<std::string, CUtensorMap> cache;
-  static std::mutex mu;
-  const std::string key(reinterpret_cast<const char*>(&k), sizeof(MapKey));
-  const std::lock_guard<std::mutex> lock(mu);
-  const auto hit = cache.find(key);
-  if (hit != cache.end()) {
-    *map = hit->second;
-    return 0;
-  }
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k.rank, const_cast<void*>(k.ptr),
-                         k.dims, k.strides, k.box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         static_cast<CUtensorMapSwizzle>(k.swizzle),
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
-  if (cache.size() >= MAX_MAPS) cache.clear();
-  cache.emplace(key, *map);
-  return 0;
-}
-
 // channel segment s: (W, C_seg, H, B) with the plane, row and batch
 // strides; boxes (tc, 16, 256 / tc + 2, 1) with the swizzle tc bf16 span,
 // or for the strips (8, 16, 256 / tc + 2, 1) unswizzled
@@ -468,6 +428,7 @@ int encode_segment(CUtensorMap* map, const void* ptr, int W, int C, int H, int B
   std::memset(&k, 0, sizeof k);  // the padding too: keys compare as bytes
   k.ptr = ptr;
   k.rank = 4;
+  k.dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)C, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)H * W * 2, (cuuint64_t)W * 2,
                                  (cuuint64_t)bstride * 2};
@@ -490,6 +451,7 @@ int encode_weights(CUtensorMap* map, const void* ptr, long long rows, int ntp, i
   std::memset(&k, 0, sizeof k);
   k.ptr = ptr;
   k.rank = 2;
+  k.dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   k.dims[0] = (cuuint64_t)ntp;
   k.dims[1] = (cuuint64_t)rows;
   k.strides[0] = (cuuint64_t)ntp * 2;
@@ -499,16 +461,6 @@ int encode_weights(CUtensorMap* map, const void* ptr, long long rows, int ntp, i
               : bn == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                          : CU_TENSOR_MAP_SWIZZLE_32B;
   return encode_cached(map, k);
-}
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
 }
 
 template <int NT>

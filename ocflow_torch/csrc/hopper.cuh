@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA / wgmma kernels
-// (gemm_probe.cu, conv_group_tma.cu): mbarriers, TMA loads, wgmma
-// shared-memory descriptors and fences, setmaxnreg, and the run-time
-// lookup of cuTensorMapEncodeTiled.
+// (gemm_probe.cu, conv_group_tma.cu, conv_group_q8_tma.cu): mbarriers, TMA
+// and bulk loads, wgmma shared-memory descriptors and fences, setmaxnreg,
+// the run-time lookup of cuTensorMapEncodeTiled and a cache of encoded
+// tensor maps.
 #pragma once
 
 #include <cuda.h>
@@ -9,7 +10,11 @@
 #include <dlfcn.h>
 
 #include <cstdint>
+#include <cstring>
+#include <mutex>
+#include <string>
 #include <type_traits>
+#include <unordered_map>
 
 namespace ocf {
 
@@ -74,8 +79,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// wgmma shared-memory descriptor; offsets in bytes. layout: 1 = 128-byte
-// swizzle, 2 = 64-byte, 3 = 32-byte
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory; completes on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor; offsets in bytes. layout: 0 = no swizzle
+// (8-row core matrices of 16 bytes), 1 = 128-byte swizzle, 2 = 64-byte,
+// 3 = 32-byte
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
                                               uint32_t layout = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
@@ -144,6 +161,64 @@ inline EncodeTiled encoder() {
                : nullptr;
   }();
   return fn;
+}
+
+// A tensor map only describes an address, a shape and a box (no driver
+// state), so a map encoded once is reused for the same arguments: the
+// stripes and weights of a forward come back at the same addresses, and
+// cuTensorMapEncodeTiled costs the host microseconds a map.
+struct MapKey {
+  const void* ptr;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4];
+  int rank, swizzle, dtype;
+};
+
+// the maps encoded so far (cache misses), for tests of the cache
+inline long long& map_encodes() {
+  static long long n = 0;
+  return n;
+}
+
+// encodes k (its unused dims, strides and box entries zero) into map, or
+// copies the map encoded for the same key; 0 or a CUDA error code
+inline int encode_cached(CUtensorMap* map, const MapKey& k) {
+  // one forward uses ~600 maps; the bound only keeps a long run of changing
+  // addresses from growing the table without end
+  constexpr size_t MAX_MAPS = 8192;
+  static std::unordered_map<std::string, CUtensorMap> cache;
+  static std::mutex mu;
+  const std::string key(reinterpret_cast<const char*>(&k), sizeof(MapKey));
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *map = hit->second;
+    return 0;
+  }
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r =
+      enc(map, static_cast<CUtensorMapDataType>(k.dtype), k.rank, const_cast<void*>(k.ptr),
+          k.dims, k.strides, k.box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          static_cast<CUtensorMapSwizzle>(k.swizzle), CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  ++map_encodes();
+  if (cache.size() >= MAX_MAPS) cache.clear();
+  cache.emplace(key, *map);
+  return 0;
+}
+
+// the SMs of the current device (read once)
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
 }
 
 }  // namespace ocf

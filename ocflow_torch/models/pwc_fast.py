@@ -38,8 +38,9 @@ contiguous block of the global batch (``gather=True``: the whole batch's
 flows on every rank).
 
 W8A8 (``fast_apply(..., q8=scales)``, scales from :func:`calibrate_q8`):
-every decoder group L6..L2 runs on the int8 conv-group kernel
-(``kernels/conv_chain_q8.py``): the five growth convs store int8 codes; the
+every decoder group L6..L2 runs on the int8 TMA conv kernel
+(``kernels/conv_chain_q8.py``, ``csrc/conv_group_q8_tma.cu``; its inputs
+quantized into its channels-innermost stripe): the five growth convs store int8 codes; the
 flow head, context conv 1 and the up-feat phase conv read the int8 blocks
 and emit bf16; the up-flow phase conv reads the flow head from the bf16
 side stripe on the bf16 kernel. With ``'enc'`` in the scales each encoder
@@ -136,21 +137,27 @@ class FastWeights:
         """Conv-kernel launches of one forward: ``conv_group`` (bf16/fp32
         kernels), ``conv_group_staged`` (those of them of stride 1 and
         dilation 1 in bf16: the staged or the TMA kernel),
-        ``conv_group_q8`` (int8 kernel) and ``conv_group_q8_staged`` (those
-        of them on its staged kernel); with ``size``, the input's ``(B, H,
-        W)``, also ``conv_group_tma`` (those on the TMA kernel, by
-        ``is_tma`` at each group's shape)."""
+        ``conv_group_q8`` (int8 convs on ``csrc/conv_group_q8.cu``: those
+        of the NCHW groups), ``conv_group_q8_staged`` (those of them on its
+        staged kernel: stride 1 and dilation 1) and ``conv_group_q8_tma``
+        (int8 convs on the int8 TMA kernel: every int8 conv of a
+        channels-innermost group, at any size); with
+        ``size``, the input's ``(B, H, W)``, also ``conv_group_tma`` (the
+        bf16 convs on the bf16 TMA kernel, by ``is_tma`` at each group's
+        shape)."""
         shapes = [None] * len(self.groups()) if size is None else self.group_shapes(size)
         convs = [(torch.bfloat16 if isinstance(g, ConvGroupQ8) else g.dtype, s,
                   None if shape is None else shape[1:])
                  for g, shape in zip(self.groups(), shapes) for j, s in enumerate(g.specs)
                  if not (isinstance(g, ConvGroupQ8) and g.int8_read[j])]
-        convs8 = [s for g in self.groups() if isinstance(g, ConvGroupQ8)
+        q8_groups = [g for g in self.groups() if isinstance(g, ConvGroupQ8)]
+        convs8 = [s for g in q8_groups if not g.nhwc
                   for j, s in enumerate(g.specs) if g.int8_read[j]]
         out = {"conv_group": len(convs),
                "conv_group_staged": sum(is_staged(d, s) for d, s, _ in convs),
                "conv_group_q8": len(convs8),
-               "conv_group_q8_staged": sum(map(is_staged_q8, convs8))}
+               "conv_group_q8_staged": sum(map(is_staged_q8, convs8)),
+               "conv_group_q8_tma": sum(g.n_tma8 for g in q8_groups)}
         if size is not None:
             out["conv_group_tma"] = sum(is_tma(*c) for c in convs)
         return out
@@ -305,11 +312,11 @@ def _leaky(x):
 
 
 def _run(group, inputs) -> list[torch.Tensor]:
-    """``conv_group``, or for a W8A8 group ``conv_group_q8`` on the inputs'
-    codes (each quantized with the group's input scale)."""
+    """``conv_group``, or for a W8A8 group ``conv_group_q8``, which
+    quantizes the inputs with the group's input scale (in a
+    channels-innermost group straight into its stripe)."""
     if isinstance(group, ConvGroupQ8):
-        return conv_group_q8(
-            [quantize_q8(t.contiguous(), group.in_scale) for t in inputs], group)
+        return conv_group_q8(inputs, group)
     return conv_group(inputs, group)
 
 

@@ -4,9 +4,11 @@ Times each conv of the bf16 serving forward's conv groups (FlowNetCV, B=8
 448x1024, seeded weights) with ``csrc/conv_group.cu`` as it is and with
 variants of it (every stride-1 conv on its staged kernel, as
 ``conv_group(..., staged=True)`` runs it; ``tools.conv_tma_ablation`` times
-the TMA kernel); with ``--q8``, each int8 conv of the W8A8 forward's groups
-(scales calibrated on the held-out seed-1 batch) with
-``csrc/conv_group_q8.cu`` instead.
+the TMA kernels); with ``--q8``, each int8 conv of the W8A8 forward's groups
+(scales calibrated on the held-out seed-1 batch) on the staged kernel of
+``csrc/conv_group_q8.cu`` instead, over an NCHW copy of each group's
+channels-innermost stripe (:func:`q8_conv_cases`, which also gives the int8
+TMA kernel's yardsticks).
 
 - ``--remove PART``: the staged kernel with one part taken out of its
   source text (``copy``: the per-tap window copy into the X slab;
@@ -31,10 +33,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.nn.functional as F
 
 from ocflow_torch.bench import (BATCH, HEIGHT, SEED, WIDTH, calibration_batch, cuda_ms,
                                 gpu_info, make_inputs)
@@ -42,6 +46,8 @@ from ocflow_torch.kernels import _build, conv_chain, conv_chain_q8
 from ocflow_torch.models import pwc_fast
 
 ITERS = 10
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor-core peak
 # the source text each removal takes out of the staged kernel's K loop (the
 # staged bf16 and int8 kernels name their parts alike)
 REMOVALS = {
@@ -110,20 +116,85 @@ def _conv_ms(inputs, group) -> list[float]:
     return per
 
 
-def _conv_ms_q8(inputs, group) -> list[float]:
-    """Device ms of each int8-read conv of the W8A8 ``group``, launched alone
-    (the bf16-read up-flow conv, on the bf16 kernel, left out)."""
-    s8, s16 = conv_chain_q8._stripes(inputs, group)
-    per = []
+def q8_conv_checks(st, group) -> list[dict]:
+    """Per int8-read conv of a channels-innermost W8A8 group, on the CUDA
+    stripes ``st`` (:func:`conv_chain_q8.stripes_q8`, blocks as a run left
+    them): ``run`` (the TMA kernel alone into the conv's block), ``out``
+    (that block) and ``plain`` (:func:`conv_chain_q8.plain_conv_q8` on the
+    same reads)."""
+    cases = []
     for j, s in enumerate(group.specs):
         if not group.int8_read[j]:
             continue
-        reads = [conv_chain_q8._block(inputs, s8, s16, group, r) for r in s.reads]
-        out = conv_chain_q8._block(inputs, s8, s16, group, group.n_inputs + j)
-        per.append(cuda_ms(lambda: conv_chain_q8.launch_conv_q8(  # noqa: B023
-            reads, group.packed[j], group.dq[j], group.bq[j], out, s,
-            "conv_ablation"), ITERS))
-    return per
+        blocks = [conv_chain_q8._block(st.inputs, st.s8, st.s16, group, r) for r in s.reads]
+        out = conv_chain_q8._block(st.inputs, st.s8, st.s16, group, group.n_inputs + j)
+        cases.append({
+            "j": j, "spec": s, "out": out,
+            "run": lambda j=j, out=out: conv_chain_q8.launch_conv_q8_tma(
+                st.s8, group, j, out, "q8 tma conv"),
+            "plain": lambda blocks=blocks, j=j: conv_chain_q8.plain_conv_q8(
+                torch.cat(blocks, 1), group, j),
+        })
+    return cases
+
+
+def q8_conv_cases(inputs, group) -> list[dict]:
+    """:func:`q8_conv_checks` on new stripes that one run of the group on
+    ``inputs`` filled, and per conv its yardsticks: ``staged`` (the staged
+    int8 kernel of ``csrc/conv_group_q8.cu`` on an NCHW copy), ``bf16_tma``
+    (the bf16 TMA kernel on the codes and weights as bf16), ``cudnn`` (one
+    bf16 ``F.conv2d`` over the concat of its reads), and the bound
+    (``bytes_ms``: reads, weights, the fp32 epilogue vectors and the output
+    moved once at 3.35 TB/s; ``ops_ms``: 2 x MACs at 1979 int8 TOP/s)."""
+    st = conv_chain_q8.stripes_q8(inputs, group)
+    conv_chain_q8.run_group_q8(st, group)
+    b, _, h, w = st.s8.shape
+    s8n = st.s8.contiguous()
+    s16n = s8n.bfloat16()
+    cases = q8_conv_checks(st, group)
+    for c in cases:
+        j, s, out = c["j"], c["spec"], c["out"]
+        ranges = conv_chain_q8._read_ranges(s, group.in_offsets, group.offsets,
+                                            group.in_channels, group.specs)
+        reads_n = [s8n[:, o:o + n] for o, n in ranges]
+        packed_n = conv_chain_q8.pack_weights_q8(group.weights[j].cpu(), True).to(s8n.device)
+        reads16 = [s16n[:, o:o + n] for o, n in ranges]
+        xcat = torch.cat(reads16, 1)
+        out_n = torch.empty((b, s.cout, h, w), dtype=out.dtype, device=s8n.device)
+        out16 = torch.empty((b, s.cout, h, w), dtype=torch.bfloat16, device=s8n.device)
+        w16 = group.weights[j].bfloat16()
+        packed16 = conv_chain.pack_weights(group.weights[j].float(), torch.bfloat16)
+        spec16, tma16 = dataclasses.replace(s, q8=False), {}
+
+        def bf16_tma(reads16=reads16, packed16=packed16, j=j, out16=out16, spec16=spec16,
+                     tma16=tma16):
+            before = conv_chain.conv_group.tma_launches
+            conv_chain.launch_conv(reads16, packed16, group.bq[j], out16, spec16,
+                                   "q8 yardstick bf16 tma", tma=tma16)
+            if conv_chain.conv_group.tma_launches != before + 1:
+                raise RuntimeError("the bf16 yardstick did not run the bf16 TMA kernel")
+
+        nbytes = (sum(t.numel() for t in reads_n) + group.weights[j].numel() + 8 * s.cout
+                  + out.numel() * out.element_size())
+        ops = 2 * group.weights[j].numel() * b * h * w
+        c.update({
+            "staged": lambda reads_n=reads_n, packed_n=packed_n, j=j, s=s, out_n=out_n:
+                conv_chain_q8.launch_conv_q8(reads_n, packed_n, group.dq[j], group.bq[j],
+                                             out_n, s, "q8 yardstick staged"),
+            "bf16_tma": bf16_tma,
+            "cudnn": lambda xcat=xcat, w16=w16: F.conv2d(xcat, w16, None, padding=1),
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": ops / INT8_OPS_PER_S * 1e3,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3,
+        })
+    return cases
+
+
+def _conv_ms_q8(inputs, group) -> list[float]:
+    """Device ms of the staged int8 kernel on each int8-read conv of the
+    W8A8 ``group`` (its channels-innermost stripe copied to NCHW), launched
+    alone (the bf16-read up-flow conv, on the bf16 kernel, left out)."""
+    return [cuda_ms(c["staged"], ITERS) for c in q8_conv_cases(inputs, group)]
 
 
 def main(argv=None) -> dict:

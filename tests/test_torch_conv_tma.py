@@ -319,7 +319,7 @@ def test_routing_of_the_main_paths():
     model = FlowNetCV(generator=torch.Generator().manual_seed(0))
     fw = pwc_fast.prepare(model, torch.bfloat16, "cpu")
     want = {"conv_group": 59, "conv_group_staged": 53, "conv_group_q8": 0,
-            "conv_group_q8_staged": 0}
+            "conv_group_q8_staged": 0, "conv_group_q8_tma": 0}
     assert fw.launch_counts() == want
     assert fw.launch_counts((8, 448, 1024)) == {**want, "conv_group_tma": 53}
     assert fw.launch_counts((8, 320, 1216))["conv_group_tma"] == 23

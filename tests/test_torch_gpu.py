@@ -373,8 +373,10 @@ def _q8_cases(rng):
 
 def test_conv_group_q8_kernel_matches_plain(cuda_device):
     """Codes and int8-read bf16 outputs equal; the bf16-read conv within
-    2^-6 of max|plain|. Every int8-read conv of stride 1 and dilation 1
-    runs the staged kernel."""
+    2^-6 of max|plain|. Every int8-read conv runs the int8 TMA kernel in a
+    channels-innermost group (``tma_launches``), ``conv_group_q8.cu``
+    otherwise: its staged kernel at stride 1 and dilation 1
+    (``staged_launches``)."""
     rng = np.random.default_rng(2)
     t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
     for inputs, weights, biases, specs, s_in, scales in _q8_cases(rng):
@@ -383,12 +385,14 @@ def test_conv_group_q8_kernel_matches_plain(cuda_device):
                                scales, cuda_device)
         xs = [quantize_q8(t(x).to(cuda_device), s_in) for x in inputs]
         conv_chain_q8.conv_group_q8.staged_launches = 0
+        conv_chain_q8.conv_group_q8.tma_launches = 0
         got = conv_chain_q8.conv_group_q8(xs, grp)
         ref = conv_chain_q8.conv_group_q8_plain(xs, grp)
         torch.cuda.synchronize()
-        assert conv_chain_q8.conv_group_q8.staged_launches == sum(
+        assert conv_chain_q8.conv_group_q8.staged_launches == (0 if grp.nhwc else sum(
             conv_chain_q8.is_staged_q8(s) for j, s in enumerate(specs)
-            if grp.int8_read[j])
+            if grp.int8_read[j]))
+        assert conv_chain_q8.conv_group_q8.tma_launches == grp.n_tma8
         emitted = [j for j, s in enumerate(specs) if s.emit]
         for j, g, r in zip(emitted, got, ref):
             assert g.dtype == r.dtype
@@ -396,6 +400,123 @@ def test_conv_group_q8_kernel_matches_plain(cuda_device):
                 assert torch.equal(g, r), (j, (g.float() - r.float()).abs().max())
             else:
                 _close(g, r, torch.bfloat16)
+
+
+def flownet_decoder_q8_case(rng, h, w, level2=False):
+    """A W8A8 FlowNetCV decoder at its channel widths (tests/
+    test_torch_q8_tma.py): the 81-channel cost volume, 32 features, 2 + 2
+    up-sampled channels; five growth convs (q8), the flow head (cout 2),
+    then the two phase convs (cout 8; one reads the head from the bf16
+    stripe) or, at level 2, context conv 1 (cout 128)."""
+    in_ch, growth = (81, 32, 2, 2), (128, 128, 96, 64, 32)
+    ins = [rng.normal(size=(2, c, h, w)) for c in in_ch]
+    specs = [ConvSpec(tuple(range(4 + j)), g, q8=True) for j, g in enumerate(growth)]
+    specs.append(ConvSpec(tuple(range(9)), 2, act=False, emit=True))
+    if level2:
+        specs.append(ConvSpec(tuple(range(9)), 128, emit=True))
+    else:
+        specs += [ConvSpec((9,), 8, act=False, emit=True),
+                  ConvSpec(tuple(range(9)), 8, act=False, emit=True)]
+    ch = [*in_ch, *growth, 2]
+    cin = [sum(ch[r] for r in s.reads) for s in specs]
+    return (ins, [rng.normal(size=(s.cout, c, 3, 3)) * (0.5 / np.sqrt(c))
+                  for s, c in zip(specs, cin)],
+            [rng.normal(size=(s.cout,)) * 0.1 for s in specs], specs, 3 / 127,
+            [6 / 127] * 5 + [None] * (len(specs) - 5))
+
+
+def _q8_tma_cases(rng):
+    yield mixed_q8_case(rng)
+    for h, w in ((7, 16), (5, 64), (3, 136)):
+        yield decoder_like_q8_case(rng, h, w)
+    # FlowNetCV's decoder levels at B=2 (rows and flat tiles, ragged edges;
+    # every split the router picks), KITTI's 19- and 76-wide levels
+    for h, w in ((7, 16), (14, 32), (28, 64), (56, 128), (5, 19), (20, 76)):
+        yield flownet_decoder_q8_case(rng, h, w)
+    yield flownet_decoder_q8_case(rng, 112, 256, level2=True)
+
+
+@pytest.mark.parametrize("split", [None, 1, 3, 16])
+def test_conv_group_q8_tma_kernel_matches_plain(cuda_device, split, monkeypatch):
+    """Every block of each channels-innermost case equal to the plain
+    version (codes and int8-read bf16 outputs bit for bit), with the
+    router's split K and with it forced (at most the conv's K chunks), all
+    int8-read convs on the TMA kernel; the inputs given as codes (copied
+    into the stripe) and as values (quantized into it)."""
+    if split is not None:
+        monkeypatch.setattr(conv_chain_q8, "tma_q8_split",
+                            lambda b, h, w, cout, nchunk: min(split, nchunk))
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    for inputs, weights, biases, specs, s_in, scales in _q8_tma_cases(rng):
+        specs = [dataclasses.replace(s, emit=True) for s in specs]
+        grp = prepare_group_q8([t(w) for w in weights], [t(b) for b in biases],
+                               specs, [x.shape[1] for x in inputs], s_in,
+                               scales, cuda_device)
+        assert grp.nhwc
+        floats = [t(x).to(cuda_device) for x in inputs]
+        xs = [quantize_q8(x, s_in) for x in floats]
+        ref = conv_chain_q8.conv_group_q8_plain(xs, grp)
+        for given in (xs, floats):
+            conv_chain_q8.conv_group_q8.tma_launches = 0
+            got = conv_chain_q8.conv_group_q8(given, grp)
+            torch.cuda.synchronize()
+            assert conv_chain_q8.conv_group_q8.tma_launches == grp.n_int8
+            for j, g, r in zip(range(len(specs)), got, ref, strict=True):
+                assert g.dtype == r.dtype
+                if grp.int8_read[j]:
+                    assert torch.equal(g, r), (j, tuple(xs[0].shape),
+                                               (g.float() - r.float()).abs().max())
+                else:
+                    _close(g, r, torch.bfloat16)
+
+
+def test_fast_apply_q8_replays_every_int8_call_bit_for_bit(cuda_device):
+    """The W8A8 forward at 2x448x1024: its 35 int8 convs on the TMA kernel;
+    every ``conv_group_q8`` call replayed with every block emitted equals
+    the plain version bit for bit (the bf16-read conv within 2^-6); once the
+    caching allocator hands the stripes back at the same addresses, a
+    forward encodes no tensor map and reuses the split-K workspace."""
+    model = FlowNetCV(generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    model = model.bfloat16()
+    x = torch.rand((2, 448, 1024, 6), generator=torch.Generator().manual_seed(1))
+    x = (x * 2 - 1).to(cuda_device, torch.bfloat16)
+    scales = calibrate_q8(model, x)
+    calls, saved = [], pwc_fast.conv_group_q8
+
+    def rec(*args):
+        calls.append(args)
+        return saved(*args)
+
+    rec.__dict__ = saved.__dict__
+    pwc_fast.conv_group_q8 = rec
+    try:
+        conv_chain_q8.conv_group_q8.tma_launches = 0
+        fast_apply(model, x, q8=scales)
+        torch.cuda.synchronize()
+    finally:
+        pwc_fast.conv_group_q8 = saved
+    assert conv_chain_q8.conv_group_q8.tma_launches == 35 and len(calls) == 5
+    for inputs, group in calls:
+        every = dataclasses.replace(group, specs=tuple(
+            dataclasses.replace(s, emit=True) for s in group.specs))
+        got = conv_chain_q8.conv_group_q8(inputs, every)
+        ref = conv_chain_q8.conv_group_q8_plain(inputs, every)
+        torch.cuda.synchronize()
+        for j, g, r in zip(range(len(every.specs)), got, ref, strict=True):
+            if group.int8_read[j]:
+                assert torch.equal(g, r), (tuple(inputs[0].shape), j)
+            else:
+                _close(g, r, torch.bfloat16)
+    fast_apply(model, x, q8=scales)  # the caching allocator's steady state
+    torch.cuda.synchronize()
+    encodes = conv_chain_q8.tma_map_encodes()
+    spaces = {k: v.data_ptr() for k, v in conv_chain_q8._WORKSPACE.items()}
+    assert spaces
+    fast_apply(model, x, q8=scales)
+    torch.cuda.synchronize()
+    assert conv_chain_q8.tma_map_encodes() == encodes
+    assert {k: v.data_ptr() for k, v in conv_chain_q8._WORKSPACE.items()} == spaces
 
 
 # (M, N, K) per dtype, on each one's tile grid (kernels.gemm.TILE: int8
@@ -441,8 +562,8 @@ def test_gemm_probe_matches_plain(cuda_device, dtype, case):
 
 def test_fast_apply_q8_on_gpu_goes_through_the_kernels(cuda_device):
     """W8A8 fast_apply on the card: one int8 launch per int8-read conv (all
-    35 on the staged kernel), one bf16 launch per other conv, finite flows
-    near the exact forward."""
+    35 of stride 1, all 35 on the TMA kernel, none on conv_group_q8.cu),
+    one bf16 launch per other conv, finite flows near the exact forward."""
     model = FlowNetCV(generator=torch.Generator().manual_seed(0)).to(cuda_device)
     x = torch.rand((2, 64, 128, 6), generator=torch.Generator().manual_seed(1))
     x = (x * 2 - 1).to(cuda_device)
@@ -450,13 +571,15 @@ def test_fast_apply_q8_on_gpu_goes_through_the_kernels(cuda_device):
     want = prepare(model, x.dtype, cuda_device, scales).launch_counts()
     cv_mod.cost_volume.launches = conv_chain.conv_group.launches = 0
     conv_chain_q8.conv_group_q8.launches = conv_chain_q8.conv_group_q8.staged_launches = 0
+    conv_chain_q8.conv_group_q8.tma_launches = 0
     fast = fast_apply(model, x, q8=scales)
     torch.cuda.synchronize()
     assert (cv_mod.cost_volume.launches, conv_chain.conv_group.launches,
             conv_chain_q8.conv_group_q8.launches,
-            conv_chain_q8.conv_group_q8.staged_launches) == (
+            conv_chain_q8.conv_group_q8.staged_launches,
+            conv_chain_q8.conv_group_q8.tma_launches) == (
                 5, want["conv_group"], want["conv_group_q8"],
-                want["conv_group_q8_staged"]) == (5, 24, 35, 35)
+                want["conv_group_q8_staged"], want["conv_group_q8_tma"]) == (5, 24, 0, 0, 35)
     with torch.no_grad():
         ref = model(x)
     for f, r in zip(fast, ref):

@@ -318,12 +318,13 @@ def test_prepare_repacks_for_new_scales():
         model, torch.float32, "cpu", sc)
     counts = prepare(model, torch.float32, "cpu", sc).launch_counts()
     # fp32 packing: only the W8A8 groups' bf16 up-flow convs are staged
-    # every int8 conv of the default W8A8 forward is stride 1, dilation 1
-    assert counts == {"conv_group": 24, "conv_group_staged": 4, "conv_group_q8": 35,
-                      "conv_group_q8_staged": 35}
+    # every int8 conv of the default W8A8 forward is stride 1, dilation 1,
+    # and on the int8 TMA kernel: none on csrc/conv_group_q8.cu
+    assert counts == {"conv_group": 24, "conv_group_staged": 4, "conv_group_q8": 0,
+                      "conv_group_q8_staged": 0, "conv_group_q8_tma": 35}
     counts = prepare(model, torch.bfloat16, "cpu", sc).launch_counts()
-    assert counts == {"conv_group": 24, "conv_group_staged": 18, "conv_group_q8": 35,
-                      "conv_group_q8_staged": 35}
+    assert counts == {"conv_group": 24, "conv_group_staged": 18, "conv_group_q8": 0,
+                      "conv_group_q8_staged": 0, "conv_group_q8_tma": 35}
 
 
 def test_cpu_tensors_never_launch_q8_or_gemm():

@@ -30,8 +30,8 @@ from ocflow_torch.kernels.conv_chain_q8 import (QMAX, STAGE_Q8_ALIGN, STAGE_Q8_C
                                                 STAGE_Q8_EXTRA, STAGE_Q8_PIXELS,
                                                 STAGE_Q8_PLANE_MAX, _block, _emitted,
                                                 conv_group_q8_plain, is_staged_q8,
-                                                prepare_group_q8, quantize_q8,
-                                                staged_tile_q8)
+                                                pack_weights_q8, prepare_group_q8,
+                                                quantize_q8, staged_tile_q8)
 from test_torch_gpu import decoder_like_q8_case, mixed_q8_case
 from test_torch_ops import share_cores  # noqa: F401  (autouse)
 
@@ -105,7 +105,8 @@ def _staged_group_q8(inputs, group):
         out = _block(inputs, s8, s16, group, group.n_inputs + j)
         conv = dict(stride=s.stride, padding=s.dilation, dilation=s.dilation)
         if group.int8_read[j] and is_staged_q8(s):
-            hits = _staged_conv_q8(merge_segments(reads), group.packed[j],
+            packed = pack_weights_q8(group.weights[j], True)  # the staged kernel's packing
+            hits = _staged_conv_q8(merge_segments(reads), packed,
                                    group.dq[j], group.bq[j], out, s)
             assert bool((hits == 1).all()), f"conv {j}: pixels written {hits.unique()}"
         elif group.int8_read[j]:
