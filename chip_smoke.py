@@ -52,19 +52,27 @@ Phases (any failure raises and exits non-zero):
    smooth seeded frames, 448x1024, B=8): record every kernel call of one
    fp32 and one bf16 step (pair + loss + backward) and replay each against
    its plain version (cost-volume forward and backward, serving conv
-   groups, ``conv_group_diff`` forwards); hold the fused fp32 step against
+   groups, ``conv_group_diff`` forwards, and every launch of the bf16
+   step's ``conv_group_diff`` backward: each dX launch on
+   ``csrc/conv_group_tma.cu``'s adjoint epilogue and each dW launch on
+   ``csrc/conv_group_dw.cu``, at 2^-6 of max|plain| and replayed bit for
+   bit); hold the fused fp32 step against
    the eager fp32 step (loss, metrics, per-tensor gradients, parameters
    after Adam) beside what the gap is made of (each step's run-to-run
    spread, the eager step with deterministic cuDNN, the eager step with
    the fused run's occlusion mask held); bf16 vs fp32
    gradients; launches of one bf16 step (10 cost volumes, 5 backward, 31
    ``conv_group_diff`` conv launches, 72 conv launches in all, every one
-   of stride 1 on the TMA kernel) and of one with a W8A8 backward decode
+   of stride 1 on the TMA kernel; the backward's 30 dX and 31 dW launches,
+   no cuDNN VJP) and of one with a W8A8 backward decode
    (37 staged, all on the TMA kernel, 35 int8, all on the int8 TMA
    kernel);
    five bf16 Adam steps;
    the bf16 step end to end, and the new kernels' calls against plain,
-   bound and cuDNN;
+   bound and cuDNN; each ``conv_group_diff`` group's backward on the
+   host's clock and its device time queued behind a spin, beside the VJP
+   route, cuDNN's autograd over the concat, its dX and dW launches alone,
+   their plain versions and the bound;
 9. FlowNetC family serving (FlowNetC, OcclusionNetC, FlowOccNetC, seeded,
    their BatchNorm statistics perturbed from the seed, since the seeded
    init starts BatchNorm at the identity, B=8, 448x1024, fp32, eval mode):
@@ -86,7 +94,8 @@ Phases (any failure raises and exits non-zero):
    the CPU (1e-4) and its ms per sample; the device cache's bytes and
    dtypes; ``make_loaders`` + ``fit`` with the launches of one train step
    counted (10 cost volumes, 5 backward, 72 conv launches of which 31
-   ``conv_group_diff``, all staged, no int8) and of one eval step; the
+   ``conv_group_diff``, all staged, no int8; the backward's 30 dX and 31
+   dW launches) and of one eval step; the
    CSV's rows and finite losses; the PNG panels decoded with zlib and
    equal to the panels; the best checkpoint restored into a fresh model
    and Adam, bit for bit, and ``evaluate`` on it against the in-memory
@@ -440,11 +449,16 @@ FIT_CUTS = {"dataset_size": 44, "max_epochs": 2, "log_every_n_steps": 1,
 FIT_DATA_TOL = {"images": 1e-4, "flow": 1e-4}
 # a train step's launches (PERF.md §3): cost volume 10, its backward 5, 72
 # bf16 conv launches all staged (31 conv_group_diff + 41 of the backward
-# decode), no int8
+# decode), no int8; the conv_group_diff backward on the kernels: a dX
+# launch for each of a group's five growth blocks and one for its inputs
+# (5 groups: 30), a dW launch for each conv (31), no cuDNN VJP
 FIT_STEP_LAUNCHES = {"cost_volume": 10, "cost_volume_bwd": 5, "conv_group": 72,
                      "conv_group_diff": 31, "conv_group_q8": 0, "gemm_probe": 0,
                      "conv_group_staged": 72, "conv_group_q8_staged": 0,
-                     "conv_group_q8_tma": 0}
+                     "conv_group_q8_tma": 0, "conv_group_diff_dx": 30,
+                     "conv_group_diff_dw": 31, "conv_group_diff_vjp": 0}
+BWD_STEP_LAUNCHES = {k: FIT_STEP_LAUNCHES[k] for k in (
+    "conv_group_diff_dx", "conv_group_diff_dw", "conv_group_diff_vjp")}
 # evaluate on the restored state vs the in-memory state, per metric,
 # relative: the same weights; the range map's index_add_ adds with atomics
 FIT_EVAL_REL = 1e-6
@@ -529,7 +543,9 @@ def _cg_cost(inputs, group, outs):
 
 
 def _cg_bwd_cost(inputs, group, outs):
-    """Bytes and operations of a conv group's backward (B3's cuDNN conv
+    """Bytes and operations of a conv group's backward, whatever route runs
+    it (the dX and dW kernels of ``csrc/conv_group_tma.cu`` and
+    ``csrc/conv_group_dw.cu``, or the retained VJP route's cuDNN conv
     VJPs): every conv's dX and dW, each as many multiply-adds as its
     forward; the output cotangents, inputs and weights read once, dX and
     dW written once."""
@@ -647,6 +663,49 @@ def _check_float(kind, args, dtype, max_err, label=""):
     if not err <= tol:
         raise AssertionError(f"{kind} {shape} {dtype}: {err} > {tol}")
     max_err[kind] = max(max_err[kind], err)
+
+
+def _bwd_launch(kind, args):
+    """A recorded launch of ``conv_group_diff``'s backward kernels as
+    ``(run the kernel, run its plain version)`` on the same inputs, each
+    returning its outputs as a tuple (a dX launch into a new tensor)."""
+    from ocflow_torch.kernels import conv_chain
+
+    if kind == "conv_adjoint":
+        parts, gout, act, out, tma = args
+        return (lambda: (conv_chain.conv_adjoint(parts, gout, act, torch.empty_like(out), tma),),
+                lambda: (conv_chain.adjoint_plain(parts, gout, act, out.dtype),))
+    return lambda: conv_chain.conv_dw(*args), lambda: conv_chain.dw_plain(*args)
+
+
+def _check_bwd(kind, args, max_err, label=""):
+    """Replay one launch of ``conv_group_diff``'s backward kernels (bf16)
+    twice and its plain version once: a dX launch (``conv_adjoint``,
+    ``csrc/conv_group_tma.cu``'s adjoint epilogue) bit for bit the block the
+    step stored, a dW launch (``conv_dw``, ``csrc/conv_group_dw.cu``) its
+    own replay bit for bit; every output within 2^-6 of its max|plain|."""
+    run, plain = _bwd_launch(kind, args)
+    got, again, refs = run(), run(), plain()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    if kind == "conv_adjoint":
+        same = same and torch.equal(got[0], args[3])
+        what = f"dX over {sum(t.shape[1] for t in args[0][0][0])} channels"
+        shape = tuple(args[3].shape)
+    else:
+        what = f"dW, db over {sum(t.shape[1] for t in args[0])} read channels"
+        shape = tuple(args[1].shape)
+    err, scale = 0.0, 0.0
+    for gt, r in zip(got, refs):
+        e, sc = (gt.float() - r.float()).abs().max().item(), r.float().abs().max().item()
+        if not e <= KERNEL_TOL[torch.bfloat16] * max(sc, 1e-30):
+            raise AssertionError(f"conv_group_diff backward {what} {shape}: {e} > 2^-6 of {sc}")
+        err, scale = max(err, e), max(scale, sc)
+    print(f"check {label}conv_group_diff_bwd {what} {shape}: max_abs_err {err:.3e} max|plain| "
+          f"{scale:.3e} (2^-6 of max|plain| each); replayed bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"conv_group_diff backward {what} {shape}: replay differs")
+    max_err["conv_group_diff_bwd"] = max(max_err["conv_group_diff_bwd"], err)
 
 
 def _check_q8(args, max_err, label=""):
@@ -956,6 +1015,12 @@ def _counters():
 STAGED = ("conv_group", "conv_group_q8")  # wrappers that count staged launches too
 
 
+# conv_group_diff's backward: its counters, by the names the train paths'
+# launch dicts give them
+BWD_COUNTERS = {"conv_group_diff_dx": "dx_launches", "conv_group_diff_dw": "dw_launches",
+                "conv_group_diff_vjp": "vjp_calls"}
+
+
 def _zero_counts():
     counters = _counters()
     for fn in counters.values():
@@ -963,36 +1028,44 @@ def _zero_counts():
     for k in STAGED:
         counters[k].staged_launches = 0
         counters[k].tma_launches = 0
+    for attr in BWD_COUNTERS.values():
+        setattr(counters["conv_group_diff"], attr, 0)
 
 
-def _read_counts():
+def _read_counts(bwd=False):
     """Every launch counter now, with ``conv_group_staged`` (the bf16 conv
     launches of stride 1 and dilation 1: the staged or TMA kernel),
     ``conv_group_q8_staged`` (those of ``conv_group_q8``, the launches of
     ``csrc/conv_group_q8.cu``, on its staged kernel) and
     ``conv_group_q8_tma`` (the int8 launches on
-    ``csrc/conv_group_q8_tma.cu``)."""
+    ``csrc/conv_group_q8_tma.cu``); ``bwd``: also ``conv_group_diff``'s
+    backward (:data:`BWD_COUNTERS`: its dX launches on
+    ``csrc/conv_group_tma.cu``, its dW launches on ``csrc/conv_group_dw.cu``,
+    the VJP route's cuDNN VJPs)."""
     counters = _counters()
     counts = {k: fn.launches for k, fn in counters.items()}
     counts.update({f"{k}_staged": counters[k].staged_launches for k in STAGED})
     counts["conv_group_q8_tma"] = counters["conv_group_q8"].tma_launches
+    if bwd:
+        counts.update({k: getattr(counters["conv_group_diff"], attr)
+                       for k, attr in BWD_COUNTERS.items()})
     return counts
 
 
-def _count_launches(run):
+def _count_launches(run, bwd=False):
     """``run()`` with every launch counter zeroed just before; the counts
-    just after, and ``run()``'s result."""
+    just after (``bwd``: :func:`_read_counts`'), and ``run()``'s result."""
     _zero_counts()
     out = run()
     torch.cuda.synchronize()
-    return _read_counts(), out
+    return _read_counts(bwd), out
 
 
-def _count_launches_tma(run):
+def _count_launches_tma(run, bwd=False):
     """:func:`_count_launches` with ``conv_group_tma`` too: the conv
     launches on the TMA kernel (``csrc/conv_group_tma.cu``), a part of
     ``conv_group_staged``."""
-    counts, out = _count_launches(run)
+    counts, out = _count_launches(run, bwd)
     counts["conv_group_tma"] = _counters()["conv_group"].tma_launches
     return counts, out
 
@@ -1032,6 +1105,7 @@ def _train_phase(card, max_err, per, add, failures):
     from ocflow_torch.models import pwc_fast
     from ocflow_torch.models.pwc_net import DECODER_LEVELS, GROWTH
     from ocflow_torch.tools import train_profile
+    from ocflow_torch.tools.spike_int8 import queued_ms
     from ocflow_torch.train import (TrainState, create_train_state,
                                     make_unsupervised_flow_step)
 
@@ -1041,8 +1115,10 @@ def _train_phase(card, max_err, per, add, failures):
     state0, _, batch = make_train_inputs(BATCH, HEIGHT, WIDTH, dev, SEED, hp_b)
     model0, lr = state0.model, hp_b["learning_rate"]
     targets = [(pwc_fast, "cost_volume"), (pwc_fast, "conv_group"),
-               (pwc_fast, "conv_group_diff"), (cv_mod, "cost_volume_backward")]
+               (pwc_fast, "conv_group_diff"), (cv_mod, "cost_volume_backward"),
+               (conv_chain, "conv_adjoint"), (conv_chain, "conv_dw")]
     names = {"cost_volume_backward": "cost_volume_bwd"}
+    bwd_kinds = ("conv_adjoint", "conv_dw")
 
     def one_step(hp, record=False, mask=None, dtype=torch.float32):
         """One Adam step on a copy of the seed model: metrics, gradients,
@@ -1077,11 +1153,17 @@ def _train_phase(card, max_err, per, add, failures):
     # one bf16 step, kernel vs plain
     torch.cuda.reset_peak_memory_stats()
     m32, g32, p32, calls32, occ32 = one_step(hp_f, record=True)
+    if any(kind in bwd_kinds for kind, _ in calls32):
+        raise AssertionError("the fp32 step's conv_group_diff backward left the VJP route")
     for kind, args in calls32:
         _check_float(names.get(kind, kind), args, torch.float32, max_err, "train ")
     mb, gb, _, calls_b, _ = one_step(hp_b, record=True)
     for kind, args in calls_b:
-        _check_float(names.get(kind, kind), args, torch.bfloat16, max_err, "train ")
+        if kind in bwd_kinds:
+            _check_bwd(kind, args, max_err, "train ")
+        else:
+            _check_float(names.get(kind, kind), args, torch.bfloat16, max_err, "train ")
+    calls_b = [(kind, args) for kind, args in calls_b if kind not in bwd_kinds]
     del calls32
     print(f"train: peak device memory over the fp32 and bf16 steps "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1167,7 +1249,7 @@ def _train_phase(card, max_err, per, add, failures):
                            for g in fw.encoder for s in g.specs)
         n_enc_tma = sum(conv_chain.is_tma(g.dtype, s, shape[1:])
                         for g, shape in zip(fw.encoder, fw.group_shapes(size)) for s in g.specs)
-        launches[path], _ = _count_launches_tma(lambda: step(state, batch))
+        launches[path], _ = _count_launches_tma(lambda: step(state, batch), bwd=True)
         want = fw.launch_counts(size)
         # every conv_group_diff conv reads the cost volume: all on the TMA kernel
         expect = {"cost_volume": 10, "cost_volume_bwd": 5,
@@ -1177,7 +1259,8 @@ def _train_phase(card, max_err, per, add, failures):
                   "conv_group_diff": n_diff,
                   "conv_group_q8": want["conv_group_q8"],
                   "conv_group_q8_staged": want["conv_group_q8_staged"],
-                  "conv_group_q8_tma": want["conv_group_q8_tma"], "gemm_probe": 0}
+                  "conv_group_q8_tma": want["conv_group_q8_tma"], "gemm_probe": 0,
+                  **BWD_STEP_LAUNCHES}
         print(f"main path {path} (one bf16 step) launches: {launches[path]} "
               f"(expected {expect})")
         if launches[path] != expect:
@@ -1254,39 +1337,86 @@ def _train_phase(card, max_err, per, add, failures):
             leaves = [t.clone().requires_grad_() for t in (*inputs, *weights, *biases)]
             n_in, n = len(inputs), len(specs)
             split = (leaves[:n_in], leaves[n_in:n_in + n], leaves[n_in + n:])
+
+            def grad(outputs):
+                return torch.autograd.grad(outputs, leaves, gouts, retain_graph=True)
+
+            # the backward on the kernels: the host's clock (events around
+            # calls issued back to back: host-paced), and its device time
+            # queued behind a spin; the VJP route and cuDNN's autograd over
+            # the concat on the host's clock
             acts = conv_chain.conv_group_diff(*split, specs)
-            bwd_ms = cuda_ms(lambda: torch.autograd.grad(acts, leaves, gouts,
-                                                         retain_graph=True), 3)
+            bwd_ms = cuda_ms(lambda: grad(acts), 3)
+            bwd_q, bwd_us = queued_ms(lambda: grad(acts), 3)
+            vjp_acts = conv_chain.conv_group_diff(*split, specs, vjp=True)
+            vjp_ms = cuda_ms(lambda: grad(vjp_acts), 3)
             ref = _eager_chain(*split, specs)
-            lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(ref, leaves, gouts,
-                                                             retain_graph=True), 3)
-            del acts, ref, leaves, gouts
+            lib_bwd_ms = cuda_ms(lambda: grad(ref), 3)
+            # its dX and dW launches alone (device time queued) and their
+            # plain versions; the adjoint packing its forward adds
+            bcalls = _record([(conv_chain, "conv_adjoint"), (conv_chain, "conv_dw")],
+                             lambda: grad(acts))
+            b_k = {"conv_adjoint": 0.0, "conv_dw": 0.0}
+            b_n = {k: sum(bk == k for bk, _ in bcalls) for k in b_k}
+            b_p = 0.0
+            for bkind, bargs in bcalls:
+                run, plain = _bwd_launch(bkind, bargs)
+                b_k[bkind] += queued_ms(run, 10)[0]
+                b_p += cuda_ms(plain, 1)
+            chans = [x.shape[1] for x in inputs] + [s.cout for s in group.specs]
+            adj_ms = cuda_ms(lambda: conv_chain.adjoint_plan(  # noqa: B023
+                group, chans, [True] * n_in, True), 5)  # noqa: B023
+            del acts, vjp_acts, ref, leaves, gouts, bcalls
             nbytes, flops = _cg_cost(inputs, group, outs)
             bound, by = add("conv_group_diff", k_ms, p_ms, nbytes, flops,
                             PEAK_FLOPS[torch.bfloat16], lib_ms)
             b_bytes, b_ops = _cg_bwd_cost(inputs, group, outs)
-            b_bound = max(b_bytes / HBM_BYTES_PER_S, b_ops / PEAK_FLOPS[torch.bfloat16]) * 1e3
+            b_bytes_ms = b_bytes / HBM_BYTES_PER_S * 1e3
+            b_ops_ms = b_ops / PEAK_FLOPS[torch.bfloat16] * 1e3
+            b_bound = max(b_bytes_ms, b_ops_ms)
             per["conv_group_diff"]["bwd_ms"] += bwd_ms
             per["conv_group_diff"]["library_bwd_ms"] += lib_bwd_ms
             per["conv_group_diff"]["bwd_bound_ms"] += b_bound
+            q = per["conv_group_diff_bwd"]
+            for key, v in (("ms", b_k["conv_adjoint"] + b_k["conv_dw"]),
+                           ("dx_ms", b_k["conv_adjoint"]), ("dw_ms", b_k["conv_dw"]),
+                           ("plain_ms", b_p), ("bytes_ms", b_bytes_ms), ("ops_ms", b_ops_ms),
+                           ("bound_ms", b_bound), ("library_ms", lib_bwd_ms),
+                           ("host_ms", bwd_ms), ("queued_ms", bwd_q), ("vjp_ms", vjp_ms),
+                           ("adjoint_pack_ms", adj_ms)):
+                q[key] = q.get(key, 0.0) + v
             print(f"time conv_group_diff bf16 {tuple(inputs[0].shape)} ({n} convs): "
                   f"forward kernel {k_ms:.4f} ms ({_rate(flops, k_ms, bound)}; the kernels "
                   f"alone {t_ms:.4f} ms, staged kernel (PR 5) {s_ms:.4f} ms, TMA packing "
                   f"{prep[1] - prep[0]:.4f} ms of its prepare_group {prep[1]:.4f} ms), "
                   f"plain {p_ms:.4f} ms, library "
                   f"(cuDNN over the concat) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
-                  f"{nbytes} B, {flops} flop); backward (cuDNN conv VJPs) {bwd_ms:.4f} ms, "
-                  f"library autograd {lib_bwd_ms:.4f} ms, backward bound {b_bound:.4f} ms "
-                  f"({b_bytes} B, {b_ops} flop: dX and dW) [{card}]")
+                  f"{nbytes} B, {flops} flop) [{card}]")
+            print(f"time conv_group_diff_bwd bf16 {tuple(inputs[0].shape)} ({n} convs): "
+                  f"backward on the kernels {bwd_ms:.4f} ms on the host's clock, "
+                  f"{bwd_q:.4f} ms of device time queued ({bwd_us / 1e3:.4f} ms to issue); "
+                  f"its {b_n['conv_adjoint']} dX launches alone {b_k['conv_adjoint']:.4f} ms, "
+                  f"{b_n['conv_dw']} dW launches alone {b_k['conv_dw']:.4f} ms (queued; "
+                  f"{100 * b_bound / max(b_k['conv_adjoint'] + b_k['conv_dw'], 1e-9):.2f}% of "
+                  f"bound), their plain versions {b_p:.4f} ms; adjoint packing in the forward "
+                  f"{adj_ms:.4f} ms; VJP route (cuDNN conv VJPs) {vjp_ms:.4f} ms, library "
+                  f"autograd (cuDNN over the concat) {lib_bwd_ms:.4f} ms; bound "
+                  f"{b_bound:.4f} ms ({b_bytes} B, {b_ops} flop: dX and dW) [{card}]")
     p = per["conv_group_diff"]
     print(f"time conv_group_diff sum over the bf16 step's groups: forward kernel "
           f"{p['ms']:.4f} ms (the kernels alone {p['tma_ms']:.4f} ms, "
           f"{100 * p['bound_ms'] / p['tma_ms']:.2f}% of bound; staged kernel (PR 5) "
           f"{p['staged_ms']:.4f} ms; TMA packing {p['pack_ms']:.4f} ms a step), cuDNN over "
           f"the concat {p['library_ms']:.4f} ms, "
-          f"bound {p['bound_ms']:.4f} ms; backward {p['bwd_ms']:.4f} ms, "
-          f"bound {p['bwd_bound_ms']:.4f} ms ({100 * p['bwd_bound_ms'] / p['bwd_ms']:.2f}% of "
-          f"it), library autograd {p['library_bwd_ms']:.4f} ms [{card}]")
+          f"bound {p['bound_ms']:.4f} ms [{card}]")
+    q = per["conv_group_diff_bwd"]
+    print(f"time conv_group_diff_bwd sum over the bf16 step's groups: backward on the "
+          f"kernels {q['host_ms']:.4f} ms on the host's clock, {q['queued_ms']:.4f} ms of "
+          f"device time queued ({100 * q['bound_ms'] / q['queued_ms']:.2f}% of bound); dX "
+          f"launches alone {q['dx_ms']:.4f} ms, dW launches alone {q['dw_ms']:.4f} ms; "
+          f"plain versions {q['plain_ms']:.4f} ms; adjoint packing {q['adjoint_pack_ms']:.4f} "
+          f"ms a step; VJP route {q['vjp_ms']:.4f} ms; library autograd "
+          f"{q['library_ms']:.4f} ms; bound {q['bound_ms']:.4f} ms [{card}]")
     return launches
 
 
@@ -1598,13 +1728,13 @@ def _fit_phase(card):
         launches = {}
 
         def train_wrapped(st, batch):
-            before = _read_counts() if st.step == count_step else None
+            before = _read_counts(bwd=True) if st.step == count_step else None
             st, metrics = train_step(st, batch)
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             rec["ends"].append(ev)
             if before is not None:  # the counters count on the host, at each launch
-                after = _read_counts()
+                after = _read_counts(bwd=True)
                 launches["fit"] = {k: after[k] - before[k] for k in after}
             return st, metrics
 
@@ -2246,9 +2376,9 @@ def _files_phase(card, max_err, then=None):
                 rec["calls"] = _record(step_targets, lambda: box.update(
                     r=train_step(st, batch)))
                 return box["r"]
-            before = _read_counts()
+            before = _read_counts(bwd=True)
             r = train_step(st, batch)
-            after = _read_counts()
+            after = _read_counts(bwd=True)
             rec["launches"] = {k: after[k] - before[k] for k in after}
             return r
 
@@ -5306,9 +5436,9 @@ def _dp_train(mesh, dev, failures, max_err):
                          "dp train rank 1 ")
         out["replayed_bf16"] = len(calls)
     del calls
-    counts, _ = _count_launches(lambda: step(state, block))
+    counts, _ = _count_launches(lambda: step(state, block), bwd=True)
     want = {"cost_volume": 10, "cost_volume_bwd": 5, "conv_group": 72, "conv_group_staged": 72,
-            "conv_group_diff": 31, "conv_group_q8": 0}
+            "conv_group_diff": 31, "conv_group_q8": 0, **BWD_STEP_LAUNCHES}
     out["launches"] = counts
     if {k: counts[k] for k in want} != want:
         failures.append(f"dp train bf16 launches {counts}, want {want}")
@@ -6147,7 +6277,7 @@ def main() -> int:
     max_err = {"cost_volume": 0.0, "conv_group": 0.0, "conv_group_q8": 0.0,
                "cost_volume_bwd": 0.0, "conv_group_diff": 0.0, "cost_volume_general": 0.0,
                "cost_volume_bwd_general": 0.0, "conv_group_tma": 0.0,
-               "conv_group_q8_tma": 0.0}
+               "conv_group_q8_tma": 0.0, "conv_group_diff_bwd": 0.0}
     serving = [(pwc_fast, n) for n in ("cost_volume", "conv_group", "conv_group_q8")]
 
     # 3. every kernel call of the bf16/fp32 path, kernel vs plain
@@ -6303,6 +6433,7 @@ def main() -> int:
                      "conv_group_q8_tma")}
     per["conv_group_diff"].update(bwd_ms=0.0, library_bwd_ms=0.0, bwd_bound_ms=0.0,
                                   staged_ms=0.0, tma_ms=0.0, pack_ms=0.0)
+    per["conv_group_diff_bwd"] = {}
     per["conv_group"]["staged_ms"] = 0.0
     per["conv_group_tma"]["staged_ms"] = 0.0
     per["conv_group_q8_tma"].update(staged_ms=0.0, bf16_tma_ms=0.0, cudnn_ms=0.0)
@@ -6480,7 +6611,8 @@ def main() -> int:
         # conv_group's), each timed alone
         "conv_group_tma": ("ocflow_torch/csrc/conv_group_tma.cu",
                            "ocflow_tpu/ops/pallas/conv_chain_kernel.py:463", "bf16"),
-        "conv_group_diff": ("ocflow_torch/csrc/conv_group.cu",
+        # the forward: all 31 convs of the bf16 step on the TMA kernel
+        "conv_group_diff": ("ocflow_torch/csrc/conv_group_tma.cu",
                             "ocflow_tpu/ops/pallas/conv_chain_kernel.py:1198", "train"),
         # the opt-in forward's encoder and context groups only
         "conv_group_q8": ("ocflow_torch/csrc/conv_group_q8.cu",
@@ -6493,6 +6625,24 @@ def main() -> int:
     }
     for p in per.values():
         p["bound_by"] = "bytes" if p["bytes_ms"] >= p["ops_ms"] else "operations"
+    # conv_group_diff's backward on its two kernels, over the bf16 step's
+    # groups: launches of the train path, the kernels' device time queued,
+    # library = cuDNN's autograd over the concat (host's clock); beside
+    # them the whole backward on the host's clock and queued, the VJP route
+    q, tr = per.pop("conv_group_diff_bwd"), launches["train"]
+    bwd_entry = {
+        "name": "conv_group_diff_bwd", "route": "cuda",
+        "source": "ocflow_torch/csrc/conv_group_dw.cu",
+        "sources": ["ocflow_torch/csrc/conv_group_tma.cu", "ocflow_torch/csrc/conv_group_dw.cu"],
+        "replaces": "ocflow_tpu/ops/pallas/conv_chain_kernel.py:1258", "path": "train",
+        "launches": tr["conv_group_diff_dx"] + tr["conv_group_diff_dw"],
+        "launches_dx": tr["conv_group_diff_dx"], "launches_dw": tr["conv_group_diff_dw"],
+        "vjp_calls": tr["conv_group_diff_vjp"],
+        "max_abs_err": max_err["conv_group_diff_bwd"], "ms": q["ms"],
+        "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],
+        "library_ms": q["library_ms"],
+        **{k: q[k] for k in ("dx_ms", "dw_ms", "host_ms", "queued_ms", "vjp_ms",
+                             "adjoint_pack_ms")}}
     per["gemm_probe"] = gemm_res["int8"]
     max_err["gemm_probe"] = gemm_res["int8"]["max_abs_err"]
     kernels = []
@@ -6538,6 +6688,7 @@ def main() -> int:
             # summed
             kernels[-1].update({f"{k}_joint_bf16": v
                                 for k, v in p16["joint"]["per_call"][name].items()})
+    kernels.append(bwd_entry)
     # the general kernels (d > 10): their path is a FlowNetC built with
     # displacement 12 (forward and input gradient); times at its fp32
     # 8x256x56x128 call; the other d and shapes beside them

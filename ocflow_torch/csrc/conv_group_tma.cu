@@ -10,6 +10,14 @@
 // convs of a group (stride 2, dilated, fp32, rows of other widths) stay on
 // conv_group.cu.
 //
+// Its adjoint epilogue (mode 1) runs the dX half of `conv_group_diff`'s
+// backward (the XLA adjoint `_diff_bwd`, conv_chain_kernel.py:1258): the
+// cotangent of a block is a conv of the gradient stripe segment of the
+// convs that read it, with their weights flipped in space and in and out
+// channels swapped (kernels/conv_chain.py:adjoint_packed), plus the
+// block's own output cotangent, times LeakyReLU' of its saved activation;
+// fp32 sums, one rounding at the store (conv_group_dw.cu takes dW and db).
+//
 // Bound on the H100: operations for the decoders' wide convs (K = 9 Cin up
 // to ~5,000 against 32-128 couts: 0.85 ms of tensor-core time for the
 // 448x1024 level-2 group at 989 TFLOP/s), bytes for the narrow encoder
@@ -117,8 +125,13 @@ struct Args {
   int nchunk, H, W, tc, tiles_x, tiles_y, ntn, split, units, cout, act;
   long long out_bstride;
   __nv_bfloat16* out;
-  const float* bias;
+  const float* bias;    // null: the adjoint epilogue
   float* ws;  // split > 1: [split][tiles * ntn][NT][TILE] fp32
+  // the adjoint epilogue: out (+)= gout, x LeakyReLU'(actv) (either null:
+  // none); [B, cout, H, W] at their batch strides
+  const __nv_bfloat16* gout;
+  const __nv_bfloat16* actv;
+  long long gout_bstride, act_bstride;
 };
 
 // A stage's layout for tile columns tc: the windows of dx = 0, 1, 2 (boxes
@@ -215,47 +228,15 @@ __device__ __forceinline__ float epilogue(float v, float bias, int act) {
   return act && v < 0.f ? 0.1f * v : v;
 }
 
-// byte offset of a swizzled box's logical offset `off`: the 16-byte chunk
-// bits XOR the 128-byte line bits, `mask` = 7, 3, 1 for the 128-, 64-,
-// 32-byte swizzle (the box starts on 1 KB)
-__device__ __forceinline__ int swizzled(int off, int mask) {
-  return off ^ (((off >> 7) & mask) << 4);
-}
-
-// The stage's dx = 1 window `a + box` (16 x (R + 2) lines of C pixels,
-// swizzled) holds columns x0 .. x0 + C - 1; write the windows of dx = 0
-// (columns x0 - 1 .., each line's first pixel from the left strip) at `a`
-// and dx = 2 (x0 + 1 .., the last from the right strip) at `a + 2 box`.
-// Shift thread t of SHIFTERS takes whole lines: it loads a line's C / 8
-// chunks, then stores both shifted lines.
-__device__ __forceinline__ void shift_lines(unsigned char* a, int box,
-                                           const unsigned char* strips, int strip, int lines,
-                                           int tc, int t) {
-  const int lg = tc == 64 ? 3 : tc == 32 ? 2 : 1, mask = (1 << lg) - 1;
-  const unsigned char* src = a + box;
-  for (int line = t; line < lines; line += SHIFTERS) {
-    const int base = line << (lg + 4);
-    uint4 c[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (j <= mask) c[j] = *reinterpret_cast<const uint4*>(src + swizzled(base + 16 * j, mask));
-    const unsigned left = *reinterpret_cast<const unsigned*>(strips + 16 * line + 12);
-    const unsigned right = *reinterpret_cast<const unsigned*>(strips + strip + 16 * line);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (j > mask) break;
-      const uint4 v = c[j];
-      const unsigned w0 = j == 0 ? left : c[j > 0 ? j - 1 : 0].w;
-      const unsigned w2 = j == mask ? right : c[j < 7 ? j + 1 : 7].x;
-      const int off = swizzled(base + 16 * j, mask);
-      *reinterpret_cast<uint4*>(a + off) =
-          make_uint4(__byte_perm(w0, v.x, 0x5432), __byte_perm(v.x, v.y, 0x5432),
-                     __byte_perm(v.y, v.z, 0x5432), __byte_perm(v.z, v.w, 0x5432));
-      *reinterpret_cast<uint4*>(a + 2 * box + off) =
-          make_uint4(__byte_perm(v.x, v.y, 0x5432), __byte_perm(v.y, v.z, 0x5432),
-                     __byte_perm(v.z, v.w, 0x5432), __byte_perm(v.w, w2, 0x5432));
-    }
-  }
+// the sum v of output (b, co, pixel p = y W + x) finished: bias and
+// LeakyReLU, or (adjoint) + gout, x 0.1 where the saved activation is
+// negative
+__device__ __forceinline__ float finish(const Args& a, float v, int b, int co, long long p) {
+  if (a.bias != nullptr) return epilogue(v, a.bias[co], a.act);
+  const long long at = (long long)co * a.H * a.W + p;
+  if (a.gout != nullptr) v += __bfloat162float(a.gout[b * a.gout_bstride + at]);
+  if (a.actv != nullptr && __bfloat162float(a.actv[b * a.act_bstride + at]) < 0.f) v *= 0.1f;
+  return v;
 }
 
 template <int NT>
@@ -314,7 +295,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int s = it % STAGES;
           mbar_wait(&full[s], (it / STAGES) & 1);
           unsigned char* sa = smem + s * STAGE_MAX;
-          shift_lines(sa, lay.box, sa + lay.strips, lay.strip, KC * rows, tc, t);
+          shift_lines<SHIFTERS>(sa, lay.box, sa + lay.strips, lay.strip, KC * rows, tc, t);
           fence_proxy_async();
           mbar_arrive(&ready[s]);
         }
@@ -393,7 +374,7 @@ __global__ void __launch_bounds__(THREADS, 1)
               const int co = w.nt * NT + 8 * j + 2 * (lane % 4) + e;
               if (co < args.cout)
                 o[co * hw] = __float2bfloat16(
-                    epilogue(d[i][4 * j + 2 * h + e], args.bias[co], args.act));
+                    finish(args, d[i][4 * j + 2 * h + e], w.b, co, (long long)y * args.W + x));
             }
         }
       }
@@ -415,8 +396,9 @@ __global__ void __launch_bounds__(256)
   if (co >= args.cout || y >= args.H || x >= args.W) return;
   float v = args.ws[idx];
   for (int sp = 1; sp < args.split; ++sp) v += args.ws[sp * per_split + idx];
-  args.out[w.b * args.out_bstride + (long long)co * args.H * args.W + (long long)y * args.W +
-           x] = __float2bfloat16(epilogue(v, args.bias[co], args.act));
+  const long long p = (long long)y * args.W + x;
+  args.out[w.b * args.out_bstride + (long long)co * args.H * args.W + p] =
+      __float2bfloat16(finish(args, v, w.b, co, p));
 }
 
 // channel segment s: (W, C_seg, H, B) with the plane, row and batch
@@ -490,13 +472,18 @@ int launch(const Maps& maps, const Args& args, cudaStream_t s) {
 // couts (96 padded to 128; kernels/conv_chain.py:pack_tma_weights). nt:
 // couts per tile (16, 32, 64, 96, 128), ntn tiles. tc: tile columns (16, 32, 64).
 // split > 1 splits K over blocks, with `ws` an fp32 workspace of split *
-// B * tiles * ntn * nt * 256 floats. bias: fp32 [cout].
+// B * tiles * ntn * nt * 256 floats. bias: fp32 [cout], or null for the
+// adjoint epilogue: gout (bf16, or null) added, then x 0.1 where actv
+// (bf16, or null) is negative, both [B, cout, H, W] channel contiguous at
+// batch strides gout_bstride and act_bstride (act unused).
 // Returns the first CUDA error of the encodes and the launches.
 extern "C" int ocf_conv3x3_tma(int nseg, void** ptrs, const long long* bstrides,
                                const int* chans, int B, int H, int W, const int* chunks,
                                int nchunk, const void* w, long long wrows, int nt, int ntn,
                                const void* bias, void* out, long long out_bstride, int cout,
-                               int act, int tc, int split, void* ws, void* stream) {
+                               int act, int tc, int split, void* ws, const void* gout,
+                               long long gout_bstride, const void* actv,
+                               long long act_bstride, void* stream) {
   if (nseg < 1 || nseg > MAXSEG || nchunk < 1 || nchunk > MAXCHUNK || B < 1 || H < 1 ||
       W < 8 || W % 8 || (tc != 16 && tc != 32 && tc != 64) || ntn < 1 || cout < 1 ||
       cout > nt * ntn || wrows != (long long)ntn * nchunk * 9 * KC || split < 1 ||
@@ -539,6 +526,10 @@ extern "C" int ocf_conv3x3_tma(int nseg, void** ptrs, const long long* bstrides,
   args.out = static_cast<__nv_bfloat16*>(out);
   args.bias = static_cast<const float*>(bias);
   args.ws = static_cast<float*>(ws);
+  args.gout = static_cast<const __nv_bfloat16*>(gout);
+  args.actv = static_cast<const __nv_bfloat16*>(actv);
+  args.gout_bstride = gout_bstride;
+  args.act_bstride = act_bstride;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nt) {
     case 16: return launch<16>(maps, args, s);

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA / wgmma kernels
-// (gemm_probe.cu, conv_group_tma.cu, conv_group_q8_tma.cu): mbarriers, TMA
-// and bulk loads, wgmma shared-memory descriptors and fences, setmaxnreg,
+// (gemm_probe.cu, conv_group_tma.cu, conv_group_q8_tma.cu,
+// conv_group_dw.cu): mbarriers, TMA and bulk loads, wgmma shared-memory
+// descriptors and fences, setmaxnreg, the shift of a swizzled window by
+// one pixel,
 // the run-time lookup of cuTensorMapEncodeTiled and a cache of encoded
 // tensor maps.
 #pragma once
@@ -144,6 +146,53 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+// byte offset of a swizzled box's logical offset `off`: the 16-byte chunk
+// bits XOR the 128-byte line bits, `mask` = 7, 3, 1 for the 128-, 64-,
+// 32-byte swizzle (the box starts on 1 KB)
+__device__ __forceinline__ int swizzled(int off, int mask) {
+  return off ^ (((off >> 7) & mask) << 4);
+}
+
+// The stage's dx = 1 window `a + box` (16 x (R + 2) lines of C pixels,
+// swizzled) holds columns x0 .. x0 + C - 1; write the windows of dx = 0
+// (columns x0 - 1 .., each line's first pixel from the left strip) at `a`
+// and dx = 2 (x0 + 1 .., the last from the right strip) at `a + 2 box`.
+// Shift thread t of SHIFTERS takes whole lines: it loads a line's C / 8
+// chunks, then stores both shifted lines. The strips: boxes of 8 pixels
+// of the same lines, unswizzled, left at `strips`, right at `strips +
+// strip`. (conv_group_tma.cu: a line is 16 channels' pixels of one row;
+// conv_group_dw.cu: the same at 64 pixels.)
+template <int SHIFTERS>
+__device__ __forceinline__ void shift_lines(unsigned char* a, int box,
+                                           const unsigned char* strips, int strip, int lines,
+                                           int tc, int t) {
+  const int lg = tc == 64 ? 3 : tc == 32 ? 2 : 1, mask = (1 << lg) - 1;
+  const unsigned char* src = a + box;
+  for (int line = t; line < lines; line += SHIFTERS) {
+    const int base = line << (lg + 4);
+    uint4 c[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j <= mask) c[j] = *reinterpret_cast<const uint4*>(src + swizzled(base + 16 * j, mask));
+    const unsigned left = *reinterpret_cast<const unsigned*>(strips + 16 * line + 12);
+    const unsigned right = *reinterpret_cast<const unsigned*>(strips + strip + 16 * line);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j > mask) break;
+      const uint4 v = c[j];
+      const unsigned w0 = j == 0 ? left : c[j > 0 ? j - 1 : 0].w;
+      const unsigned w2 = j == mask ? right : c[j < 7 ? j + 1 : 7].x;
+      const int off = swizzled(base + 16 * j, mask);
+      *reinterpret_cast<uint4*>(a + off) =
+          make_uint4(__byte_perm(w0, v.x, 0x5432), __byte_perm(v.x, v.y, 0x5432),
+                     __byte_perm(v.y, v.z, 0x5432), __byte_perm(v.z, v.w, 0x5432));
+      *reinterpret_cast<uint4*>(a + 2 * box + off) =
+          make_uint4(__byte_perm(v.x, v.y, 0x5432), __byte_perm(v.y, v.z, 0x5432),
+                     __byte_perm(v.z, v.w, 0x5432), __byte_perm(v.w, w2, 0x5432));
+    }
+  }
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -22,6 +22,10 @@ kernel to another, or to the plain version: the routing is decided by
 shape. The TPU kernel's lane packing, W-pair stride-2 packing, im2col and
 16-channel padding are TPU layout devices and have no counterpart here: a
 stride-2 conv reads its (unpacked) input directly.
+
+``conv_group_diff`` (``conv_chain_kernel.py:conv_group_diff``) is the
+differentiable form; its backward runs on the TMA kernel's adjoint
+epilogue and ``csrc/conv_group_dw.cu`` (its docstring gives the routes).
 """
 
 from __future__ import annotations
@@ -428,6 +432,7 @@ def _tma_lib():
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -441,11 +446,15 @@ def _tma_aligned(segs: Sequence[torch.Tensor]) -> bool:
 
 
 def launch_tma(segs: Sequence[torch.Tensor], packed: torch.Tensor,
-               bias: torch.Tensor, out: torch.Tensor, spec: ConvSpec,
-               what: str, tma: dict) -> None:
+               bias: torch.Tensor | None, out: torch.Tensor, spec: ConvSpec,
+               what: str, tma: dict, gout: torch.Tensor | None = None,
+               act: torch.Tensor | None = None) -> None:
     """One conv on ``csrc/conv_group_tma.cu`` (and its split-K pass):
     ``out`` = the conv of the segments ``segs`` with the packing of
-    ``packed`` for their channel counts (``tma`` caches it)."""
+    ``packed`` for their channel counts (``tma`` caches it). ``bias`` None
+    takes the adjoint epilogue of B3's backward: ``out`` = the conv (+
+    ``gout``), times 0.1 where ``act`` is negative (either None: left
+    out; both ``[B, cout, H, W]`` channel-contiguous views)."""
     chans = tuple(t.shape[1] for t in segs)
     wt = tma.get(chans)
     if wt is None:
@@ -461,10 +470,15 @@ def launch_tma(segs: Sequence[torch.Tensor], packed: torch.Tensor,
                          dtype=torch.float32, device=out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     code = _tma_lib()(len(segs), ptrs, bstr, cs, b, h, w, codes, nchunk,
-                      wt.data_ptr(), wt.shape[0], nt, ntn, bias.data_ptr(),
+                      wt.data_ptr(), wt.shape[0], nt, ntn,
+                      None if bias is None else bias.data_ptr(),
                       out.data_ptr(), out.stride(0), spec.cout, int(spec.act),
                       tma_tile_cols(w), split,
-                      None if ws is None else ws.data_ptr(), stream)
+                      None if ws is None else ws.data_ptr(),
+                      None if gout is None else gout.data_ptr(),
+                      0 if gout is None else gout.stride(0),
+                      None if act is None else act.data_ptr(),
+                      0 if act is None else act.stride(0), stream)
     _build.check(code, what)
 
 
@@ -549,12 +563,467 @@ conv_group.staged_launches = 0
 conv_group.tma_launches = 0
 
 
+# -- B3: conv_group_diff and its backward ------------------------------------
+#
+# The adjoint of a DenseNet conv chain is a conv chain run in reverse. Conv
+# j's masked cotangent g~_j = (gout_j + sum over the convs k reading block
+# n_in + j of convT(g~_k, W_k[that block])) x LeakyReLU'(act_j) is kept in a
+# gradient stripe laid out as the forward's; at stride 1 convT(g, W) is the
+# conv of g with W flipped in space and its in and out channels swapped,
+# so a block's cotangent is one conv over the gradient-stripe segment of its
+# readers (csrc/conv_group_tma.cu's adjoint epilogue), and dW_j, db_j are
+# sums over pixels of g~_j against the windows of conv j's reads
+# (csrc/conv_group_dw.cu).
+
+# The dW kernel (these match csrc/conv_group_dw.cu): K steps of DW_PIX
+# pixels of one row, read channels in chunks of DW_CHUNK (one wgmma M, a
+# segment's last chunk zero-filled past its end), couts in tiles of 2 nw,
+# nw one of DW_NW couts per consumer warpgroup.
+DW_PIX = 64
+DW_CHUNK = 64
+DW_MAX_CHUNKS = 64
+DW_NW = (8, 16, 32)
+
+
+def dw_cout_tile(cout: int) -> tuple[int, int]:
+    """``(nw, tiles)``: couts per consumer warpgroup, the smallest of
+    ``DW_NW`` whose two warpgroups hold ``cout`` (else 32), and the tiles
+    of ``2 nw`` couts."""
+    nw = next((n for n in DW_NW if cout <= 2 * n), DW_NW[-1])
+    return nw, -(-cout // (2 * nw))
+
+
+def dw_chunks(chans: Sequence[int]) -> list[tuple[int, int]]:
+    """The dW kernel's M chunks over read segments of ``chans`` channels,
+    in order: ``(segment, first channel)``, ``DW_CHUNK`` channels each."""
+    out = [(s, c0) for s, c in enumerate(chans) for c0 in range(0, c, DW_CHUNK)]
+    if len(out) > DW_MAX_CHUNKS:
+        raise ValueError(f"{len(out)} dW chunks > {DW_MAX_CHUNKS}")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_plan(chans: tuple[int, ...]):
+    chunks = dw_chunks(chans)
+    return (ctypes.c_int * len(chunks))(*[seg | c0 << 3 for seg, c0 in chunks]), len(chunks)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_split(b: int, h: int, w: int, nchunk: int, ntn: int) -> int:
+    """Blocks that share one (chunk, cout tile)'s K, the ``b h
+    ceil(w / DW_PIX)`` row steps: as many as fill one wave of the H100's
+    SMs with the ``nchunk x ntn`` units (1 where they fill it alone), at
+    most one a K step."""
+    ksteps = b * h * -(-w // DW_PIX)
+    return max(1, min(ksteps, H100_SMS // (nchunk * ntn)))
+
+
+def _dw_lib():
+    lib = _build.load("conv_group_dw")
+    fn = lib.ocf_conv3x3_dw
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _nchw(t: torch.Tensor) -> bool:
+    """A channel-contiguous ``[B, C, H, W]`` view (any batch stride)."""
+    _, _, h, w = t.shape
+    return t.stride()[1:] == (h * w, w, 1)
+
+
+def adjoint_plain(parts, gout: torch.Tensor | None, act: torch.Tensor | None,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the adjoint conv (``csrc/conv_group_tma.cu``'s
+    adjoint epilogue): for each part ``(segs, packed, dilation)`` the conv
+    of the channel concat of ``segs`` with the adjoint weights ``packed``
+    (:func:`adjoint_packed`), fp32 and summed in fp32; plus ``gout``; times
+    0.1 where ``act`` is negative; one rounding to ``dtype``."""
+    acc = None
+    for segs, packed, d in parts:
+        x = torch.cat([t.float() for t in segs], 1)
+        w = packed.float().view(3, 3, x.shape[1], -1).permute(3, 2, 0, 1)
+        with full_fp32_convs(torch.float32):
+            y = F.conv2d(x, w, padding=d, dilation=d)
+        acc = y if acc is None else acc + y
+    if gout is not None:
+        acc = acc + gout.float()
+    if act is not None:
+        acc = torch.where(act >= 0, acc, acc * 0.1)
+    return acc.to(dtype)
+
+
+def conv_adjoint(parts, gout: torch.Tensor | None, act: torch.Tensor | None,
+                 out: torch.Tensor, tma: dict | None = None,
+                 what: str = "conv_group_diff dX") -> torch.Tensor:
+    """``out`` (a ``[B, C, H, W]`` channel-contiguous view) = the adjoint
+    conv of :func:`adjoint_plain`. On CUDA the kernel: one part of
+    dilation 1 on ``csrc/conv_group_tma.cu`` (its adjoint epilogue, the
+    TMA packing cached in ``tma``), counted in
+    ``conv_group_diff.dx_launches``; anything else raises. On the CPU the
+    plain version."""
+    if out.device.type == "cpu":
+        return out.copy_(adjoint_plain(parts, gout, act, out.dtype))
+    if len(parts) != 1 or parts[0][2] != 1:
+        raise ValueError(f"{what}: the kernel takes one part of dilation 1")
+    segs, packed, _ = parts[0]
+    segs = merge_segments(segs)
+    b, c, h, w = out.shape
+    spec = ConvSpec((), c, act=False)
+    if gout is not None:
+        gout = gout.contiguous()
+    views = [out, *(t for t in (gout, act) if t is not None)]
+    if (not is_tma(out.dtype, spec, (h, w)) or not _tma_aligned(segs)
+            or any(t.dtype != out.dtype or t.shape != out.shape or not _nchw(t)
+                   for t in views) or any(t.dtype != out.dtype or not _nchw(t) for t in segs)):
+        raise ValueError(f"{what}: the TMA kernel does not take {tuple(out.shape)} "
+                         f"{out.dtype}")
+    launch_tma(segs, packed, None, out, spec, what, {} if tma is None else tma, gout, act)
+    conv_group_diff.dx_launches += 1
+    return out
+
+
+def dw_plain(reads: Sequence[torch.Tensor], g: torch.Tensor, w_dtype: torch.dtype,
+             b_dtype: torch.dtype, dilation: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``csrc/conv_group_dw.cu``: ``(dW [cout, Cin, 3, 3]
+    in w_dtype, db [cout] in b_dtype)`` of a 3x3 conv of stride 1 over the
+    channel concat of ``reads`` whose output cotangent is ``g``: per tap a
+    contraction over the pixels of g with the reads' window, and the sum
+    of g, in fp32."""
+    x = torch.cat([t.float() for t in reads], 1)
+    h, w = g.shape[2:]
+    d = dilation
+    xp = F.pad(x, (d, d, d, d))
+    g32 = g.float()
+    with full_fp32_convs(torch.float32):
+        taps = [torch.einsum("bohw,bihw->oi", g32, xp[:, :, ky * d:ky * d + h, kx * d:kx * d + w])
+                for ky in range(3) for kx in range(3)]
+    dw = torch.stack(taps, -1).view(g.shape[1], x.shape[1], 3, 3)
+    return dw.to(w_dtype), g32.sum((0, 2, 3)).to(b_dtype)
+
+
+def conv_dw(reads: Sequence[torch.Tensor], g: torch.Tensor, w_dtype: torch.dtype,
+            b_dtype: torch.dtype, dilation: int = 1,
+            what: str = "conv_group_diff dW") -> tuple[torch.Tensor, torch.Tensor]:
+    """dW and db of :func:`dw_plain`. On CUDA ``csrc/conv_group_dw.cu``
+    (bf16, dilation 1, 16-byte rows, channel-contiguous reads and ``g``;
+    anything else raises), counted in ``conv_group_diff.dw_launches``; its
+    fp32 partial sums go to a workspace and a second pass sums them in a
+    fixed order. On the CPU the plain version."""
+    if g.device.type == "cpu":
+        return dw_plain(reads, g, w_dtype, b_dtype, dilation)
+    segs = merge_segments(reads)
+    b, cout, h, w = g.shape
+    bf16 = torch.bfloat16
+    if (dilation != 1 or w % 8 or {w_dtype, b_dtype, g.dtype} != {bf16}
+            or any(t.dtype != bf16 or not _nchw(t) or t.shape[2:] != g.shape[2:]
+                   for t in (*segs, g)) or not _tma_aligned([*segs, g])):
+        raise ValueError(f"{what}: the dW kernel does not take {tuple(g.shape)} "
+                         f"{g.dtype} (dilation {dilation})")
+    chans = tuple(t.shape[1] for t in segs)
+    codes, nchunk = _dw_plan(chans)
+    nw, ntn = dw_cout_tile(cout)
+    split = dw_split(b, h, w, nchunk, ntn)
+    dev = g.device
+    n_ws = nchunk * ntn * split * 2 * nw * DW_CHUNK * 9
+    ws = torch.empty(n_ws + ntn * split * 2 * nw, dtype=torch.float32, device=dev)
+    ws_db = ws[n_ws:]
+    dw = torch.empty((cout, sum(chans), 3, 3), dtype=bf16, device=dev)
+    db = torch.empty(cout, dtype=bf16, device=dev)
+    ptrs, bstr, cs = segment_args(segs)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = _dw_lib()(len(segs), ptrs, bstr, cs, b, h, w, codes, nchunk, g.data_ptr(),
+                     g.stride(0), cout, nw, split, ws.data_ptr(), ws_db.data_ptr(),
+                     dw.data_ptr(), db.data_ptr(), stream)
+    _build.check(code, what)
+    conv_group_diff.dw_launches += 1
+    return dw, db
+
+
+def block_readers(specs: Sequence[ConvSpec], chans: Sequence[int],
+                  bid: int) -> list[tuple[int, int]]:
+    """``(conv k, channel offset)`` of each read of block ``bid``, in conv
+    order: the block's channels start at that offset of conv k's weight
+    input channels (``chans``: every block's channel count)."""
+    out = []
+    for k, s in enumerate(specs):
+        off = 0
+        for r in s.reads:
+            if r == bid:
+                out.append((k, off))
+            off += chans[r]
+    return out
+
+
+def adjoint_packed(packed: Sequence[torch.Tensor], specs: Sequence[ConvSpec], cb: int,
+                   readers: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """The adjoint weights of a block of ``cb`` channels read by
+    ``readers`` (:func:`block_readers`), in :func:`pack_weights`' layout
+    over the readers' cotangents: ``[9 * sum(cout_k), cb]``, row ``tap *
+    Cin + c``; the block's rows of each reader's forward packing
+    (``packed[k]``: ``[9 * Cin_k, cout_pad]``), its couts as input
+    channels, the taps reversed (the 3x3 window flipped in both axes).
+    One cat and one flip on the packing's device."""
+    pieces = []
+    for k, off in readers:
+        p = packed[k]
+        p = p.view(9, p.shape[0] // 9, p.shape[1])
+        pieces.append(p[:, off:off + cb, :specs[k].cout].transpose(1, 2))
+    return torch.cat(pieces, 1).flip(0).reshape(-1, cb)
+
+
+def reader_chans(specs: Sequence[ConvSpec], ks: Sequence[int]) -> tuple[int, ...]:
+    """The channel counts of the gradient-stripe segments of readers
+    ``ks`` as :func:`merge_segments` forms them: consecutive convs' blocks
+    merged."""
+    out, prev = [], None
+    for k in ks:
+        if prev is not None and k == prev + 1:
+            out[-1] += specs[k].cout
+        else:
+            out.append(specs[k].cout)
+        prev = k
+    return tuple(out)
+
+
+def input_runs(specs: Sequence[ConvSpec], chans: Sequence[int],
+               need: Sequence[bool]) -> list[tuple[int, ...]]:
+    """The group inputs whose cotangents are convs (some conv reads them,
+    they ``need`` a gradient), in runs of consecutive inputs that every
+    conv reading one of them reads all of, together and in order: one
+    adjoint conv a run, over the same readers (the main path's four
+    decoder inputs are one run)."""
+    runs: list[tuple[int, ...]] = []
+    for r, want in enumerate(need):
+        if not want or not block_readers(specs, chans, r):
+            continue
+        run = (*runs[-1], r) if runs and runs[-1][-1] == r - 1 else None
+        if run is not None and all(
+                not any(b in run for b in s.reads)
+                or (sum(b in run for b in s.reads) == len(run)
+                    and s.reads[s.reads.index(run[0]):][:len(run)] == run)
+                for s in specs):
+            runs[-1] = run
+        else:
+            runs.append((r,))
+    return runs
+
+
+@functools.lru_cache(maxsize=64)
+def _adjoint_layout(specs: tuple[ConvSpec, ...], chans: tuple[int, ...],
+                    need: tuple[bool, ...], kernel: bool, device: torch.device):
+    """Where :func:`adjoint_plan`'s tensors come from, for one group
+    geometry: ``(layout, index)``. ``index`` (int64, on ``device``) holds,
+    for every element of every plan tensor laid end to end, 1 + its
+    position in the group's OIHW weights flattened and concatenated (0: a
+    zero of the padding); ``layout`` maps each plan key to its parts
+    ``(convs, dilation, (start, end, shape), tma)``, ``tma`` ``(segments,
+    start, end, shape)`` or None. Built by the packing functions
+    themselves run on the weights' positions, once per geometry."""
+    n_in = len(chans) - len(specs)
+    pos_packed, base = [], 1
+    for s in specs:
+        cin = sum(chans[r] for r in s.reads)
+        pos = torch.arange(base, base + s.cout * cin * 9, device=device)
+        pos_packed.append(pack_weights(pos.view(s.cout, cin, 3, 3), torch.int64))
+        base += s.cout * cin * 9
+    pieces, layout, at = [], {}, 0
+
+    def put(t):
+        nonlocal at
+        pieces.append(t.reshape(-1))
+        at += t.numel()
+        return at - t.numel(), at, tuple(t.shape)
+
+    stripe = [(bid, (bid,)) for bid in range(n_in, len(chans))]
+    for key, ids in stripe + [(run, run) for run in input_runs(specs, chans, need[:n_in])]:
+        readers = block_readers(specs, chans, ids[0])
+        if not readers:
+            continue
+        cb = sum(chans[b] for b in ids)
+        parts = []
+        for d in dict.fromkeys(specs[k].dilation for k, _ in readers):
+            rs = [(k, off) for k, off in readers if specs[k].dilation == d]
+            ks = [k for k, _ in rs]
+            packed = adjoint_packed(pos_packed, specs, cb, rs)
+            tma = None
+            if kernel:
+                seg = reader_chans(specs, ks)
+                tma = (seg, *put(pack_tma_weights(packed, seg, cb)))
+            parts.append((ks, d, put(packed), tma))
+        layout[key] = parts
+    return layout, torch.cat(pieces)
+
+
+def adjoint_plan(group: ConvGroup, chans: Sequence[int], need: Sequence[bool],
+                 kernel: bool) -> dict:
+    """Per block whose cotangent is a conv (a stripe block that some conv
+    reads, by its id; a run of :func:`input_runs`, by the tuple of its
+    ids): per dilation of its readers ``(convs, dilation, adjoint_packed,
+    tma)``, ``tma`` the TMA kernel's packing of it for the readers'
+    segments (``kernel``) or empty. Packed once per forward call, for the
+    backward: one cat of the weights and one gather through the index of
+    :func:`_adjoint_layout` (built once per group geometry), every tensor
+    a view of the gathered one."""
+    ws = group.weights
+    layout, index = _adjoint_layout(group.specs, tuple(chans), tuple(need), kernel,
+                                    ws[0].device)
+    vals = torch.cat([ws[0].new_zeros(1), *(w.reshape(-1) for w in ws)])[index]
+    view = lambda a, b, shape: vals[a:b].view(shape)  # noqa: E731
+    return {key: [(ks, d, view(*packed), {} if tma is None else {tma[0]: view(*tma[1:])})
+                  for ks, d, packed, tma in parts]
+            for key, parts in layout.items()}
+
+
+def backward_route(inputs: Sequence[torch.Tensor], specs: Sequence[ConvSpec],
+                   dtype: torch.dtype) -> str:
+    """``"kernel"``, ``"plain"`` or ``"vjp"``: how ``conv_group_diff``'s
+    backward runs a group (its docstring)."""
+    if any(s.stride != 1 for s in specs):
+        return "vjp"
+    if inputs[0].device.type == "cpu":
+        return "plain"
+    hw = tuple(inputs[0].shape[2:])
+    if all(is_tma(dtype, s, hw) for s in specs) and _tma_aligned(inputs):
+        return "kernel"
+    return "vjp"
+
+
+def chain_backward(plan: dict, specs: Sequence[ConvSpec], offsets: Sequence[int],
+                   width: int, inputs, weights, acts, gouts, bias_dtypes):
+    """``(dinputs, dweights, dbiases)`` of a conv group from its adjoint
+    ``plan`` (:func:`adjoint_plan`): per conv newest first, its masked
+    cotangent into the gradient stripe (:func:`conv_adjoint` where convs
+    read its block; else ``gout`` times LeakyReLU' as a plain torch op, or
+    zeros where no cotangent reaches it), then its dW and db
+    (:func:`conv_dw`; none where no cotangent reaches it); then the inputs'
+    cotangents, one :func:`conv_adjoint` a run of the plan, each input's a
+    channel range of its run's."""
+    n_in, n = len(inputs), len(specs)
+    b = inputs[0].shape[0]
+    h, w = acts[0].shape[2:]
+    gs = torch.empty((b, width, h, w), dtype=acts[0].dtype, device=acts[0].device)
+    gv = [gs[:, o:o + s.cout] for o, s in zip(offsets, specs)]
+    # conv reads for dW: the group inputs as one segment where a conv reads
+    # them all first, in order (fewer zero-padded channel chunks)
+    xin = torch.cat(list(inputs), 1) if n_in > 1 else inputs[0]
+
+    def segments(ids, view, stripe):
+        """The views of blocks ``ids``, each run of consecutive stripe
+        blocks (adjacent channel ranges) as one view."""
+        out, prev = [], None
+        for i in ids:
+            v = view(i)
+            if prev is not None and stripe(i) and i == prev + 1:
+                p = out[-1]
+                out[-1] = p.as_strided((p.shape[0], p.shape[1] + v.shape[1], *p.shape[2:]),
+                                       p.stride())
+            else:
+                out.append(v)
+            prev = i if stripe(i) else None
+        return out
+
+    def reads(s):
+        prefix = s.reads[:n_in] == tuple(range(n_in))
+        return [xin] * prefix + segments(
+            s.reads[n_in * prefix:], lambda r: inputs[r] if r < n_in else acts[r - n_in],
+            lambda r: r >= n_in)
+
+    def adjoint(parts, gout, act, out):
+        return conv_adjoint([(segments(ks, gv.__getitem__, lambda k: True), packed, d)
+                             for ks, d, packed, _ in parts],
+                            gout, act, out, parts[0][3] if len(parts) == 1 else None)
+
+    dws, dbs = [None] * n, [None] * n
+    for j in reversed(range(n)):
+        s, g = specs[j], gouts[j]
+        act = acts[j] if s.act else None
+        if n_in + j in plan:
+            adjoint(plan[n_in + j], g, act, gv[j])
+        elif g is None:  # nothing reaches this conv's output
+            gv[j].zero_()
+            continue
+        else:
+            gv[j].copy_(g if act is None else torch.where(act >= 0, g, g * 0.1))
+        dws[j], dbs[j] = conv_dw(reads(s), gv[j], weights[j].dtype, bias_dtypes[j],
+                                 s.dilation)
+    dins = [None] * n_in
+    for run in (k for k in plan if isinstance(k, tuple)):
+        out = torch.empty((b, sum(inputs[r].shape[1] for r in run), h, w),
+                          dtype=inputs[run[0]].dtype, device=gs.device)
+        adjoint(plan[run], None, None, out)
+        off = 0
+        for r in run:
+            dins[r] = out[:, off:off + inputs[r].shape[1]]
+            off += inputs[r].shape[1]
+    return dins, dws, dbs
+
+
+def vjp_backward(specs: Sequence[ConvSpec], inputs, weights, acts, gouts, need_in,
+                 bias_dtypes):
+    """B3's backward as the JAX adjoint (``_diff_bwd``) runs it: per conv in
+    reverse, the LeakyReLU mask from the stored activation, an fp32 bias
+    gradient, one conv VJP (cuDNN's ``aten.convolution_backward``) per read
+    block, the cotangents summed in the compute dtype.
+    ``conv_group_diff.vjp_calls`` counts the VJPs."""
+    n_in, n = len(inputs), len(specs)
+
+    def block(bid):
+        return inputs[bid] if bid < n_in else acts[bid - n_in]
+
+    gblk: dict[int, torch.Tensor] = {}
+    dws, dbs = [None] * n, [None] * n
+    for j in reversed(range(n)):
+        s = specs[j]
+        g, extra = gouts[j], gblk.pop(n_in + j, None)
+        if g is None:
+            g = extra
+        elif extra is not None:
+            g = g + extra.to(g.dtype)
+        if g is None:  # nothing downstream reads this conv
+            continue
+        if s.act:
+            g = g * torch.where(acts[j] >= 0, 1.0, 0.1).to(g.dtype)
+        dbs[j] = g.float().sum((0, 2, 3)).to(bias_dtypes[j])
+        dacc = g.to(block(s.reads[0]).dtype)
+        parts, off = [], 0
+        for bid in s.reads:
+            x_b = block(bid)
+            cb = x_b.shape[1]
+            want_dx = bid >= n_in or need_in[bid]
+            with full_fp32_convs(dacc.dtype):
+                dx, dw, _ = torch.ops.aten.convolution_backward(
+                    dacc, x_b, weights[j][:, off:off + cb], None,
+                    [s.stride] * 2, [s.dilation] * 2, [s.dilation] * 2, False,
+                    [0, 0], 1, [want_dx, True, False])
+            conv_group_diff.vjp_calls += 1
+            parts.append(dw)
+            off += cb
+            if want_dx:
+                prev = gblk.get(bid)
+                gblk[bid] = dx if prev is None else prev + dx
+        dws[j] = torch.cat(parts, 1).to(weights[j].dtype)
+    dins = [gblk[r].to(inputs[r].dtype) if r in gblk else None for r in range(n_in)]
+    return dins, dws, dbs
+
+
 class _ConvGroupDiff(torch.autograd.Function):
-    """Forward: ``conv_group`` with every block emitted; backward: the port
-    of ``_diff_bwd``, one conv VJP per (spec, read block)."""
+    """Forward: ``conv_group`` with every block emitted, and (where a
+    gradient is wanted and the backward is not the VJP route) the adjoint
+    weights packed for the backward; backward: :func:`chain_backward` or
+    :func:`vjp_backward` (``conv_group_diff``'s docstring)."""
 
     @staticmethod
-    def forward(ctx, specs, n_inputs, dtype, *tensors):
+    def forward(ctx, specs, n_inputs, dtype, vjp, *tensors):
         n = len(specs)
         inputs = list(tensors[:n_inputs])
         weights = tensors[n_inputs:n_inputs + n]
@@ -562,7 +1031,14 @@ class _ConvGroupDiff(torch.autograd.Function):
         group = prepare_group(weights, biases, specs, n_inputs, dtype,
                               inputs[0].device, [x.shape[1] for x in inputs])
         acts = conv_group(inputs, group, counters=(conv_group_diff,))
+        ctx.route = "vjp" if vjp else backward_route(inputs, specs, dtype)
+        ctx.plan = None
+        if ctx.route != "vjp" and any(ctx.needs_input_grad[4:]):
+            chans = [x.shape[1] for x in inputs] + [s.cout for s in specs]
+            ctx.plan = adjoint_plan(group, chans, ctx.needs_input_grad[4:4 + n_inputs],
+                                    ctx.route == "kernel")
         ctx.specs, ctx.n_inputs = specs, n_inputs
+        ctx.offsets, ctx.width = group.offsets, group.width
         ctx.bias_dtypes = [b.dtype for b in biases]
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(*inputs, *weights, *acts)
@@ -574,53 +1050,20 @@ class _ConvGroupDiff(torch.autograd.Function):
         n = len(specs)
         saved = ctx.saved_tensors
         inputs, weights, acts = saved[:n_in], saved[n_in:n_in + n], saved[n_in + n:]
-        need_in = ctx.needs_input_grad[3:3 + n_in]
-
-        def block(bid):
-            return inputs[bid] if bid < n_in else acts[bid - n_in]
-
-        # cotangents accumulate in the compute dtype; bias grads reduce in
-        # fp32 (the JAX adjoint's choices)
-        gblk: dict[int, torch.Tensor] = {}
-        dws, dbs = [None] * n, [None] * n
-        for j in reversed(range(n)):
-            s = specs[j]
-            g, extra = gouts[j], gblk.pop(n_in + j, None)
-            if g is None:
-                g = extra
-            elif extra is not None:
-                g = g + extra.to(g.dtype)
-            if g is None:  # nothing downstream reads this conv
-                continue
-            if s.act:
-                g = g * torch.where(acts[j] >= 0, 1.0, 0.1).to(g.dtype)
-            dbs[j] = g.float().sum((0, 2, 3)).to(ctx.bias_dtypes[j])
-            dacc = g.to(block(s.reads[0]).dtype)
-            parts, off = [], 0
-            for bid in s.reads:
-                x_b = block(bid)
-                cb = x_b.shape[1]
-                want_dx = bid >= n_in or need_in[bid]
-                with full_fp32_convs(dacc.dtype):
-                    dx, dw, _ = torch.ops.aten.convolution_backward(
-                        dacc, x_b, weights[j][:, off:off + cb], None,
-                        [s.stride] * 2, [s.dilation] * 2, [s.dilation] * 2, False,
-                        [0, 0], 1, [want_dx, True, False])
-                parts.append(dw)
-                off += cb
-                if want_dx:
-                    prev = gblk.get(bid)
-                    gblk[bid] = dx if prev is None else prev + dx
-            dws[j] = torch.cat(parts, 1).to(weights[j].dtype)
-        dins = [gblk[r].to(inputs[r].dtype) if r in gblk else None
-                for r in range(n_in)]
-        return (None, None, None, *dins, *dws, *dbs)
+        if ctx.route == "vjp":
+            grads = vjp_backward(specs, inputs, weights, acts, gouts,
+                                 ctx.needs_input_grad[4:4 + n_in], ctx.bias_dtypes)
+        else:
+            grads = chain_backward(ctx.plan, specs, ctx.offsets, ctx.width, inputs,
+                                   weights, acts, gouts, ctx.bias_dtypes)
+        dins, dws, dbs = grads
+        return (None, None, None, None, *dins, *dws, *dbs)
 
 
 def conv_group_diff(inputs: Sequence[torch.Tensor],
                     weights: Sequence[torch.Tensor],
                     biases: Sequence[torch.Tensor],
-                    specs: Sequence[ConvSpec]) -> tuple[torch.Tensor, ...]:
+                    specs: Sequence[ConvSpec], vjp: bool = False) -> tuple[torch.Tensor, ...]:
     """Differentiable conv chain (port of ``conv_chain_kernel.py``
     ``conv_group_diff``): returns EVERY conv's output ``[B, cout, Ho, Wo]``
     (views of one stripe), each spec's ``emit`` flag notwithstanding.
@@ -632,16 +1075,39 @@ def conv_group_diff(inputs: Sequence[torch.Tensor],
     cast from fp32 master weights). Forward: the conv-group kernel on CUDA
     (``conv_group_diff.launches`` counts its conv launches, which
     ``conv_group.launches`` counts as well), ``conv_group_plain`` on the
-    CPU. Backward: per spec in reverse, the LeakyReLU mask from the stored
-    activation, a fp32 bias-gradient sum, one conv VJP
-    (``aten.convolution_backward``) per read block; the VJPs are plain
-    products outside any kernel, as the JAX adjoint leaves them to XLA.
+    CPU.
+
+    Backward, one of three routes, chosen by the forward from the group:
+
+    - on CUDA, a group whose every conv the TMA kernel takes (bf16, stride
+      1, dilation 1, rows of 16-byte multiples: :func:`is_tma`) and whose
+      inputs are TMA-aligned runs :func:`chain_backward` on two hand
+      kernels: each block's cotangent on ``csrc/conv_group_tma.cu``'s
+      adjoint epilogue (``conv_group_diff.dx_launches``), each conv's dW
+      and db on ``csrc/conv_group_dw.cu`` (``conv_group_diff.dw_launches``),
+      fp32 sums with one rounding each; the adjoint weights are packed
+      once by the forward (:func:`adjoint_plan`). All 31 convs of the
+      448x1024 bf16 step run it. A block no conv reads (the head's, level
+      2's context conv's) takes ``gout`` times LeakyReLU' as a plain torch
+      op.
+    - on the CPU, every group of stride-1 convs runs the same
+      :func:`chain_backward` on the two kernels' plain versions (the
+      adjoint as ``F.conv2d`` with the flipped, transposed weights per
+      reader dilation, fp32 sums; dW as per-tap contractions over pixels).
+    - every other group keeps the VJP route, :func:`vjp_backward` (one
+      cuDNN conv VJP per read block, ``conv_group_diff.vjp_calls``), as the
+      reference leaves its backward to XLA: fp32 and dilated groups on
+      CUDA, KITTI's widths 76, 38 and 19, stride-2 specs anywhere. ``vjp``
+      forces it (the yardstick).
     """
     specs = tuple(dataclasses.replace(s, emit=True) for s in specs)
     inputs = list(inputs)
     dtype = inputs[0].dtype
-    return _ConvGroupDiff.apply(specs, len(inputs), dtype, *inputs,
+    return _ConvGroupDiff.apply(specs, len(inputs), dtype, vjp, *inputs,
                                 *weights, *biases)
 
 
 conv_group_diff.launches = 0
+conv_group_diff.dx_launches = 0
+conv_group_diff.dw_launches = 0
+conv_group_diff.vjp_calls = 0

@@ -24,8 +24,10 @@ change.
 
 Training (``diff=True``, and the forward half of :func:`fast_apply_pair`):
 the eager encoder under autograd; per decoder level one ``conv_group_diff``
-(the conv-group kernel forward with every block kept, cuDNN conv VJPs
-backward) with the five growth convs and the flow head, the up-flow and
+(the conv-group kernel forward with every block kept; its backward on the
+TMA kernel's adjoint epilogue and the dW kernel, or cuDNN conv VJPs where
+those do not take the group) with the five growth convs and the flow
+head, the up-flow and
 up-feat as ``F.conv_transpose2d`` (no phase-conv fusion, as in the JAX
 diff path); at level 2 one group with context conv 1, the rest of the
 context network eager; the differentiable cost volume (its backward a

@@ -47,7 +47,8 @@ from ocflow_torch.tools.spike_int8 import queued_ms
 
 ITERS = 20
 REMOVALS = {
-    "shift": [("          shift_lines(sa, lay.box", "          if (0) shift_lines(sa, lay.box")],
+    "shift": [("          shift_lines<SHIFTERS>(sa, lay.box",
+               "          if (0) shift_lines<SHIFTERS>(sa, lay.box")],
     "mma": [("              wgmma_tn<NT>(d[i],", "              if (false) wgmma_tn<NT>(d[i],")],
 }
 REMOVALS_Q8 = {

@@ -655,10 +655,83 @@ def test_conv_group_diff_grads_on_gpu(cuda_device):
         _close(a, b, torch.float32)
 
 
+def _bf16_group(rng, b, h, w, dev):
+    """A decoder-shaped bf16 group: four inputs (17, 8, 2, 2 channels),
+    growth (16, 16, 8, 8, 4), a 2-channel head without LeakyReLU, one conv
+    over the inputs and the growth blocks; weights at the init's scale."""
+    in_ch, growth = (17, 8, 2, 2), (16, 16, 8, 8, 4)
+    n_in = len(in_ch)
+    specs = ([ConvSpec(tuple(range(n_in + j)), g) for j, g in enumerate(growth)]
+             + [ConvSpec(tuple(range(n_in + 5)), 2, act=False),
+                ConvSpec(tuple(range(n_in + 5)), 8)])
+    chans = [*in_ch, *(s.cout for s in specs)]
+    t = lambda a: torch.tensor(a, dtype=torch.bfloat16, device=dev)  # noqa: E731
+    xs = [t(rng.normal(size=(b, c, h, w))) for c in in_ch]
+    ws = [t(rng.normal(size=(s.cout, sum(chans[r] for r in s.reads), 3, 3))
+            / np.sqrt(9 * sum(chans[r] for r in s.reads))) for s in specs]
+    bs = [t(rng.normal(size=(s.cout,)) * 0.1) for s in specs]
+    seeds = [t(rng.normal(size=(b, s.cout, h, w))) for s in specs]
+    return xs, ws, bs, specs, seeds
+
+
+def _diff_grads(xs, ws, bs, specs, seeds, vjp=False):
+    leaves = [a.clone().requires_grad_() for a in (*xs, *ws, *bs)]
+    n_in, n = len(xs), len(specs)
+    outs = conv_chain.conv_group_diff(leaves[:n_in], leaves[n_in:n_in + n],
+                                      leaves[n_in + n:], specs, vjp=vjp)
+    # the first growth block gets no cotangent of its own
+    torch.autograd.backward(outs[1:], [g.to(o.device) for o, g in zip(outs[1:], seeds[1:])])
+    return [a.grad for a in leaves]
+
+
+def _zero_bwd_counters():
+    for name in ("dx_launches", "dw_launches", "vjp_calls"):
+        setattr(conv_chain.conv_group_diff, name, 0)
+
+
+def test_conv_group_diff_backward_kernels_match_the_vjp_route(cuda_device):
+    """A bf16 group the TMA kernel takes (W 40, a multiple of 8 but not of
+    the kernels' 64-pixel lines) runs its backward on the two kernels: one
+    dX launch per growth block and one for its inputs, one dW launch per
+    conv, no cuDNN VJP; every gradient within 2^-6 of max|grad| of the VJP
+    route's (which adds bf16 partial sums where the kernels sum in fp32)."""
+    xs, ws, bs, specs, seeds = _bf16_group(np.random.default_rng(11), 2, 9, 40, cuda_device)
+    _zero_bwd_counters()
+    got = _diff_grads(xs, ws, bs, specs, seeds)
+    torch.cuda.synchronize()
+    f = conv_chain.conv_group_diff
+    assert (f.dx_launches, f.dw_launches, f.vjp_calls) == (6, len(specs), 0)
+    ref = _diff_grads(xs, ws, bs, specs, seeds, vjp=True)
+    assert f.vjp_calls == sum(len(s.reads) for s in specs)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+        _close(a, b, torch.bfloat16)
+
+
+def test_conv_group_diff_kitti_width_takes_the_vjp_route(cuda_device):
+    """At width 76 (KITTI's 320x1216 level 2: rows not a multiple of 16
+    bytes) the group's backward keeps the VJP route, counted there, and its
+    gradients are the CPU chain's (the two kernels' plain versions) within
+    2^-6 of max|grad|."""
+    xs, ws, bs, specs, seeds = _bf16_group(np.random.default_rng(12), 2, 6, 76, cuda_device)
+    _zero_bwd_counters()
+    got = _diff_grads(xs, ws, bs, specs, seeds)
+    torch.cuda.synchronize()
+    f = conv_chain.conv_group_diff
+    assert (f.dx_launches, f.dw_launches) == (0, 0)
+    assert f.vjp_calls == sum(len(s.reads) for s in specs)
+    cpu = [[a.cpu() for a in group] for group in (xs, ws, bs)]
+    ref = _diff_grads(*cpu, specs, [g.cpu() for g in seeds])
+    for a, b in zip(got, ref):
+        _close(a.cpu(), b, torch.bfloat16)
+
+
 def test_train_step_on_gpu_goes_through_the_kernels(cuda_device):
     """One bf16 step of the occlusion-aware fused path at 2x64x128 launches
     10 cost volumes, 5 backward, 31 conv_group_diff and 72 conv launches in
-    all, and stays near the plain path, the eager fp32 step: loss within
+    all, the conv_group_diff backward 18 dX and 19 dW launches (levels 4-2;
+    levels 6 and 5 are too narrow for the kernels and take the VJP route),
+    and stays near the plain path, the eager fp32 step: loss within
     1e-2 relative, whole-gradient relative L2 within 0.2 (bf16 rounding of
     a random-weight net; the 448x1024 step measures 0.12). The fp32 fused
     step is within 1e-4 (metrics) and 1e-2 (whole-gradient relative L2) of
@@ -684,9 +757,15 @@ def test_train_step_on_gpu_goes_through_the_kernels(cuda_device):
                 conv_chain.conv_group_diff)
     for c in counters:
         c.launches = 0
+    _zero_bwd_counters()
     m16, g16 = step()
     torch.cuda.synchronize()
     assert [c.launches for c in counters] == [10, 5, 72, 31]
+    # the backward: levels 4-2 (8, 16, 32 wide) on the kernels (6 dX, 6 / 6 /
+    # 7 dW), levels 6 and 5 (2 and 4 wide: rows under 16 bytes) on the VJP
+    # route, one VJP per (conv, read block): 21 + 39
+    f = conv_chain.conv_group_diff
+    assert (f.dx_launches, f.dw_launches, f.vjp_calls) == (18, 19, 60)
     m32, g32 = step(compute_dtype="float32")
     with _plain_cost_volume():
         me, ge = step(compute_dtype="float32", fast_forward="off")
